@@ -1,0 +1,201 @@
+"""The TD solve of the PyTorch port against ``repro.core.solve``, on the CPU.
+
+The reference's pencils and inverse-iteration start block are carried
+across (``repro_torch.interop``); both results are scored by the
+reference's own ``accuracy_report`` against the shared Table-3 bars.
+Also: failure containment, the device rule, the CLI, and import hygiene
+(the port and ``chip_smoke.py`` import neither JAX nor ``repro``).
+"""
+import ast
+import io
+import json
+import sys
+from contextlib import redirect_stdout
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import accuracy_report
+from repro.core import solve as j_solve
+from repro.data.problems import dft_like, md_like
+from repro_torch.core import gsyeig
+from repro_torch.core import solve
+from repro_torch.interop import problem_from_numpy, start_block_from_numpy
+from repro_torch.resilience.recovery import SolverError
+
+ROOT = Path(__file__).resolve().parents[1]
+N, S = 64, 6
+TABLE3 = {"relative_residual": 1e-12, "b_orthogonality": 1e-12}
+CASES = [("md", "smallest", False), ("md", "largest", False),
+         ("dft", "smallest", False), ("dft", "largest", False),
+         ("md", "smallest", True)]
+
+
+def _pencil(name):
+    p = (md_like if name == "md" else dft_like)(N)
+    return p, problem_from_numpy(p.A, p.B, p.exact_evals, p.name,
+                                 device="cpu")
+
+
+def _reference_x0(n, s):
+    # the block the reference's TD2 draws: PRNGKey(20120520), sorted ks
+    return np.array(jax.random.normal(jax.random.PRNGKey(20120520), (n, s),
+                                      jnp.float64))
+
+
+@pytest.mark.parametrize("problem,which,invert", CASES)
+def test_td_solve_parity(problem, which, invert):
+    p, tp = _pencil(problem)
+    ref = j_solve(p.A, p.B, S, variant="TD", which=which, invert=invert)
+    res = solve(tp.A, tp.B, S, variant="TD", which=which, invert=invert,
+                x0=start_block_from_numpy(_reference_x0(N, S), "cpu"),
+                device="cpu")
+    ev, ev_ref = res.evals.numpy(), np.asarray(ref.evals)
+    assert np.abs(ev - ev_ref).max() <= 1e-12 * np.abs(ev_ref).max()
+    assert np.abs((ev - ev_ref) / ev_ref).max() <= 1e-12
+    for X, lam in ((res.X.numpy(), ev), (np.asarray(ref.X), ev_ref)):
+        acc = accuracy_report(p.A, p.B, jnp.asarray(X), jnp.asarray(lam))
+        assert float(acc.relative_residual) <= TABLE3["relative_residual"]
+        assert float(acc.b_orthogonality) <= TABLE3["b_orthogonality"]
+    exact = np.asarray(p.exact_evals)
+    want = exact[:S] if which == "smallest" else exact[-S:]
+    assert np.abs(ev - want).max() <= 1e-10 * np.abs(exact).max()
+    assert set(res.stage_times) == {"GS1", "GS2", "TD1", "TD2", "TD3",
+                                    "BT1", "Tot."}
+    assert res.info["health"]["healthy"]
+
+
+def test_info_is_json_clean():
+    _, tp = _pencil("md")
+    res = solve(tp.A, tp.B, 3, device="cpu")
+    info = json.loads(json.dumps(res.info))
+    assert info["variant"] == "TD" and info["device"] == "cpu"
+    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0}
+    assert info["recovery"] == []
+    assert info["health"]["stages"] == {"GS1": True, "GS2": True,
+                                        "TD1": True, "OUT": True}
+
+
+def test_default_start_block_is_reproducible():
+    _, tp = _pencil("dft")
+    a = solve(tp.A, tp.B, 4, device="cpu")
+    b = solve(tp.A, tp.B, 4, device="cpu")
+    assert torch.equal(a.X, b.X)
+
+
+# ------------------------------------------------------- failure handling --
+
+def test_non_spd_b_is_a_cholesky_breakdown():
+    _, tp = _pencil("md")
+    B = tp.B.clone()
+    B[5, 5] = -10.0
+    with pytest.raises(SolverError) as ei:
+        solve(tp.A, B, 3, device="cpu")
+    diag = ei.value.diagnosis
+    assert diag["reason"] == "cholesky_breakdown" and diag["stage"] == "GS1"
+    assert [r["outcome"] for r in diag["recovery"]] == ["failed"] * 3
+    json.dumps(diag)
+
+
+def test_roundoff_indefinite_b_is_rescued_by_the_first_shift():
+    p, tp = _pencil("md")
+    B = np.eye(N)
+    B[0, 0] = -1e-16
+    ref = j_solve(p.A, jnp.asarray(B), 3, variant="TD")
+    res = solve(tp.A, torch.from_numpy(B), 3, device="cpu")
+    assert res.info["gs1_shift"] == ref.info["gs1_shift"] == 1e-14
+    assert res.info["recovery"] == ref.info["recovery"]
+
+
+def test_nonfinite_a_fails_gs2_and_retries_under_recover():
+    _, tp = _pencil("md")
+    A = tp.A.clone()
+    A[2, 3] = float("nan")
+    with pytest.raises(SolverError) as ei:
+        solve(A, tp.B, 3, device="cpu")
+    assert ei.value.diagnosis["stage"] == "GS2"
+    assert ei.value.diagnosis["reason"] == "nonfinite_stage"
+    with pytest.raises(SolverError) as ei:
+        solve(A, tp.B, 3, device="cpu", on_failure="recover", max_retries=2)
+    trail = ei.value.diagnosis["recovery"]
+    assert [r["action"] for r in trail] == ["transient_retry"] * 2
+    res = solve(A, tp.B, 3, device="cpu", on_failure="ignore")
+    assert not res.info["health"]["healthy"]
+    assert res.info["health"]["first_unhealthy_stage"] == "GS2"
+
+
+@pytest.mark.parametrize("kw", [dict(variant="TT"), dict(variant="KE"),
+                                dict(variant="KI"), dict(variant="auto"),
+                                dict(precision="mixed"), dict(td1="blocked"),
+                                dict(gs2="sygst"), dict(gs1="blocked")])
+def test_unported_options_raise(kw):
+    _, tp = _pencil("md")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve(tp.A, tp.B, 3, device="cpu", **kw)
+
+
+# ------------------------------------------------------------ device rule --
+
+def test_solve_needs_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tp = _pencil("md")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve(tp.A, tp.B, 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve(tp.A, tp.B, 3, device="cuda")
+    assert solve(tp.A, tp.B, 3, device="cpu").evals.shape == (3,)
+
+
+def test_cli_payload(monkeypatch):
+    from repro_torch.launch import eigsolve
+    monkeypatch.setattr(sys, "argv", ["eigsolve", "--problem", "md", "--n",
+                                      "40", "--s", "3", "--device", "cpu",
+                                      "--json"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        eigsolve.main()
+    payload = json.loads(buf.getvalue())
+    assert payload["variant"] == "TD" and payload["device"] == "cpu"
+    assert payload["relative_residual"] <= 1e-12
+    assert payload["b_orthogonality"] <= 1e-12
+    assert payload["max_abs_eval_error"] <= 1e-10
+    assert payload["kernel_launches"] == {"bisect_sturm": 0, "invit": 0}
+    assert set(payload["stage_times_s"]) == {"GS1", "GS2", "TD1", "TD2",
+                                             "TD3", "BT1", "Tot."}
+
+
+# --------------------------------------------------------- import hygiene --
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _banned(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names
+                        if _banned(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _banned(node.module or ""):
+                    bad.append((path.name, node.module))
+    assert not bad, bad
+
+
+def test_solve_signature_keeps_the_reference_defaults():
+    assert gsyeig.VARIANTS == ("TD", "TT", "KE", "KI")
+    assert gsyeig.SOLVE_SEED == 20120520
