@@ -1,16 +1,24 @@
 """Top-level GSYEIG solver: A X = B X Lambda, s << n wanted eigenpairs.
 
-The port carries the paper's TD variant: Cholesky (GS1), standard form by
-two triangular solves (GS2), Householder tridiagonalization (TD1), Sturm
-bisection and inverse iteration on the CUDA kernels (TD2), the reflector
-back-transform (TD3) and U^{-1} (BT1). TT, KE and KI are not ported yet
-and raise (ROADMAP.md §1 items 5-6), as do precisions other than fp64.
+The port carries three of the paper's four variants:
+  TD — Cholesky (GS1), standard form by two triangular solves (GS2),
+       Householder tridiagonalization (TD1), Sturm bisection and inverse
+       iteration on the CUDA kernels (TD2), the reflector back-transform
+       (TD3) and U^{-1} (BT1);
+  KE — GS1, GS2, thick-restart block Lanczos on the explicit C (KE_iter),
+       BT1;
+  KI — GS1, Lanczos on the implicit C = U^{-T} A U^{-1} (no GS2), BT1.
+With ``use_kernel=True`` every Krylov matvec runs the one-triangle CUDA
+kernel (``kernels/symv``); the default ``False`` is ``torch.matmul`` on the
+full matrix, as the reference's default is XLA's dot. TT is not ported yet
+and raises (ROADMAP.md §1 item 5), as do precisions other than fp64.
 
 ``which='smallest'|'largest'`` selects the end of the spectrum;
 ``invert=True`` applies the paper's MD trick (solve the inverse pair
 (B, A) for its largest eigenpairs — valid when A is also SPD — and map
 back). Every stage is timed to the end of its work on the device
-(``stage_times`` keys GS1 GS2 TD1 TD2 TD3 BT1 Tot.).
+(``stage_times`` keys GS1 GS2 TD1 TD2 TD3 BT1 Tot. for TD, GS1 GS2 KE_iter
+BT1 Tot. for KE, GS1 KI_iter BT1 Tot. for KI).
 """
 from __future__ import annotations
 
@@ -20,8 +28,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import kernels as _kernels
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.kernels.tridiag_eig import kernel as _td2_kernels
 from repro_torch.resilience.health import (array_finite, chol_health,
                                            host_finite, verdict_from_stages)
 from repro_torch.resilience.recovery import (SolverError, cholesky_shift_taus,
@@ -29,6 +37,8 @@ from repro_torch.resilience.recovery import (SolverError, cholesky_shift_taus,
 
 from .back_transform import back_transform_generalized
 from .cholesky import cholesky_upper, diag_shifted
+from .lanczos import default_subspace, lanczos_solve
+from .operators import ExplicitC, ImplicitC
 from .precision import ensure_strong, validate_precision
 from .residuals import b_normalize
 from .standard_form import to_standard_two_trsm
@@ -37,13 +47,12 @@ from .tridiag_eig import eigh_tridiag_selected
 
 VARIANTS = ("TD", "TT", "KE", "KI")
 
-#: seed of the default inverse-iteration start block (the reference's key)
+#: seed of the default start blocks: TD2's inverse iteration, and the
+#: Lanczos start block and filter probe (the reference's key)
 SOLVE_SEED = 20120520
 
 _NOT_PORTED = {
     "TT": "ROADMAP.md §1 item 5 (TT pipeline)",
-    "KE": "ROADMAP.md §1 item 6 (KE/KI pipeline)",
-    "KI": "ROADMAP.md §1 item 6 (KE/KI pipeline)",
     "auto": "ROADMAP.md §1 item 11 (analysis: the variant router)",
 }
 
@@ -95,10 +104,12 @@ def _check_options(variant: str, which: str, gs1: str, gs2: str,
 
 
 def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
-                gs1: str, gs2: str, td1: str, x0, generator,
-                precision: str, on_failure: str, recovery: list,
+                gs1: str, gs2: str, td1: str, m, tol: float,
+                max_restarts: int, use_kernel: bool, clustered: bool,
+                krylov_block, filter, x0, v0, probe_v0,  # noqa: A002
+                generator, precision: str, on_failure: str, recovery: list,
                 device: torch.device) -> GSyEigResult:
-    """One attempt of the TD pipeline. Stage verdicts land in
+    """One attempt of the pipeline. Stage verdicts land in
     ``info['_stage_health']`` for ``solve`` to fold into ``info['health']``;
     a breakdown or non-finite stage raises a diagnosed ``SolverError``
     unless ``on_failure == 'ignore'``."""
@@ -107,13 +118,19 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     A = ensure_strong(A, device)
     B = ensure_strong(B, device)
     n = A.shape[0]
-    if generator is None and x0 is None:
+    if generator is None:
         generator = torch.Generator(device=device).manual_seed(SOLVE_SEED)
     stage_health: Dict[str, bool] = {}
     times: Dict[str, float] = {}
     info: Dict[str, Any] = {"variant": variant, "n": n, "s": s,
                             "invert": invert, "which": which,
                             "precision": precision, "device": str(device)}
+    # Krylov knobs: block size p (1 on one device) and the start filter
+    # degree (16 on a clustered wanted end, else off)
+    p = krylov_block if krylov_block is not None else 1
+    filter_degree = filter if filter is not None else (16 if clustered else 0)
+    if variant in ("KE", "KI"):
+        info["krylov"] = {"p": int(p), "filter_degree": int(filter_degree)}
 
     B_orig = B
     if invert:
@@ -159,28 +176,69 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                  "rescue it")
     stage_health["GS1"] = gs1_ok
 
-    # ---- GS2: C = U^{-T} A U^{-1} ----------------------------------------
-    C, gs2_ok = _timed(times, "GS2", device)(_gs2_fused, A, U)
-    stage_health["GS2"] = bool(gs2_ok)
-    if not stage_health["GS2"] and on_failure != "ignore":
-        fail("GS2", "nonfinite_stage", "non-finite standard-form C after GS2",
-             "non-finite A, or U from a near-breakdown GS1; transient "
-             "corruption is retryable under on_failure='recover'")
+    # ---- GS2: C = U^{-T} A U^{-1} (not for KI) ---------------------------
+    C = None
+    if variant in ("TD", "KE"):
+        C, gs2_ok = _timed(times, "GS2", device)(_gs2_fused, A, U)
+        stage_health["GS2"] = bool(gs2_ok)
+        if not stage_health["GS2"] and on_failure != "ignore":
+            fail("GS2", "nonfinite_stage",
+                 "non-finite standard-form C after GS2",
+                 "non-finite A, or U from a near-breakdown GS1; transient "
+                 "corruption is retryable under on_failure='recover'")
 
-    # ---- TD1 / TD2 / TD3 -------------------------------------------------
-    ks = (torch.arange(s, device=device) if which == "smallest"
-          else torch.arange(n - s, n, device=device))
-    res = _timed(times, "TD1", device)(tridiagonalize, C)
-    del C
-    # host sentinel on the (n,)/(n-1,) tridiagonal the TD2 stage reads
-    stage_health["TD1"] = host_finite(res.d, res.e)
-    if not stage_health["TD1"] and on_failure != "ignore":
-        fail("TD1", "nonfinite_stage", "non-finite tridiagonal after TD1",
-             "corrupted C entering the reflector sweep (upstream NaN)")
-    lam, Z = _timed(times, "TD2", device)(eigh_tridiag_selected, res.d, res.e,
-                                         ks, x0=x0, generator=generator)
-    Y = _timed(times, "TD3", device)(apply_q, res, Z)
-    del res
+    if variant == "TD":
+        # ---- TD1 / TD2 / TD3 ---------------------------------------------
+        ks = (torch.arange(s, device=device) if which == "smallest"
+              else torch.arange(n - s, n, device=device))
+        res = _timed(times, "TD1", device)(tridiagonalize, C)
+        del C
+        # host sentinel on the (n,)/(n-1,) tridiagonal the TD2 stage reads
+        stage_health["TD1"] = host_finite(res.d, res.e)
+        if not stage_health["TD1"] and on_failure != "ignore":
+            fail("TD1", "nonfinite_stage", "non-finite tridiagonal after TD1",
+                 "corrupted C entering the reflector sweep (upstream NaN)")
+        lam, Z = _timed(times, "TD2", device)(
+            eigh_tridiag_selected, res.d, res.e, ks, x0=x0,
+            generator=generator)
+        Y = _timed(times, "TD3", device)(apply_q, res, Z)
+        del res
+    else:
+        # ---- KE_iter / KI_iter: thick-restart block Lanczos --------------
+        stage = f"{variant}_iter"
+        op = ExplicitC(C) if variant == "KE" else ImplicitC(A, U)
+        del C
+        if m is None:
+            m = default_subspace(s, n, p)
+        elif p > 1 and m % p:
+            m = -(-m // p) * p          # block-align a user-supplied m
+        lres = _timed(times, stage, device)(
+            lanczos_solve, op, s, which="SA" if which == "smallest" else "LA",
+            m=m, tol=tol, max_restarts=max_restarts, use_kernel=use_kernel,
+            v0=v0, probe_v0=probe_v0, generator=generator, p=p,
+            filter_degree=filter_degree)
+        del op
+        # plain Python only: info must survive json.dumps
+        info.update(n_matvec=int(lres.n_matvec),
+                    n_restart=int(lres.n_restart),
+                    converged=bool(lres.converged),
+                    resid_bounds=[float(r) for r in lres.resid_bounds.tolist()])
+        stage_health[stage] = bool(lres.healthy)
+        if not lres.healthy and on_failure != "ignore":
+            fail(stage, "nonfinite_stage",
+                 f"{variant} restart state went non-finite after "
+                 f"{int(lres.n_restart)} restarts",
+                 "NaN/inf in the Lanczos basis — corrupted operator; "
+                 "transient corruption is retryable under "
+                 "on_failure='recover'")
+        if not lres.converged:
+            info.setdefault("warnings", []).append(
+                f"{variant} retired UNCONVERGED after {int(lres.n_restart)} "
+                f"restarts (max_restarts={max_restarts}); eigenpairs are "
+                f"the best Ritz approximations at exit")
+        # Lanczos returns the wanted end first; sort ascending like TD
+        order = torch.argsort(lres.evals)
+        lam, Y = lres.evals[order], lres.evecs[:, order]
 
     # ---- BT1: X = U^{-1} Y -----------------------------------------------
     X = _timed(times, "BT1", device)(back_transform_generalized, U, Y)
@@ -204,35 +262,55 @@ def _finalize(lam, X, B_orig, invert: bool, times: Dict[str, float],
 
 def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           invert: bool = False, gs2: str = "trsm", gs1: str = "fused",
-          td1: str = "unblocked", x0: torch.Tensor | None = None,
+          td1: str = "unblocked", m: int | None = None, tol: float = 0.0,
+          max_restarts: int = 500, use_kernel: bool = False,
+          clustered: bool = False, krylov_block: int | None = None,
+          filter: int | None = None,  # noqa: A002 — the paper-facing name
+          x0: torch.Tensor | None = None, v0: torch.Tensor | None = None,
+          probe_v0: torch.Tensor | None = None,
           generator: torch.Generator | None = None, precision: str = "fp64",
           on_failure: str = "warn", max_retries: int = 2,
           device=None) -> GSyEigResult:
     """GSYEIG with failure containment, on ``device`` (``None`` = the card;
     without CUDA it raises unless ``device="cpu"`` is passed).
 
-    ``x0`` is the (n, s) inverse-iteration start block, in the column
-    order of the sorted wanted indices (the reference draws it from
-    ``PRNGKey(20120520)``; parity runs pass that block in). Without it the
-    block is drawn from ``generator``, by default one seeded with
-    ``SOLVE_SEED`` on ``device``.
+    Krylov knobs (KE/KI), with the reference's defaults: ``m`` the
+    subspace size (``None`` = ``default_subspace``), ``tol`` the Ritz
+    residual tolerance (0 = machine precision), ``max_restarts``,
+    ``use_kernel`` (the one-triangle CUDA matvec), ``krylov_block`` the
+    block size p (``None`` = 1), ``filter`` the Chebyshev start-filter
+    degree (``None`` = 16 when ``clustered``, else off). ``info['krylov']``
+    records p and the degree.
+
+    Random starts: ``x0`` is TD2's (n, s) inverse-iteration start block, in
+    the column order of the sorted wanted indices; ``v0`` the (n, p)
+    Lanczos start block and ``probe_v0`` the filter probe's (n,) vector.
+    The reference draws them from ``PRNGKey(20120520)``; parity runs pass
+    those in. What is not given is drawn from ``generator``, by default one
+    seeded with ``SOLVE_SEED`` on ``device``.
 
     ``on_failure``: ``'warn'`` (default) diagnoses failures — a GS1
     breakdown tries the diagonal-shift rungs, any remaining non-finite
-    stage or output raises ``SolverError``; ``'recover'`` additionally
-    retries transient non-finite failures up to ``max_retries`` times with
-    a fresh start block; ``'ignore'`` raises nothing and still records the
-    verdict. ``info`` carries ``health``, ``recovery`` and
-    ``kernel_launches`` (launches of each TD2 kernel in this call), and
-    survives ``json.dumps``.
+    stage or output raises ``SolverError``, an unconverged KE/KI retires
+    with a warning; ``'recover'`` additionally retries transient
+    non-finite failures up to ``max_retries`` times with fresh start
+    blocks, and escalates an unconverged KE/KI to 4x the restarts and a
+    degree >= 16 filter (the reference's next rung, falling back to TT,
+    raises ``NotImplementedError`` until TT is ported); ``'ignore'`` raises
+    nothing and still records the verdict. ``info`` carries ``health``,
+    ``recovery`` and ``kernel_launches`` (launches of every kernel wrapper
+    in this call), and survives ``json.dumps``.
     """
     validate_on_failure(on_failure)
     dev = resolve_device(device)
     recovery: list = []
-    kw: Dict[str, Any] = dict(variant=variant, which=which, invert=invert,
-                              gs1=gs1, gs2=gs2, td1=td1, x0=x0,
-                              generator=generator, precision=precision)
-    launches0 = _td2_kernels.launch_counts()
+    kw: Dict[str, Any] = dict(
+        variant=variant, which=which, invert=invert, gs1=gs1, gs2=gs2,
+        td1=td1, m=m, tol=tol, max_restarts=max_restarts,
+        use_kernel=use_kernel, clustered=clustered,
+        krylov_block=krylov_block, filter=filter, x0=x0, v0=v0,
+        probe_v0=probe_v0, generator=generator, precision=precision)
+    launches0 = _kernels.launch_counts()
 
     def attempt(attempt_kw):
         res = _solve_once(A, B, s, on_failure=on_failure, recovery=recovery,
@@ -272,10 +350,29 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
             recovery.append(retry_rung)
             fresh = torch.Generator(device=dev).manual_seed(
                 SOLVE_SEED + 1000 + retries)
-            kw = dict(kw, x0=None, generator=fresh)
+            kw = dict(kw, x0=None, v0=None, probe_v0=None, generator=fresh)
     if retry_rung is not None:
         retry_rung["outcome"] = "recovered"
-    launches1 = _td2_kernels.launch_counts()
+
+    # --- ladder: unconverged Krylov -> escalate (-> TT fallback) ----------
+    if on_failure == "recover" and not res.info.get("converged", True):
+        resolved = res.info["variant"]
+        fd = int(res.info["krylov"]["filter_degree"])
+        esc_restarts = int(max_restarts) * 4
+        esc_filter = max(16, fd)
+        r = rung("escalate_krylov", f"{resolved}_iter", "attempt",
+                 max_restarts=esc_restarts, filter_degree=esc_filter)
+        recovery.append(r)
+        res2 = attempt(dict(kw, max_restarts=esc_restarts, filter=esc_filter))
+        if not res2.info["converged"]:
+            r["outcome"] = "failed"
+            raise NotImplementedError(
+                f"{resolved} did not converge after the escalate_krylov rung; "
+                f"the next rung, fallback_variant to TT, is not ported yet "
+                f"(ROADMAP.md §1 item 5)")
+        r["outcome"] = "recovered"
+        res = res2
+    launches1 = _kernels.launch_counts()
     res.info["kernel_launches"] = {k: launches1[k] - launches0[k]
                                    for k in launches1}
     return res

@@ -56,3 +56,13 @@ def gershgorin_bounds(d: torch.Tensor, e: torch.Tensor):
     hi = torch.max(d + radius)
     span = torch.clamp_min(hi - lo, torch.finfo(d.dtype).tiny)
     return lo - 1e-3 * span, hi + 1e-3 * span
+
+
+def eigh_or_nan(M: torch.Tensor):
+    """``torch.linalg.eigh`` of a symmetric M, with JAX's answer to a
+    non-finite input: NaN eigenvalues (torch raises instead, which would
+    turn a poisoned Lanczos state into an exception rather than the
+    health verdict). The check stays on the device."""
+    finite = torch.isfinite(M).all()
+    w, V = torch.linalg.eigh(torch.where(finite, M, torch.zeros_like(M)))
+    return torch.where(finite, w, float("nan")), V

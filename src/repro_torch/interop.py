@@ -1,9 +1,10 @@
-"""Carry the reference's state across: the pencil and the random start block.
+"""Carry the reference's state across: the pencil and the random starts.
 
 The solver has no weights. What a parity run hands over is the pencil
-(A, B and its exact spectrum) and the inverse-iteration start block the
-reference drew from ``jax.random`` — torch cannot replay threefry. Arrays
-cross as numpy; ``np.array`` copies first, because ``np.asarray`` of a jax
+(A, B and its exact spectrum) and the random starts the reference drew
+from ``jax.random`` (TD2's inverse-iteration block, the Lanczos start
+block and the filter probe) — torch cannot replay threefry. Arrays cross
+as numpy; ``np.array`` copies first, because ``np.asarray`` of a jax
 array is read-only and ``torch.from_numpy`` warns on it.
 """
 from __future__ import annotations
@@ -27,6 +28,8 @@ def problem_from_numpy(A, B, exact_evals, name: str,
 
 
 def start_block_from_numpy(X0, device=None) -> torch.Tensor:
-    """The (n, s) start block, in the column order of the sorted wanted
-    indices, as ``solve(..., x0=)`` takes it."""
+    """A random start the reference drew, as ``solve`` takes it: TD2's
+    (n, s) block in the column order of the sorted wanted indices
+    (``x0=``), the (n, p) Lanczos start block (``v0=``) or the filter
+    probe's (n,) vector (``probe_v0=``)."""
     return _tensor(X0, resolve_device(device))

@@ -1,11 +1,11 @@
-"""CLI for the port's eigensolver (the TD variant):
+"""CLI for the port's eigensolver (the TD, KE and KI variants):
 
     PYTHONPATH=src python -m repro_torch.launch.eigsolve \\
-        --problem md --n 9997 --s 100 --variant TD --json
+        --problem md --n 9997 --s 100 --variant KE --invert --json
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. The payload has the keys of ``repro.launch.eigsolve`` plus
-``device`` and ``kernel_launches`` (launches of each TD2 kernel).
+``device`` and ``kernel_launches`` (launches of each kernel wrapper).
 """
 from __future__ import annotations
 
@@ -25,11 +25,22 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=384)
     ap.add_argument("--s", type=int, default=8)
     ap.add_argument("--variant", choices=["TD", "TT", "KE", "KI", "auto"],
-                    default="TD", help="only TD is ported; the others raise")
+                    default="TD", help="TD, KE and KI are ported; TT and "
+                                       "auto raise")
     ap.add_argument("--which", choices=["smallest", "largest"],
                     default="smallest")
     ap.add_argument("--invert", action="store_true",
                     help="the paper's MD trick (requires A SPD)")
+    ap.add_argument("--m", type=int, default=None)
+    ap.add_argument("--max-restarts", type=int, default=300)
+    ap.add_argument("--p", type=int, default=None, dest="krylov_block",
+                    help="Lanczos block size (s-step width); default 1")
+    ap.add_argument("--filter-degree", type=int, default=None,
+                    help="Chebyshev start-filter degree (KE/KI); default: "
+                         "16 on clustered spectra, else off; 0 forces off")
+    ap.add_argument("--tol", type=float, default=0.0,
+                    help="Lanczos residual tolerance (0 = machine-eps "
+                         "criterion)")
     ap.add_argument("--on-failure", choices=["recover", "warn", "ignore"],
                     default="warn")
     ap.add_argument("--max-retries", type=int, default=2)
@@ -41,7 +52,13 @@ def main() -> None:
     dev = resolve_device(args.device)
     prob = (md_like if args.problem == "md" else dft_like)(args.n, device=dev)
     res = solve(prob.A, prob.B, args.s, variant=args.variant,
-                which=args.which, invert=args.invert,
+                which=args.which, invert=args.invert, m=args.m,
+                tol=args.tol, max_restarts=args.max_restarts,
+                krylov_block=args.krylov_block,
+                filter=args.filter_degree,
+                # the clustered-spectrum hint: the DFT generator's low end
+                clustered=(args.problem == "dft"
+                           and args.which == "smallest"),
                 on_failure=args.on_failure, max_retries=args.max_retries,
                 device=dev)
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
@@ -61,11 +78,13 @@ def main() -> None:
         "b_orthogonality": float(acc.b_orthogonality),
         "relative_residual": float(acc.relative_residual),
         "max_abs_eval_error": err,
-        "n_matvec": 0,
+        "n_matvec": int(res.info.get("n_matvec", 0)),
         "health": res.info["health"],
         "recovery": res.info["recovery"],
         "kernel_launches": res.info["kernel_launches"],
     }
+    if "warnings" in res.info:
+        payload["warnings"] = res.info["warnings"]
     if args.json:
         print(json.dumps(payload, indent=1))
     else:

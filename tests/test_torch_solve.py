@@ -1,8 +1,10 @@
-"""The TD solve of the PyTorch port against ``repro.core.solve``, on the CPU.
+"""The TD, KE and KI solves of the PyTorch port against ``repro.core.solve``,
+on the CPU.
 
-The reference's pencils and inverse-iteration start block are carried
-across (``repro_torch.interop``); both results are scored by the
-reference's own ``accuracy_report`` against the shared Table-3 bars.
+The reference's pencils and random starts (TD2's inverse-iteration block,
+the Lanczos start block and the filter probe) are carried across
+(``repro_torch.interop``); both results are scored by the reference's own
+``accuracy_report`` against the shared Table-3 bars.
 Also: failure containment, the device rule, the CLI, and import hygiene
 (the port and ``chip_smoke.py`` import neither JAX nor ``repro``).
 """
@@ -47,6 +49,23 @@ def _reference_x0(n, s):
                                       jnp.float64))
 
 
+def _reference_krylov_starts(n, p):
+    # what the reference's lanczos_solve draws from PRNGKey(20120520): the
+    # (n, p) start block, and the filter probe from fold_in(key, 2)
+    key = jax.random.PRNGKey(20120520)
+    v0 = np.array(jax.random.normal(key, (n, p), jnp.float64))
+    probe = np.array(jax.random.normal(jax.random.fold_in(key, 2), (n,),
+                                       jnp.float64))
+    return (start_block_from_numpy(v0, "cpu"),
+            start_block_from_numpy(probe, "cpu"))
+
+
+def _table3(p, X, lam):
+    acc = accuracy_report(p.A, p.B, jnp.asarray(X), jnp.asarray(lam))
+    assert float(acc.relative_residual) <= TABLE3["relative_residual"]
+    assert float(acc.b_orthogonality) <= TABLE3["b_orthogonality"]
+
+
 @pytest.mark.parametrize("problem,which,invert", CASES)
 def test_td_solve_parity(problem, which, invert):
     p, tp = _pencil(problem)
@@ -69,12 +88,99 @@ def test_td_solve_parity(problem, which, invert):
     assert res.info["health"]["healthy"]
 
 
+KRYLOV_CASES = [
+    ("md", 128, 6, "KE", dict(invert=True)),
+    ("md", 128, 6, "KI", dict(invert=True)),
+    ("md", 128, 6, "KE", dict(invert=True, krylov_block=4)),
+    ("md", 96, 4, "KE", dict(invert=True, use_kernel=True)),
+    ("md", 96, 4, "KI", dict(invert=True, use_kernel=True)),
+    # the DFT largest end reaches the eps * |theta| floor slowly: at other
+    # (n, s) the two packages cross it a restart apart, from rounding
+    # (tests/test_torch_lanczos.py shows it at n=64, s=4)
+    ("dft", 64, 6, "KE", dict(which="largest")),
+]
+
+
+@pytest.mark.parametrize("problem,n,s,variant,kw", KRYLOV_CASES)
+def test_krylov_solve_parity(problem, n, s, variant, kw):
+    p = (md_like if problem == "md" else dft_like)(n)
+    tp = problem_from_numpy(p.A, p.B, p.exact_evals, p.name, device="cpu")
+    # the reference's use_kernel runs the Pallas kernel in interpret mode;
+    # its default XLA dot is the same product
+    ref = j_solve(p.A, p.B, s, variant=variant,
+                  **{k: v for k, v in kw.items() if k != "use_kernel"})
+    v0, probe = _reference_krylov_starts(n, kw.get("krylov_block", 1))
+    res = solve(tp.A, tp.B, s, variant=variant, v0=v0, probe_v0=probe,
+                device="cpu", **kw)
+    assert res.info["converged"] and ref.info["converged"]
+    assert (res.info["n_matvec"], res.info["n_restart"]) == (
+        ref.info["n_matvec"], ref.info["n_restart"])
+    assert res.info["krylov"] == ref.info["krylov"]
+    ev, ev_ref = res.evals.numpy(), np.asarray(ref.evals)
+    assert np.abs((ev - ev_ref) / ev_ref).max() <= 1e-12
+    _table3(p, res.X.numpy(), ev)
+    _table3(p, ref.X, ev_ref)
+    exact = np.asarray(p.exact_evals)
+    want = exact[-s:] if kw.get("which") == "largest" else exact[:s]
+    assert np.abs(ev - want).max() <= 1e-10 * np.abs(exact).max()
+    keys = {"KE": {"GS1", "GS2", "KE_iter", "BT1", "Tot."},
+            "KI": {"GS1", "KI_iter", "BT1", "Tot."}}[variant]
+    assert set(res.stage_times) == keys == set(ref.stage_times)
+    assert res.info["health"] == ref.info["health"]
+
+
+def test_filtered_ke_on_the_clustered_dft_end_matches_the_reference():
+    # the clustered end at the converging tol and the default degree-16
+    # filter: the counts and the values agree; at tol=1e-9 neither package
+    # meets the 1e-12 residual bar, so it is not asserted
+    p = dft_like(64)
+    tp = problem_from_numpy(p.A, p.B, p.exact_evals, p.name, device="cpu")
+    ref = j_solve(p.A, p.B, 4, variant="KE", clustered=True, tol=1e-9)
+    v0, probe = _reference_krylov_starts(64, 1)
+    res = solve(tp.A, tp.B, 4, variant="KE", clustered=True, tol=1e-9,
+                v0=v0, probe_v0=probe, device="cpu")
+    assert res.info["krylov"] == ref.info["krylov"] == {"p": 1,
+                                                        "filter_degree": 16}
+    assert (res.info["n_matvec"], res.info["n_restart"]) == (
+        ref.info["n_matvec"], ref.info["n_restart"])
+    ev, ev_ref = res.evals.numpy(), np.asarray(ref.evals)
+    assert np.abs((ev - ev_ref) / ev_ref).max() <= 1e-12
+    assert np.abs(ev - np.asarray(p.exact_evals)[:4]).max() <= 1e-12
+
+
+def test_krylov_info_is_json_clean():
+    _, tp = _pencil("md")
+    res = solve(tp.A, tp.B, 3, variant="KI", invert=True, use_kernel=True,
+                device="cpu")
+    info = json.loads(json.dumps(res.info))
+    assert info["krylov"] == {"p": 1, "filter_degree": 0}
+    assert info["converged"] is True
+    assert isinstance(info["n_matvec"], int) and info["n_matvec"] > 0
+    assert len(info["resid_bounds"]) == 3
+    assert all(isinstance(r, float) for r in info["resid_bounds"])
+    assert info["health"]["stages"] == {"GS1": True, "KI_iter": True,
+                                        "OUT": True}
+    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
+                                       "symv": 0, "symm_block": 0}
+
+
+def test_unconverged_krylov_warns():
+    p, tp = _pencil("md")
+    ref = j_solve(p.A, p.B, 3, variant="KE", invert=True, max_restarts=1)
+    res = solve(tp.A, tp.B, 3, variant="KE", invert=True, max_restarts=1,
+                device="cpu")
+    assert not res.info["converged"] and not ref.info["converged"]
+    assert res.info["warnings"] == ref.info["warnings"]
+    assert res.info["health"]["healthy"]
+
+
 def test_info_is_json_clean():
     _, tp = _pencil("md")
     res = solve(tp.A, tp.B, 3, device="cpu")
     info = json.loads(json.dumps(res.info))
     assert info["variant"] == "TD" and info["device"] == "cpu"
-    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0}
+    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
+                                       "symv": 0, "symm_block": 0}
     assert info["recovery"] == []
     assert info["health"]["stages"] == {"GS1": True, "GS2": True,
                                         "TD1": True, "OUT": True}
@@ -128,14 +234,63 @@ def test_nonfinite_a_fails_gs2_and_retries_under_recover():
     assert res.info["health"]["first_unhealthy_stage"] == "GS2"
 
 
-@pytest.mark.parametrize("kw", [dict(variant="TT"), dict(variant="KE"),
-                                dict(variant="KI"), dict(variant="auto"),
+def test_nonfinite_a_poisons_ki_iter_and_retries_under_recover():
+    # KI has no GS2 sentinel: the Lanczos health verdict catches it
+    _, tp = _pencil("md")
+    A = tp.A.clone()
+    A[2, 3] = float("nan")
+    with pytest.raises(SolverError) as ei:
+        solve(A, tp.B, 3, variant="KI", device="cpu")
+    assert ei.value.diagnosis["stage"] == "KI_iter"
+    assert ei.value.diagnosis["reason"] == "nonfinite_stage"
+    with pytest.raises(SolverError) as ei:
+        solve(A, tp.B, 3, variant="KI", filter=4, on_failure="recover",
+              device="cpu")
+    assert [r["action"] for r in ei.value.diagnosis["recovery"]] == [
+        "transient_retry"] * 2
+    res = solve(A, tp.B, 3, variant="KI", on_failure="ignore", device="cpu")
+    assert res.info["health"]["first_unhealthy_stage"] == "KI_iter"
+    assert res.info["n_restart"] == 1
+
+
+@pytest.mark.parametrize("kw", [dict(variant="TT"), dict(variant="auto"),
                                 dict(precision="mixed"), dict(td1="blocked"),
                                 dict(gs2="sygst"), dict(gs1="blocked")])
 def test_unported_options_raise(kw):
     _, tp = _pencil("md")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(tp.A, tp.B, 3, device="cpu", **kw)
+
+
+def test_unconverged_krylov_escalates_under_recover():
+    n = 96
+    p = md_like(n)
+    tp = problem_from_numpy(p.A, p.B, p.exact_evals, p.name, device="cpu")
+    ref = j_solve(p.A, p.B, 4, variant="KE", invert=True, max_restarts=1,
+                  on_failure="recover")
+    v0, probe = _reference_krylov_starts(n, 1)
+    res = solve(tp.A, tp.B, 4, variant="KE", invert=True, max_restarts=1,
+                on_failure="recover", v0=v0, probe_v0=probe, device="cpu")
+    assert res.info["recovery"] == ref.info["recovery"] == [
+        {"action": "escalate_krylov", "stage": "KE_iter",
+         "outcome": "recovered",
+         "params": {"max_restarts": 4, "filter_degree": 16}}]
+    assert res.info["converged"]
+    assert (res.info["n_matvec"], res.info["n_restart"]) == (
+        ref.info["n_matvec"], ref.info["n_restart"])
+    _table3(p, res.X.numpy(), res.evals.numpy())
+
+
+def test_failed_escalation_raises_for_the_tt_fallback():
+    # the reference falls back to TT here; the port has no TT yet
+    p, tp = _pencil("dft")
+    ref = j_solve(p.A, p.B, 4, variant="KE", max_restarts=3,
+                  on_failure="recover")
+    assert [r["action"] for r in ref.info["recovery"]] == [
+        "escalate_krylov", "fallback_variant"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
+        solve(tp.A, tp.B, 4, variant="KE", max_restarts=3,
+              on_failure="recover", device="cpu")
 
 
 # ------------------------------------------------------------ device rule --
@@ -163,9 +318,27 @@ def test_cli_payload(monkeypatch):
     assert payload["relative_residual"] <= 1e-12
     assert payload["b_orthogonality"] <= 1e-12
     assert payload["max_abs_eval_error"] <= 1e-10
-    assert payload["kernel_launches"] == {"bisect_sturm": 0, "invit": 0}
+    assert payload["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
+                                          "symv": 0, "symm_block": 0}
     assert set(payload["stage_times_s"]) == {"GS1", "GS2", "TD1", "TD2",
                                              "TD3", "BT1", "Tot."}
+
+
+def test_cli_payload_krylov(monkeypatch):
+    from repro_torch.launch import eigsolve
+    monkeypatch.setattr(sys, "argv", [
+        "eigsolve", "--problem", "md", "--n", "64", "--s", "4", "--variant",
+        "KE", "--invert", "--p", "2", "--device", "cpu", "--json"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        eigsolve.main()
+    payload = json.loads(buf.getvalue())
+    assert payload["variant"] == "KE" and payload["n_matvec"] > 0
+    assert payload["relative_residual"] <= 1e-12
+    assert payload["b_orthogonality"] <= 1e-12
+    assert payload["max_abs_eval_error"] <= 1e-10
+    assert set(payload["stage_times_s"]) == {"GS1", "GS2", "KE_iter", "BT1",
+                                             "Tot."}
 
 
 # --------------------------------------------------------- import hygiene --
