@@ -20,18 +20,36 @@ Phases, each printed as it runs; any failed check exits nonzero:
    symmetric matrix at the DFT width n=17243 whose strictly lower triangle
    holds 1e6-scale garbage; timed in turns, beside ``torch.matmul`` on the
    full matrix (the library call that computes the same function);
+3b. the TT kernels against their plain versions on CPU copies:
+   ``house_panel`` on the first panel of the MD standard-form C
+   (``C[:, :16]``, row_start 16) and on a mid-ladder panel (V and T
+   entrywise, I - V T V^T orthogonal); ``syr2k`` on the first window
+   (n=9997, k=16) within gamma_{2k+1} (|C| + |V||W|^T + |W||V|^T), beside
+   ``torch.addmm`` of the concatenated panels; ``rot_apply`` bitwise at
+   the chase's wavefront shapes and a replay shape, beside ``torch.matmul``
+   of the (G, 2, 2) rotations with the pairs; the whole TT2 chase
+   (``chase_pass``) and the TT4 replay (``replay_pass``) of the MD band
+   at n=512, w=16 against the plain versions on the host CPU; then, at the
+   main path's n=9997, w=16, the first and last chase pass against the
+   plain version on the card (on the same input) and the replay of all
+   the MD tables onto an (n, 100) slab; the band within 1e-12 ||W||_2,
+   the slab within 1e-12, and band, tables and slab bitwise;
 4. the main paths, each with every launch count set to 0 just before and
    read just after: ``solve(A, B, 100, variant="TD")`` on the MD pencil;
    ``solve(A, B, 100, variant="KE"|"KI", invert=True, use_kernel=True)``
-   and KE with ``krylov_block=4``; each held to the Table-3 bars (1e-12)
-   and to the generator's exact spectrum; then one
-   ``apply_op(ExplicitC(C), x, use_kernel=True)`` on a vector (``symv``);
+   and KE with ``krylov_block=4``; ``solve(A, B, 100, variant="TT",
+   band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
+   ``chase_pass`` and ``replay_pass``) and TT on the DFT pencil at
+   n=4096, s=64; each held to the Table-3 bars (1e-12) and to the
+   generator's exact spectrum; then one ``apply_op(ExplicitC(C), x,
+   use_kernel=True)`` on a vector (``symv``) and one ``rot_apply`` through
+   its public wrapper;
 5. one JSON line of the kernels (launches on their main path, error
    against the plain version, times, bound), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-``--md-n`` / ``--dft-n`` / ``--wide-n`` shrink the matrices for a quick
-rehearsal; the defaults are the sizes above.
+``--md-n`` / ``--dft-n`` / ``--wide-n`` / ``--chase-n`` shrink the
+matrices for a quick rehearsal; the defaults are the sizes above.
 """
 from __future__ import annotations
 
@@ -58,14 +76,31 @@ INVIT_SINGLETON = 1e-10  # elementwise kernel vs plain, singleton clusters
 INVIT_SUBSPACE = 1e-8    # sin of the largest principal angle per cluster
 TIMING_REPS = 20         # launches per timed window of the product
 
+HOUSE_TOL = 1e-12        # V and T entrywise, kernel vs plain (|v| <= 1)
+HOUSE_ORTH = 1e-13       # max |Q^T Q - I| / rows for Q = I - V T V^T
+CHASE_TOL = 1e-12        # d, e of the chase vs plain, relative to ||W||_2
+REPLAY_TOL = 1e-12       # the replayed slab vs plain, entrywise
+TT_W = 16                # the TT band width of the main path (solve's default)
+
+_ROT = "src/repro_torch/csrc/rot_apply.cu"
 SOURCES = {"bisect_sturm": "src/repro_torch/csrc/tridiag_eig.cu",
            "invit": "src/repro_torch/csrc/tridiag_eig.cu",
            "symv": "src/repro_torch/csrc/symv.cu",
-           "symm_block": "src/repro_torch/csrc/symv.cu"}
+           "symm_block": "src/repro_torch/csrc/symv.cu",
+           "house_panel": "src/repro_torch/csrc/house_panel.cu",
+           "syr2k": "src/repro_torch/csrc/syr2k.cu",
+           "rot_apply": _ROT, "chase_pass": _ROT, "replay_pass": _ROT}
 REPLACES = {"bisect_sturm": "src/repro/kernels/tridiag_eig/kernel.py:74",
             "invit": "src/repro/kernels/tridiag_eig/kernel.py:194",
             "symv": "src/repro/kernels/symv/kernel.py:82",
-            "symm_block": "src/repro/kernels/symv/kernel.py:117"}
+            "symm_block": "src/repro/kernels/symv/kernel.py:117",
+            "house_panel": "src/repro/kernels/house_panel/kernel.py:81",
+            "syr2k": "src/repro/kernels/syr2k/kernel.py:34",
+            "rot_apply": "src/repro/kernels/rot_apply/kernel.py:37",
+            "chase_pass": "src/repro/kernels/rot_apply/kernel.py:37",
+            "replay_pass": "src/repro/kernels/rot_apply/kernel.py:37"}
+KERNEL_ORDER = ("bisect_sturm", "invit", "symv", "symm_block", "house_panel",
+                "syr2k", "rot_apply", "chase_pass", "replay_pass")
 
 
 def _nvidia_smi() -> str:
@@ -287,6 +322,329 @@ def _wide_matrix(n: int, seed: int, device):
     return A
 
 
+def compare_house_panel(label: str, E, row_start: int, checks: Checks):
+    """``house_panel`` on the panel E[row_start:, :] against its plain
+    version (CPU copy): V and T entrywise, and I - V T V^T orthogonal."""
+    import torch
+    from repro_torch.kernels.house_panel import kernel, ref
+
+    rows, b = E.shape
+    E_h = E.cpu()
+    kernel.house_panel(E, row_start)                  # warm-up
+    (V, T), k1 = _time_cuda(lambda: kernel.house_panel(E, row_start))
+    (Vp, Tp), p1 = _time_host(lambda: ref.house_panel_ref(E_h, row_start))
+    _, k2 = _time_cuda(lambda: kernel.house_panel(E, row_start))
+    _, p2 = _time_host(lambda: ref.house_panel_ref(E_h, row_start))
+    err = max(float((V.cpu() - Vp).abs().max()),
+              float((T.cpu() - Tp).abs().max()))
+    Q = torch.eye(rows, dtype=torch.float64, device=E.device)
+    Q.addmm_(V @ T, V.mT, alpha=-1.0)
+    orth = float((Q.mT @ Q - torch.eye(rows, dtype=torch.float64,
+                                       device=E.device)).abs().max())
+    del Q
+    print(f"{label} house_panel ({rows} x {b}, row_start {row_start}): "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.1f} / {p2:.1f} ms "
+          f"(plain on the host CPU)", flush=True)
+    checks.check(f"{label} house_panel V, T vs plain", err <= HOUSE_TOL,
+                 f"max |kernel - plain| = {err!r} (bar {HOUSE_TOL}, |v| <= 1)")
+    checks.check(f"{label} house_panel Q orthogonal",
+                 orth <= HOUSE_ORTH * rows,
+                 f"max |Q^T Q - I| = {orth!r} (bar {HOUSE_ORTH} * {rows})")
+    # E in, V and T out; ~4 rows b^2 flops over the b reflectors
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=None,
+                **_bound(4.0 * rows * b * b, 8 * (2 * rows * b + b * b)))
+
+
+def compare_syr2k(label: str, C, V, W, checks: Checks) -> dict:
+    """``syr2k`` (alpha = -1) against its plain version on CPU copies,
+    componentwise within gamma_{2k+1} (|C| + |V||W|^T + |W||V|^T), beside
+    ``torch.addmm`` of the concatenated panels; then the symmetrized launch
+    of the TT1 sweep against (R + R^T)/2 of the kernel's own R, bitwise."""
+    import torch
+    from repro_torch.kernels.syr2k import kernel, ref
+
+    n, k = V.shape
+    C_h, V_h, W_h = C.cpu(), V.cpu(), W.cpu()
+    out = torch.empty_like(C)
+    run = lambda: kernel.syr2k(C, V, W, alpha=-1.0, out=out)  # noqa: E731
+    run()                                             # warm-up
+    R, k1 = _time_cuda(run, TIMING_REPS)
+    R_p, p1 = _time_host(lambda: ref.syr2k_ref(C_h, V_h, W_h, -1.0))
+    _, k2 = _time_cuda(run, TIMING_REPS)
+    _, p2 = _time_host(lambda: ref.syr2k_ref(C_h, V_h, W_h, -1.0))
+    VW, WV = torch.cat([V, W], 1), torch.cat([W, V], 1).mT
+    lib = lambda: torch.addmm(C, VW, WV, alpha=-1.0)  # noqa: E731
+    lib()
+    _, l1 = _time_cuda(lib, TIMING_REPS)
+    _, l2 = _time_cuda(lib, TIMING_REPS)
+    m = 2 * k + 1
+    u = torch.finfo(torch.float64).eps / 2
+    diff = (R.cpu() - R_p).abs()
+    del R_p
+    Va, Wa = V_h.abs(), W_h.abs()
+    bound = (m * u / (1 - m * u)) * (C_h.abs() + Va @ Wa.mT + Wa @ Va.mT)
+    ratio = float((diff / bound).max())
+    ok = bool(torch.all(diff <= bound))
+    err = float(diff.max())
+    del diff, bound
+    print(f"{label} syr2k (n={n}, k={k}): kernel {k1:.4f} / {k2:.4f} ms, "
+          f"plain {p1:.1f} / {p2:.1f} ms (plain on the host CPU), "
+          f"torch.addmm {l1:.4f} / {l2:.4f} ms", flush=True)
+    checks.check(f"{label} syr2k within gamma_(2k+1) of plain", ok,
+                 f"max |kernel - plain| / bound = {ratio!r}, "
+                 f"max |kernel - plain| = {err!r}")
+    S = kernel.syr2k(C, V, W, alpha=-1.0, symmetrize=True)
+    checks.check(f"{label} syr2k symmetrized = (R + R^T)/2 bitwise",
+                 bool(torch.equal(S, 0.5 * (R + R.mT))),
+                 f"max gap {float((S - 0.5 * (R + R.mT)).abs().max())!r}")
+    del S, out
+    # C read once, out written once, the panels once; 4 k n^2 flops
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2,
+                **_bound(4.0 * k * n * n, 8 * (2.0 * n * n + 2 * n * k)))
+
+
+def compare_rot_apply(checks: Checks, dev) -> dict:
+    """``rot_apply`` bitwise against its plain version at the wavefront
+    shapes of the MD chase (b=16 and b=2 lanes) and at a replay shape."""
+    import torch
+    from repro_torch.kernels.rot_apply import kernel, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    row = None
+    for G, L in ((1000, 8), (209, 36), (625, 100)):
+        pairs = torch.randn((G, 2, L), generator=gen, dtype=torch.float64,
+                            device=dev)
+        cs = torch.randn((G, 2), generator=gen, dtype=torch.float64,
+                         device=dev)
+        p_h, cs_h = pairs.cpu(), cs.cpu()
+        # the library call of the same function: the (G, 2, 2) rotations
+        # [[c, s], [-s, c]] times the (G, 2, L) pairs, one batched GEMM
+        c, s = cs[:, 0], cs[:, 1]
+        R = torch.stack([torch.stack([c, s], 1), torch.stack([-s, c], 1)], 1)
+        run = lambda: kernel.rot_apply(pairs, cs)             # noqa: E731
+        plain = lambda: ref.rot_apply_ref(p_h, cs_h)          # noqa: E731
+        lib = lambda: torch.matmul(R, pairs)                  # noqa: E731
+        run()                                         # warm-up
+        lib()
+        y, k1 = _time_cuda(run, TIMING_REPS)
+        y_p, p1 = _time_host(plain)
+        y_l, l1 = _time_cuda(lib, TIMING_REPS)
+        _, k2 = _time_cuda(run, TIMING_REPS)
+        _, p2 = _time_host(plain)
+        _, l2 = _time_cuda(lib, TIMING_REPS)
+        err = float((y.cpu() - y_p).abs().max())
+        print(f"rot_apply (G={G}, L={L}): kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.3f} / {p2:.3f} ms (plain on the host CPU), "
+              f"torch.matmul {l1:.4f} / {l2:.4f} ms (max |matmul - kernel| "
+              f"= {float((y_l - y).abs().max())!r})", flush=True)
+        checks.check(f"rot_apply G={G} L={L} bitwise vs plain",
+                     bool(torch.equal(y.cpu(), y_p)),
+                     f"max |kernel - plain| = {err!r}")
+        if row is None:   # the b=16 wavefront of the MD chase
+            row = dict(max_abs_err=err, ms=(k1 + k2) / 2,
+                       plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+                       **_bound(6.0 * G * L, 8 * (4.0 * G * L + 2 * G)))
+    return row
+
+
+def _chase_work(n: int, b: int):
+    """(rotations, table slots) of the bandwidth-b pass at n."""
+    from repro_torch.kernels.rot_apply.schedule import pass_schedule
+    _, _, _, J, K0 = pass_schedule(n, b)
+    rots = sum((n - 1 - j - b) // b + 1 for j in range(n - b))
+    return rots, (J + 1) * (K0 + 1)
+
+
+def _chase_bound(n: int, w: int, bs) -> dict:
+    """Bound of the chase passes ``bs``: per rotation the Givens (~6
+    flops) and 2b+3 pair rotations of 6 flops; the padded band read and
+    written once per pass, the tables written once."""
+    from repro_torch.kernels.rot_apply.schedule import P_LEFT
+    npad = P_LEFT + n + 3 * w + 8
+    ops = nbytes = 0.0
+    for b in bs:
+        rots, cells = _chase_work(n, b)
+        ops += rots * (6 + 6 * (2 * b + 3))
+        nbytes += 8 * 2.0 * (w + 2) * npad + 16.0 * cells
+    return _bound(ops, nbytes)
+
+
+def _replay_bound(n: int, cols: int, bs) -> dict:
+    """Bound of the replay passes ``bs`` onto an (n, cols) slab: 6 flops
+    per rotation and column; the tables read once, the slab read and
+    written once per pass."""
+    ops = nbytes = 0.0
+    for b in bs:
+        rots, cells = _chase_work(n, b)
+        ops += 6.0 * cols * rots
+        nbytes += 16.0 * cells + 16.0 * n * cols
+    return _bound(ops, nbytes)
+
+
+def _per_launch(bound: dict, launches: int) -> dict:
+    return {"bound_ms": bound["bound_ms"] / launches,
+            "bound_by": bound["bound_by"]}
+
+
+def compare_replay(label: str, passes, tables, n: int, plain_dev,
+                   checks: Checks, dev, seed: int = 6) -> dict:
+    """TT4's replay of the chase tables onto an (n, 100) slab in reverse
+    (``replay_pass``, one launch per pass) against its plain version on
+    ``plain_dev`` copies; kernel and plain in turns. Bitwise: the same
+    rotations in the same order, no FMA. Returns the row, per launch."""
+    import torch
+    from repro_torch.kernels.rot_apply import kernel, ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Z = torch.randn((n, 100), generator=gen, dtype=torch.float64, device=dev)
+    tables_p = [t.to(plain_dev) for t in tables]
+
+    def replay_k():
+        Y = Z.clone()
+        for b, CS in zip(reversed(passes), reversed(tables)):
+            kernel.replay_pass(Y, CS, b, n, reverse=True)
+        return Y
+
+    def replay_p():
+        Y = Z.to(plain_dev, copy=True)
+        for b, CS in zip(reversed(passes), reversed(tables_p)):
+            ref.replay_pass_ref(Y, CS, b, n, reverse=True)
+        return Y
+
+    replay_k()                                        # warm-up
+    Yk, k1 = _time_cuda(replay_k)
+    Yp, p1 = _time_cuda(replay_p)
+    _, k2 = _time_cuda(replay_k)
+    _, p2 = _time_cuda(replay_p)
+    Yk, Yp = Yk.cpu(), Yp.cpu()
+    err = float((Yk - Yp).abs().max())
+    per = len(passes)
+    where = "the card" if torch.device(plain_dev).type == "cuda" else \
+        "the host CPU"
+    print(f"{label} replay ({per} passes onto ({n}, 100)): kernel "
+          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.0f} / {p2:.0f} ms (plain on "
+          f"{where})", flush=True)
+    checks.check(f"{label} replay vs plain", err <= REPLAY_TOL,
+                 f"max |kernel - plain| = {err!r} (bar {REPLAY_TOL})")
+    checks.check(f"{label} replay bitwise vs plain", torch.equal(Yk, Yp),
+                 f"max |kernel - plain| = {err!r}")
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2 / per,
+                plain_ms=(p1 + p2) / 2 / per, library_ms=None,
+                **_per_launch(_replay_bound(n, 100, passes), per))
+
+
+def _chase_agree(label: str, Wk, Wq, tk, tq, norm: float,
+                 checks: Checks) -> float:
+    """Kernel (Wk, tables tk) against plain (Wq, tq): the band within
+    CHASE_TOL ||W||_2, and band and tables bitwise (the same IEEE-rounded
+    operations in the same sequential order, no FMA on either side).
+    Returns the band's largest gap."""
+    import torch
+    Wk, Wq = Wk.cpu(), Wq.cpu()
+    err = float((Wk - Wq).abs().max())
+    gap = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(tk, tq))
+    same = torch.equal(Wk, Wq) and all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(tk, tq))
+    checks.check(f"{label} band vs plain", err <= CHASE_TOL * norm,
+                 f"max |kernel - plain| = {err!r} (bar {CHASE_TOL} * "
+                 f"||W||_2 = {CHASE_TOL * norm!r})")
+    checks.check(f"{label} band and (c, s) tables bitwise vs plain", same,
+                 f"largest gap: band {err!r}, tables {gap!r}")
+    return err
+
+
+def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
+    """The whole TT2 chase of the band Wb pass by pass (``chase_pass``)
+    against its plain version on a CPU copy, kernel and plain in turns
+    (kernel, plain, kernel, plain); then the replay of its tables
+    (``compare_replay``, plain on the host CPU)."""
+    import torch
+    from repro_torch.core.band_storage import unpack_band
+    from repro_torch.core.sbr import _executed_passes
+    from repro_torch.kernels.rot_apply import kernel, ref
+    from repro_torch.kernels.rot_apply.schedule import padded_band
+
+    n = Wb.shape[1]
+    passes = _executed_passes(n, w)
+    W0 = padded_band(Wb, w)
+
+    def chase_k():
+        Wp = W0.clone()      # clone keeps the strides
+        return Wp, [kernel.chase_pass(Wp, b, w, n) for b in passes]
+
+    def chase_p():
+        Wp = W0.cpu()
+        return Wp, [ref.chase_pass_ref(Wp, b, w, n) for b in passes]
+
+    chase_k()                                         # warm-up
+    (Wk, tk), k1 = _time_cuda(chase_k)
+    (Wh, th), p1 = _time_host(chase_p)
+    _, k2 = _time_cuda(chase_k)
+    _, p2 = _time_host(chase_p)
+    print(f"{label} chase ({len(passes)} passes): kernel {k1:.3f} / "
+          f"{k2:.3f} ms, plain {p1:.0f} / {p2:.0f} ms (plain on the host "
+          f"CPU)", flush=True)
+    norm = float(torch.linalg.eigvalsh(unpack_band(Wb.cpu())).abs().max())
+    _chase_agree(f"{label} chase", Wk, Wh, tk, th, norm, checks)
+    compare_replay(label, passes, tk, n, "cpu", checks, dev)
+
+
+def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
+                     dev) -> dict:
+    """At the main path's shapes: the whole chase of Wb, one
+    ``chase_pass`` per pass, with its first (widest, fewest blocks) and
+    last (most blocks, most steps) pass also run by the plain version on
+    the card on the same input (kernel, plain, kernel, plain; the plain
+    chase is a host loop of one step per time step, too slow on the host
+    CPU at this n); then TT4's replay of all its tables onto an (n, 100)
+    slab, plain on the card. ``norm`` is ||W||_2. Returns the
+    ``chase_pass`` row (the two compared passes, per launch) and the
+    ``replay_pass`` row (all passes, per launch)."""
+    from repro_torch.core.sbr import _executed_passes
+    from repro_torch.kernels.rot_apply import kernel, ref
+    from repro_torch.kernels.rot_apply.schedule import padded_band
+
+    n = Wb.shape[1]
+    passes = _executed_passes(n, w)
+    compared = (passes[0], passes[-1])
+    Wp = padded_band(Wb, w)
+    tables, k_ms, errs, k_cmp, p_cmp = [], [], [], [], []
+    for b in passes:
+        if b not in compared:
+            CS, ms = _time_cuda(lambda: kernel.chase_pass(Wp, b, w, n))
+            tables.append(CS)
+            k_ms.append(ms)
+            continue
+        Wk1, Wk2, Wq1, Wq2 = (Wp.clone() for _ in range(4))
+        CS, k1 = _time_cuda(lambda: kernel.chase_pass(Wk1, b, w, n))
+        CSq, p1 = _time_cuda(lambda: ref.chase_pass_ref(Wq1, b, w, n))
+        _, k2 = _time_cuda(lambda: kernel.chase_pass(Wk2, b, w, n))
+        _, p2 = _time_cuda(lambda: ref.chase_pass_ref(Wq2, b, w, n))
+        print(f"{label} chase pass b={b}: kernel {k1:.3f} / {k2:.3f} ms, "
+              f"plain {p1:.0f} / {p2:.0f} ms (plain on the card)",
+              flush=True)
+        errs.append(_chase_agree(f"{label} chase pass b={b}", Wk1, Wq1,
+                                 [CS], [CSq], norm, checks))
+        del Wk2, Wq1, Wq2, CSq
+        Wp = Wk1
+        tables.append(CS)
+        k_ms.append(k1)
+        k_cmp.append((k1 + k2) / 2)
+        p_cmp.append((p1 + p2) / 2)
+    print(f"{label} chase, kernel ms per pass (b = {passes[0]}..."
+          f"{passes[-1]}): {', '.join(f'{t:.2f}' for t in k_ms)}; total "
+          f"{sum(k_ms):.1f} ms", flush=True)
+    per = len(compared)
+    return {"chase_pass": dict(
+                max_abs_err=max(errs), ms=sum(k_cmp) / per,
+                plain_ms=sum(p_cmp) / per, library_ms=None,
+                **_per_launch(_chase_bound(n, w, compared), per)),
+            "replay_pass": compare_replay(label, passes, tables, n, dev,
+                                          checks, dev)}
+
+
 def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     """One main-path solve with every launch count set to 0 just before and
     read just after; returns the launch counts."""
@@ -302,7 +660,7 @@ def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    print(f"main path {label}: solve(md n={n}, s={s}, "
+    print(f"main path {label}: solve({prob.name} n={n}, s={s}, "
           f"{', '.join(f'{k}={v!r}' for k, v in kw.items())}) {wall:.2f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -315,6 +673,8 @@ def run_solve(label: str, prob, s: int, checks: Checks, **kw):
         checks.check(f"{label} converged", bool(res.info["converged"]),
                      f"max resid bound {max(res.info['resid_bounds'])!r}")
     print(f"  launches: {json.dumps(launches)}", flush=True)
+    if "tt1" in res.info:
+        print(f"  tt1: {json.dumps(res.info['tt1'])}", flush=True)
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
     rr, bo = float(acc.relative_residual), float(acc.b_orthogonality)
     checks.check(f"{label} relative_residual", rr <= TABLE3,
@@ -349,6 +709,9 @@ def main() -> int:
     ap.add_argument("--dft-n", type=int, default=4096)
     ap.add_argument("--dft-s", type=int, default=64)
     ap.add_argument("--wide-n", type=int, default=17243)
+    ap.add_argument("--chase-n", type=int, default=512,
+                    help="n of the MD pencil the chase and replay kernels "
+                         "are compared at (the plain chase is a host loop)")
     args = ap.parse_args()
 
     import torch
@@ -360,6 +723,12 @@ def main() -> int:
         from repro_torch import kernels
         from repro_torch.core import ExplicitC, apply_op
         from repro_torch.core.cholesky import cholesky_upper
+        from repro_torch.core.linalg_utils import wy_syr2k_panel
+        from repro_torch.core.sbr import (_chunk_bounds, _executed_passes,
+                                          _n_panels, default_n_chunks,
+                                          reduce_to_band)
+        from repro_torch.kernels.house_panel.ops import house_panel
+        from repro_torch.kernels.rot_apply import ops as rot_ops
         from repro_torch.core.standard_form import to_standard_two_trsm
         from repro_torch.core.tridiag import tridiagonalize
         from repro_torch.data.problems import dft_like, md_like
@@ -423,6 +792,36 @@ def main() -> int:
     del W
     torch.cuda.empty_cache()
 
+    # ---- phase 3b: the TT kernels against their plain versions -----------
+    n = args.md_n
+    rows["house_panel"] = compare_house_panel(
+        f"MD C n={n} first panel", C[:, :TT_W], TT_W, checks)
+    # a mid-ladder panel: the middle panel of the middle window, on C
+    ladder = _chunk_bounds(_n_panels(n, TT_W), default_n_chunks(n, TT_W))
+    p0, p1 = ladder[len(ladder) // 2]
+    o, p = p0 * TT_W, (p0 + p1) // 2
+    c0 = p * TT_W - o
+    compare_house_panel(f"MD C n={n} window {o} panel {p}",
+                        C[o:, o + c0: o + c0 + TT_W], c0 + TT_W, checks)
+    V, T = house_panel(C[:, :TT_W], TT_W)
+    rows["syr2k"] = compare_syr2k(f"MD C n={n} first window", C, V,
+                                  wy_syr2k_panel(C, V, T), checks)
+    del V, T
+    torch.cuda.empty_cache()
+    rows["rot_apply"] = compare_rot_apply(checks, dev)
+    small = md_like(args.chase_n, device=dev)
+    band = reduce_to_band(standard_form(small), w=TT_W)
+    compare_chase(f"MD band n={args.chase_n} w={TT_W}", band.Wb, TT_W,
+                  checks, dev)
+    del small, band
+    # the main path's band: ||W||_2 = max |lambda| of the exact spectrum
+    band = reduce_to_band(C, w=TT_W)
+    rows.update(compare_chase_md(
+        f"MD band n={n} w={TT_W}", band.Wb, TT_W,
+        float(md.exact_evals.abs().max()), checks, dev))
+    del band
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the main paths -----------------------------------------
     td = run_solve("TD", md, args.md_s, checks, variant="TD")
     ke = run_solve("KE", md, args.md_s, checks, variant="KE", invert=True,
@@ -431,11 +830,28 @@ def main() -> int:
               use_kernel=True)
     run_solve("KE p=4", md, args.md_s, checks, variant="KE", invert=True,
               use_kernel=True, krylov_block=4)
+    tt = run_solve("TT", md, args.md_s, checks, variant="TT",
+                   band_width=TT_W)
+    dft = dft_like(args.dft_n, device=dev)
+    tt_dft = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
+                       band_width=TT_W)
+    del dft
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
-                                 ("KE", ke, ("symm_block",))):
+                                 ("KE", ke, ("symm_block",)),
+                                 ("TT", tt, ("bisect_sturm", "invit")),
+                                 ("TT DFT", tt_dft, ("bisect_sturm", "invit"))):
         for name in names:
             checks.check(f"main path {label} launched {name}",
                          counts[name] > 0, f"{counts[name]} launches")
+    for label, counts, n_ in (("TT", tt, args.md_n),
+                              ("TT DFT", tt_dft, args.dft_n)):
+        n_pass = len(_executed_passes(n_, TT_W))
+        want = {"house_panel": _n_panels(n_, TT_W),
+                "syr2k": _n_panels(n_, TT_W), "chase_pass": n_pass,
+                "replay_pass": n_pass}
+        got = {k: counts[k] for k in want}
+        checks.check(f"main path {label} TT launch counts", got == want,
+                     f"{json.dumps(got)} (expected {json.dumps(want)})")
 
     # symv: reached by apply_op on a vector, not by solve
     x = torch.randn((args.md_n,), dtype=torch.float64, device=dev,
@@ -454,12 +870,27 @@ def main() -> int:
                  bool(torch.all(diff <= gamma_bound(C_h, x_h))),
                  f"max |kernel - plain| = {float(diff.max())!r}")
     del C_h
+    # rot_apply: reached by its public wrapper on a CUDA tensor, not by solve
+    pairs = torch.randn((1000, 2, 8), dtype=torch.float64, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    cs = torch.randn((1000, 2), dtype=torch.float64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(8))
+    kernels.reset_launches()
+    rot_ops.rot_apply(pairs, cs)
+    torch.cuda.synchronize()
+    ra = kernels.launch_counts()
+    print(f"rot_apply ops call launches: {json.dumps(ra)}", flush=True)
+    checks.check("rot_apply ops call launched rot_apply", ra["rot_apply"] == 1,
+                 f"{ra['rot_apply']} launches")
     launches = {"bisect_sturm": td["bisect_sturm"], "invit": td["invit"],
-                "symm_block": ke["symm_block"], "symv": sv["symv"]}
+                "symm_block": ke["symm_block"], "symv": sv["symv"],
+                "house_panel": tt["house_panel"], "syr2k": tt["syr2k"],
+                "rot_apply": ra["rot_apply"], "chase_pass": tt["chase_pass"],
+                "replay_pass": tt["replay_pass"]}
 
     # ---- phase 5: the report ---------------------------------------------
     kernel_rows = []
-    for name in ("bisect_sturm", "invit", "symv", "symm_block"):
+    for name in KERNEL_ORDER:
         r = rows[name]
         kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,24 +1,29 @@
 """Top-level GSYEIG solver: A X = B X Lambda, s << n wanted eigenpairs.
 
-The port carries three of the paper's four variants:
+The port carries the paper's four variants:
   TD — Cholesky (GS1), standard form by two triangular solves (GS2),
        Householder tridiagonalization (TD1), Sturm bisection and inverse
        iteration on the CUDA kernels (TD2), the reflector back-transform
        (TD3) and U^{-1} (BT1);
+  TT — GS1, GS2, reduction to a band of width ``band_width`` (TT1: panel
+       QR and SYR2K update kernels), the wavefront bulge chase to
+       tridiagonal (TT2: one chase kernel launch per bandwidth pass), TD2's
+       eigensolver (TT3), the replayed rotations and Q1 (TT4), BT1;
   KE — GS1, GS2, thick-restart block Lanczos on the explicit C (KE_iter),
        BT1;
   KI — GS1, Lanczos on the implicit C = U^{-T} A U^{-1} (no GS2), BT1.
 With ``use_kernel=True`` every Krylov matvec runs the one-triangle CUDA
 kernel (``kernels/symv``); the default ``False`` is ``torch.matmul`` on the
-full matrix, as the reference's default is XLA's dot. TT is not ported yet
-and raises (ROADMAP.md §1 item 5), as do precisions other than fp64.
+full matrix, as the reference's default is XLA's dot. Precisions other
+than fp64 are not ported yet and raise.
 
 ``which='smallest'|'largest'`` selects the end of the spectrum;
 ``invert=True`` applies the paper's MD trick (solve the inverse pair
 (B, A) for its largest eigenpairs — valid when A is also SPD — and map
 back). Every stage is timed to the end of its work on the device
-(``stage_times`` keys GS1 GS2 TD1 TD2 TD3 BT1 Tot. for TD, GS1 GS2 KE_iter
-BT1 Tot. for KE, GS1 KI_iter BT1 Tot. for KI).
+(``stage_times`` keys GS1 GS2 TD1 TD2 TD3 BT1 Tot. for TD, GS1 GS2 TT1 TT2
+TT3 TT4 BT1 Tot. for TT, GS1 GS2 KE_iter BT1 Tot. for KE, GS1 KI_iter BT1
+Tot. for KI).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from .lanczos import default_subspace, lanczos_solve
 from .operators import ExplicitC, ImplicitC
 from .precision import ensure_strong, validate_precision
 from .residuals import b_normalize
+from .sbr import apply_q2, band_chase, default_n_chunks, reduce_to_band
 from .standard_form import to_standard_two_trsm
 from .tridiag import apply_q, tridiagonalize
 from .tridiag_eig import eigh_tridiag_selected
@@ -52,9 +58,12 @@ VARIANTS = ("TD", "TT", "KE", "KI")
 SOLVE_SEED = 20120520
 
 _NOT_PORTED = {
-    "TT": "ROADMAP.md §1 item 5 (TT pipeline)",
     "auto": "ROADMAP.md §1 item 11 (analysis: the variant router)",
 }
+
+#: the kernel families of the TT1 sweep, whose launches ``info['tt1']``
+#: reports
+_TT1_KERNELS = ("house_panel", "syr2k")
 
 
 @dataclass
@@ -104,7 +113,7 @@ def _check_options(variant: str, which: str, gs1: str, gs2: str,
 
 
 def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
-                gs1: str, gs2: str, td1: str, m, tol: float,
+                gs1: str, gs2: str, td1: str, band_width: int, m, tol: float,
                 max_restarts: int, use_kernel: bool, clustered: bool,
                 krylov_block, filter, x0, v0, probe_v0,  # noqa: A002
                 generator, precision: str, on_failure: str, recovery: list,
@@ -178,7 +187,7 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
 
     # ---- GS2: C = U^{-T} A U^{-1} (not for KI) ---------------------------
     C = None
-    if variant in ("TD", "KE"):
+    if variant in ("TD", "TT", "KE"):
         C, gs2_ok = _timed(times, "GS2", device)(_gs2_fused, A, U)
         stage_health["GS2"] = bool(gs2_ok)
         if not stage_health["GS2"] and on_failure != "ignore":
@@ -203,6 +212,37 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
             generator=generator)
         Y = _timed(times, "TD3", device)(apply_q, res, Z)
         del res
+    elif variant == "TT":
+        # ---- TT1 / TT2 / TT3 / TT4 ---------------------------------------
+        ks = (torch.arange(s, device=device) if which == "smallest"
+              else torch.arange(n - s, n, device=device))
+        n_chunks = default_n_chunks(n, band_width)
+        l0 = _kernels.launch_counts()
+        band = _timed(times, "TT1", device)(reduce_to_band, C, w=band_width,
+                                            n_chunks=n_chunks)
+        del C
+        l1 = _kernels.launch_counts()
+        info["tt1"] = {"n_chunks": int(n_chunks),
+                       "kernel_launches": {k: l1[k] - l0[k]
+                                           for k in _TT1_KERNELS}}
+        # host sentinel on the (w+1, n) band the chase consumes
+        stage_health["TT1"] = host_finite(band.Wb)
+        if not stage_health["TT1"] and on_failure != "ignore":
+            fail("TT1", "nonfinite_stage",
+                 "non-finite band matrix after the TT1 sweep",
+                 "corrupted C entering the panel sweep (upstream NaN)")
+        chase = _timed(times, "TT2", device)(band_chase, band.Wb, band_width)
+        stage_health["TT2"] = host_finite(chase.d, chase.e)
+        if not stage_health["TT2"] and on_failure != "ignore":
+            fail("TT2", "nonfinite_stage",
+                 "non-finite tridiagonal after the TT2 chase",
+                 "the rotation wavefront hit non-finite band entries")
+        lam, Z = _timed(times, "TT3", device)(
+            eigh_tridiag_selected, chase.d, chase.e, ks, x0=x0,
+            generator=generator)
+        Y = _timed(times, "TT4", device)(
+            lambda: band.Q1 @ apply_q2(chase, Z, band_width))
+        del band, chase
     else:
         # ---- KE_iter / KI_iter: thick-restart block Lanczos --------------
         stage = f"{variant}_iter"
@@ -262,7 +302,8 @@ def _finalize(lam, X, B_orig, invert: bool, times: Dict[str, float],
 
 def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           invert: bool = False, gs2: str = "trsm", gs1: str = "fused",
-          td1: str = "unblocked", m: int | None = None, tol: float = 0.0,
+          td1: str = "unblocked", band_width: int = 16,
+          m: int | None = None, tol: float = 0.0,
           max_restarts: int = 500, use_kernel: bool = False,
           clustered: bool = False, krylov_block: int | None = None,
           filter: int | None = None,  # noqa: A002 — the paper-facing name
@@ -282,9 +323,14 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     degree (``None`` = 16 when ``clustered``, else off). ``info['krylov']``
     records p and the degree.
 
-    Random starts: ``x0`` is TD2's (n, s) inverse-iteration start block, in
-    the column order of the sorted wanted indices; ``v0`` the (n, p)
-    Lanczos start block and ``probe_v0`` the filter probe's (n,) vector.
+    ``band_width`` is TT's band (the reference's default, 16); with
+    ``variant="TT"``, ``info['tt1']`` records the window ladder's
+    ``n_chunks`` and the sweep's kernel launches.
+
+    Random starts: ``x0`` is TD2's (and TT3's) (n, s) inverse-iteration
+    start block, in the column order of the sorted wanted indices; ``v0``
+    the (n, p) Lanczos start block and ``probe_v0`` the filter probe's
+    (n,) vector.
     The reference draws them from ``PRNGKey(20120520)``; parity runs pass
     those in. What is not given is drawn from ``generator``, by default one
     seeded with ``SOLVE_SEED`` on ``device``.
@@ -294,9 +340,9 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     stage or output raises ``SolverError``, an unconverged KE/KI retires
     with a warning; ``'recover'`` additionally retries transient
     non-finite failures up to ``max_retries`` times with fresh start
-    blocks, and escalates an unconverged KE/KI to 4x the restarts and a
-    degree >= 16 filter (the reference's next rung, falling back to TT,
-    raises ``NotImplementedError`` until TT is ported); ``'ignore'`` raises
+    blocks, escalates an unconverged KE/KI to 4x the restarts and a
+    degree >= 16 filter, and if that fails too falls back to TT (the
+    ``fallback_variant`` rung); ``'ignore'`` raises
     nothing and still records the verdict. ``info`` carries ``health``,
     ``recovery`` and ``kernel_launches`` (launches of every kernel wrapper
     in this call), and survives ``json.dumps``.
@@ -306,7 +352,7 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     recovery: list = []
     kw: Dict[str, Any] = dict(
         variant=variant, which=which, invert=invert, gs1=gs1, gs2=gs2,
-        td1=td1, m=m, tol=tol, max_restarts=max_restarts,
+        td1=td1, band_width=band_width, m=m, tol=tol, max_restarts=max_restarts,
         use_kernel=use_kernel, clustered=clustered,
         krylov_block=krylov_block, filter=filter, x0=x0, v0=v0,
         probe_v0=probe_v0, generator=generator, precision=precision)
@@ -354,7 +400,7 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     if retry_rung is not None:
         retry_rung["outcome"] = "recovered"
 
-    # --- ladder: unconverged Krylov -> escalate (-> TT fallback) ----------
+    # --- ladder: unconverged Krylov -> escalate -> TT fallback -----------
     if on_failure == "recover" and not res.info.get("converged", True):
         resolved = res.info["variant"]
         fd = int(res.info["krylov"]["filter_degree"])
@@ -364,14 +410,17 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
                  max_restarts=esc_restarts, filter_degree=esc_filter)
         recovery.append(r)
         res2 = attempt(dict(kw, max_restarts=esc_restarts, filter=esc_filter))
-        if not res2.info["converged"]:
+        if res2.info["converged"]:
+            r["outcome"] = "recovered"
+            res = res2
+        else:
             r["outcome"] = "failed"
-            raise NotImplementedError(
-                f"{resolved} did not converge after the escalate_krylov rung; "
-                f"the next rung, fallback_variant to TT, is not ported yet "
-                f"(ROADMAP.md §1 item 5)")
-        r["outcome"] = "recovered"
-        res = res2
+            fb = rung("fallback_variant", f"{resolved}_iter", "attempt",
+                      variant="TT")
+            recovery.append(fb)
+            res = attempt(dict(kw, variant="TT"))
+            fb["outcome"] = ("recovered"
+                             if res.info.get("converged", True) else "failed")
     launches1 = _kernels.launch_counts()
     res.info["kernel_launches"] = {k: launches1[k] - launches0[k]
                                    for k in launches1}

@@ -27,6 +27,12 @@ def compute_dtype(precision: str) -> torch.dtype:
     return torch.float64
 
 
+def matmul_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The stage GEMM: a plain ``@`` in fp64 (the reference's fp64 row;
+    its demoted rows accumulate in fp32 and come with item 8)."""
+    return a @ b
+
+
 def ensure_strong(x, device) -> torch.Tensor:
     """The working dtype on the target device: float64 on ``device``."""
     return torch.as_tensor(x).to(device=device, dtype=torch.float64)

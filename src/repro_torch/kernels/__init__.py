@@ -3,10 +3,13 @@
 ``launch_counts()`` and ``reset_launches()`` cover the wrappers of every
 family, by wrapper name.
 """
+from .house_panel import kernel as _house_panel
+from .rot_apply import kernel as _rot_apply
 from .symv import kernel as _symv
+from .syr2k import kernel as _syr2k
 from .tridiag_eig import kernel as _tridiag_eig
 
-_MODULES = (_tridiag_eig, _symv)
+_MODULES = (_tridiag_eig, _symv, _house_panel, _syr2k, _rot_apply)
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,154 @@
+"""ctypes launch wrappers for ``csrc/rot_apply.cu`` (TT2 chase, TT4 replay).
+
+``rot_apply``, ``chase_pass`` and ``replay_pass`` all replace
+``rot_apply_pallas`` (``repro/kernels/rot_apply/kernel.py``): the first
+computes its function, the other two fuse the reference's per-step and
+per-sweep calls of it into one launch per bandwidth pass. The source note
+in the ``.cu`` file says what bounds each and what the design does about
+it. Each wrapper checks device, dtype, shapes and strides, allocates with
+``torch.empty`` (the rotation table: filled with the identity first; the
+chase's grid-barrier counter: zeroed),
+launches on the current stream, raises if ``cudaGetLastError`` is not 0,
+and adds one to its ``launches`` count per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import load
+
+from .schedule import chase_stagger, identity_table, pass_schedule
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_SIGS = {
+    "rot_apply_fp64": [_P, _P, _P, _L, _L, _P],
+    "chase_pass_fp64": [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "replay_pass_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load("rot_apply")
+    for fn, argtypes in _SIGS.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple | None = None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float64:
+        raise ValueError(f"{name} must be torch.float64, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _row_major(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name} must be 2-D row-major with unit column "
+                         f"stride, got shape {tuple(t.shape)} and strides "
+                         f"{t.stride()}")
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} failed with cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
+    """(G, 2, L) row pairs rotated by (G, 2) (c, s), in one launch."""
+    _check("pairs", pairs)
+    if pairs.dim() != 3 or pairs.shape[1] != 2:
+        raise ValueError(f"pairs must be (G, 2, L), got {tuple(pairs.shape)}")
+    G, _, L = pairs.shape
+    _check("cs", cs, (G, 2))
+    pairs, cs = pairs.contiguous(), cs.contiguous()
+    out = torch.empty_like(pairs)
+    if out.numel() == 0:
+        return out
+    err = _lib().rot_apply_fp64(pairs.data_ptr(), cs.data_ptr(),
+                                out.data_ptr(), G, L, _stream(pairs))
+    rot_apply.launches += 1
+    _raise_on(err, "rot_apply_fp64")
+    return out
+
+
+rot_apply.launches = 0
+
+
+def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
+    """One bandwidth-b pass over the padded band ``Wp`` (w+2, npad) in
+    place, in one (cooperative) launch; returns the (J+1, K0+1, 2) rotation
+    table. Wp may have any positive strides: the chase keeps it
+    column-major."""
+    _check("Wp", Wp)
+    if Wp.dim() != 2 or min(Wp.stride()) < 1:
+        raise ValueError(f"Wp must be 2-D with positive strides, got shape "
+                         f"{tuple(Wp.shape)} and strides {Wp.stride()}")
+    if Wp.shape[0] != w + 2 or Wp.shape[1] < n + 2 or not 2 <= b <= w \
+            or n - b <= 0:
+        raise ValueError(f"chase_pass needs Wp (w+2, >= n+2) and "
+                         f"2 <= b <= w < n; got Wp {tuple(Wp.shape)}, "
+                         f"b={b}, w={w}, n={n}")
+    g, T_pass, G, J, K0 = pass_schedule(n, b, chase_stagger(b))
+    CS = identity_table(J, K0, Wp)
+    bar = torch.zeros((1,), dtype=torch.int32, device=Wp.device)
+    err = _lib().chase_pass_fp64(Wp.data_ptr(), Wp.stride(0), Wp.stride(1),
+                                 Wp.shape[1], CS.data_ptr(), bar.data_ptr(),
+                                 n, b, w, g, T_pass, G, J, K0, _stream(Wp))
+    chase_pass.launches += 1
+    _raise_on(err, "chase_pass_fp64")
+    return CS
+
+
+chase_pass.launches = 0
+
+
+def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
+                reverse: bool) -> torch.Tensor:
+    """One pass of the table ``CS`` applied in place to the first n rows
+    of ``Xp`` (rows past n are left alone), in one launch."""
+    _check("Xp", Xp)
+    _row_major("Xp", Xp)
+    _check("CS", CS)
+    if CS.dim() != 3 or CS.shape[2] != 2 or not CS.is_contiguous():
+        raise ValueError(f"CS must be a contiguous (J+1, K0+1, 2) table, "
+                         f"got {tuple(CS.shape)}")
+    J, K0 = CS.shape[0] - 1, CS.shape[1] - 1
+    if Xp.shape[0] < n or (J, K0) != pass_schedule(n, b)[3:]:
+        raise ValueError(f"the table {tuple(CS.shape)} and rows "
+                         f"{Xp.shape[0]} do not fit n={n}, b={b}")
+    err = _lib().replay_pass_fp64(Xp.data_ptr(), Xp.stride(0), Xp.shape[1],
+                                  CS.data_ptr(), n, b, J, K0, int(reverse),
+                                  _stream(Xp))
+    replay_pass.launches += 1
+    _raise_on(err, "replay_pass_fp64")
+    return Xp
+
+
+replay_pass.launches = 0
+
+#: every kernel wrapper of this module, by name
+WRAPPERS = {"rot_apply": rot_apply, "chase_pass": chase_pass,
+            "replay_pass": replay_pass}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

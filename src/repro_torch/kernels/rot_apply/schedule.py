@@ -1,0 +1,61 @@
+"""The static schedule of a TT2 bandwidth pass, which the plain versions
+and the CUDA kernels of this package decode, and the padded band's
+layout."""
+from __future__ import annotations
+
+import torch
+
+#: left column margin of the padded chase storage
+P_LEFT = 2
+
+
+def padded_band(Wb: torch.Tensor, w: int) -> torch.Tensor:
+    """The chase's padded storage of the packed band Wb (w+1, n): a
+    (w+2, P_LEFT + n + 3w + 8) view of column-major memory (the chase
+    kernel reads a column's diagonals together), with one spare diagonal
+    for the bulge, zero margins on both column edges, and at the right an
+    all-zero dump window for the plain version's idle lanes."""
+    n = Wb.shape[1]
+    Wp = Wb.new_zeros((P_LEFT + n + 3 * w + 8, w + 2)).mT
+    Wp[: w + 1, P_LEFT: P_LEFT + n] = Wb
+    return Wp
+
+
+def pass_schedule(n: int, b: int, g: int | None = None):
+    """Static schedule of the bandwidth-b pass: (stagger, steps, lanes, J, K0).
+
+    Column j's sweep annihilates W[j+b, j] and chases the bulge down in
+    K_j steps of b; it starts at time step g*j. The reference's stagger
+    (the default) is the smallest g with g*b - 1 >= 2b + 4, so the dense
+    (2b+4)-wide windows of all sweeps in flight at one step are disjoint.
+    """
+    J = n - b                      # columns j = 0..J-1 annihilate W[j+b, j]
+    if g is None:
+        g = 2 + -(-5 // b)         # smallest g with g*b - 1 >= 2b + 4
+    K0 = (n - 1 - b) // b + 1      # chase steps of the longest (first) sweep
+    T_pass = g * (J - 1) + 1       # last column starts at g(J-1), runs 1 step
+    G = K0 // g + 1                # max simultaneously active sweeps
+    return g, T_pass, G, J, K0
+
+
+def chase_stagger(b: int) -> int:
+    """The CUDA chase's stagger: the smallest g with g*b - 1 >= b + 3.
+
+    A lane of the in-place chase reads and writes only the packed columns
+    r-b-2 .. r of its plane (r-1, r) — the rows r-1, r to the left of the
+    2 x 2 block and the columns r-1, r below it — not the reference's
+    2b+4 window columns. Lanes one sweep apart sit g*b - 1 columns apart,
+    so at this stagger their footprints are disjoint within a step; and a
+    sweep's later steps only move further from the sweep behind it, so
+    every entry sees the sweeps in their sequential order. The result is
+    the sequential rotation sequence, bit for bit, in about 2/3 of the
+    reference's steps.
+    """
+    return -(-(b + 4) // b)
+
+
+def identity_table(J: int, K0: int, like: torch.Tensor) -> torch.Tensor:
+    """The (J+1, K0+1, 2) rotation table with every slot at (1, 0)."""
+    CS = like.new_zeros((J + 1, K0 + 1, 2))
+    CS[..., 0] = 1.0
+    return CS

@@ -1,4 +1,4 @@
-"""CLI for the port's eigensolver (the TD, KE and KI variants):
+"""CLI for the port's eigensolver (the TD, TT, KE and KI variants):
 
     PYTHONPATH=src python -m repro_torch.launch.eigsolve \\
         --problem md --n 9997 --s 100 --variant KE --invert --json
@@ -25,12 +25,14 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=384)
     ap.add_argument("--s", type=int, default=8)
     ap.add_argument("--variant", choices=["TD", "TT", "KE", "KI", "auto"],
-                    default="TD", help="TD, KE and KI are ported; TT and "
-                                       "auto raise")
+                    default="TD", help="TD, TT, KE and KI are ported; "
+                                       "auto raises")
     ap.add_argument("--which", choices=["smallest", "largest"],
                     default="smallest")
     ap.add_argument("--invert", action="store_true",
                     help="the paper's MD trick (requires A SPD)")
+    ap.add_argument("--band-width", type=int, default=8,
+                    help="TT's band width w (stage 1 reduces to w)")
     ap.add_argument("--m", type=int, default=None)
     ap.add_argument("--max-restarts", type=int, default=300)
     ap.add_argument("--p", type=int, default=None, dest="krylov_block",
@@ -52,7 +54,8 @@ def main() -> None:
     dev = resolve_device(args.device)
     prob = (md_like if args.problem == "md" else dft_like)(args.n, device=dev)
     res = solve(prob.A, prob.B, args.s, variant=args.variant,
-                which=args.which, invert=args.invert, m=args.m,
+                which=args.which, invert=args.invert,
+                band_width=args.band_width, m=args.m,
                 tol=args.tol, max_restarts=args.max_restarts,
                 krylov_block=args.krylov_block,
                 filter=args.filter_degree,

@@ -9,19 +9,27 @@ which the GPU machine need not have.)
 
 Each kernel is held against its plain version on the same inputs (the
 plain version on CPU copies, as the wrapper runs it for a CPU tensor),
-and small TD and KE solves on the card must launch their kernels.
+and small TD, TT and KE solves on the card must launch their kernels.
 """
 import pytest
 import torch
 
 from repro_torch import kernels
 from repro_torch.core import ExplicitC, accuracy_report, apply_op, solve
+from repro_torch.core import sbr
 from repro_torch.core.tridiag_eig import (_cluster_ids, _pivmin, _scale,
                                           bisect_inputs, normalize_columns,
                                           start_block)
 from repro_torch.data.problems import dft_like, md_like
+from repro_torch.kernels.house_panel import kernel as hp_kernel
+from repro_torch.kernels.house_panel import ref as hp_ref
+from repro_torch.kernels.rot_apply import kernel as rot_kernel
+from repro_torch.kernels.rot_apply import ref as rot_ref
+from repro_torch.kernels.rot_apply import schedule as rot_sched
 from repro_torch.kernels.symv import kernel as symv_kernel
 from repro_torch.kernels.symv import ref as symv_ref
+from repro_torch.kernels.syr2k import kernel as syr2k_kernel
+from repro_torch.kernels.syr2k import ref as syr2k_ref
 from repro_torch.kernels.tridiag_eig import kernel, ref
 
 pytestmark = pytest.mark.cuda
@@ -74,8 +82,10 @@ def test_td_solve_on_the_card_launches_both_kernels(cuda):
     kernel.reset_launches()
     res = solve(p.A, p.B, 8)
     assert kernel.launch_counts() == {"bisect_sturm": 1, "invit": 6}
-    assert res.info["kernel_launches"] == {"bisect_sturm": 1, "invit": 6,
-                                           "symv": 0, "symm_block": 0}
+    assert res.info["kernel_launches"] == {
+        "bisect_sturm": 1, "invit": 6, "symv": 0, "symm_block": 0,
+        "house_panel": 0, "syr2k": 0, "rot_apply": 0, "chase_pass": 0,
+        "replay_pass": 0}
     acc = accuracy_report(p.A, p.B, res.X, res.evals)
     assert float(acc.relative_residual) <= 1e-12
     assert float(acc.b_orthogonality) <= 1e-12
@@ -160,3 +170,129 @@ def test_ke_solve_on_the_card_launches_symm_block(cuda):
     assert _within_gamma(y.cpu()[:, None],
                          symv_ref.symv_upper_ref(p.A.cpu(), x.cpu())[:, None],
                          p.A.cpu(), x.cpu()[:, None])
+
+
+# ------------------------------------------------------------ the TT path --
+
+def _randn(shape, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(device)
+
+
+@pytest.mark.parametrize("rows,b,row_start", [
+    (37, 5, 10), (40, 8, 0), (12, 8, 8), (21, 16, 9), (33, 4, 32),
+    (1000, 16, 16), (3001, 33, 700), (300, 128, 5)])
+def test_house_panel_vs_plain(cuda, rows, b, row_start):
+    # E is a column slice of a wider matrix, read through its row stride
+    M = _randn((rows, b + 7), rows + b, cuda)
+    E = M[:, 3: 3 + b]
+    V, T = hp_kernel.house_panel(E, row_start)
+    Vp, Tp = hp_ref.house_panel_ref(E.cpu(), row_start)
+    # |v| <= 1 and |T| <= 2: the entries agree to rounding of O(rows) sums
+    assert torch.abs(V.cpu() - Vp).max() <= 1e-12
+    assert torch.abs(T.cpu() - Tp).max() <= 1e-12
+    V2, T2 = hp_kernel.house_panel(E, row_start)
+    assert torch.equal(V2, V) and torch.equal(T2, T)
+
+
+def _gamma(m):
+    u = torch.finfo(torch.float64).eps / 2
+    return m * u / (1 - m * u)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (31, 16), (33, 17), (100, 3),
+                                 (1000, 16), (1025, 40)])
+@pytest.mark.parametrize("sym", [False, True])
+def test_syr2k_vs_plain(cuda, n, k, sym):
+    C = _randn((n, n), n, cuda)
+    V = _randn((n, k), n + 1, cuda)
+    W = _randn((n, k), n + 2, cuda)
+    out = syr2k_kernel.syr2k(C, V, W, alpha=-1.0, symmetrize=sym)
+    Ch, Vh, Wh = C.cpu(), V.cpu(), W.cpu()
+    R = syr2k_ref.syr2k_ref(Ch, Vh, Wh, -1.0)
+    absC = Ch.abs()
+    bound = _gamma(2 * k + 1) * (absC + Vh.abs() @ Wh.abs().mT
+                                 + Wh.abs() @ Vh.abs().mT)
+    if sym:
+        R = 0.5 * (R + R.mT)
+        bound = 0.5 * (bound + bound.mT)
+        assert torch.equal(out, out.mT)
+    assert bool(torch.all((out.cpu() - R).abs() <= bound))
+    # in place on a window view: the same bits
+    big = torch.zeros((n + 5, n + 5), dtype=torch.float64, device=cuda)
+    win = big[5:, 5:]
+    win.copy_(C)
+    syr2k_kernel.syr2k(win, V, W, alpha=-1.0, symmetrize=sym, out=win)
+    assert torch.equal(win, out)
+    assert torch.equal(big[:5], torch.zeros_like(big[:5]))
+
+
+@pytest.mark.parametrize("G,L", [(1, 1), (7, 5), (1000, 8), (209, 36),
+                                 (625, 100)])
+def test_rot_apply_bitwise_vs_plain(cuda, G, L):
+    pairs = _randn((G, 2, L), G + L, cuda)
+    cs = _randn((G, 2), G, cuda)
+    out = rot_kernel.rot_apply(pairs, cs)
+    assert torch.equal(out.cpu(), rot_ref.rot_apply_ref(pairs.cpu(), cs.cpu()))
+
+
+def _band(n, w, seed, device):
+    C = _randn((n, n), seed, "cpu")
+    C = 0.5 * (C + C.mT)
+    return sbr.reduce_to_band(C, w=w).Wb.to(device)
+
+
+@pytest.mark.parametrize("column_major", [False, True])
+@pytest.mark.parametrize("n,w", [(9, 7), (40, 4), (97, 16), (200, 5),
+                                 (300, 16)])
+def test_chase_and_replay_passes_vs_plain(cuda, n, w, column_major):
+    Wb = _band(n, w, n * 7 + w, cuda)
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    Wp = torch.zeros((w + 2, npad), dtype=torch.float64, device=cuda)
+    if column_major:     # the layout core.sbr.band_chase uses
+        Wp = torch.zeros((npad, w + 2), dtype=torch.float64, device=cuda).mT
+    Wp[: w + 1, 2: 2 + n] = Wb
+    Wp_h = Wp.cpu()
+    X = _randn((n, 13), n, cuda)
+    Xf, Xr = X.clone(), X.clone()
+    tables = []
+    for b in sbr._executed_passes(n, w):
+        CS = rot_kernel.chase_pass(Wp, b, w, n)
+        CS_h = rot_ref.chase_pass_ref(Wp_h, b, w, n)
+        # IEEE-rounded sqrt and division and no FMA on either side, the
+        # same operations in the same order: the same bits
+        assert torch.equal(CS.cpu(), CS_h)
+        assert torch.equal(Wp.cpu(), Wp_h)
+        tables.append(CS)
+        for Xk, reverse in ((Xf, False), (Xr, True)):
+            X_h = Xk.cpu()
+            rot_kernel.replay_pass(Xk, CS, b, n, reverse=reverse)
+            rot_ref.replay_pass_ref(X_h, CS_h, b, n, reverse=reverse)
+            assert torch.equal(Xk.cpu(), X_h)
+    # repeated launches give the same bits
+    Wp2 = torch.zeros_like(Wp)   # the same strides
+    Wp2[: w + 1, 2: 2 + n] = Wb
+    for b, CS in zip(sbr._executed_passes(n, w), tables):
+        assert torch.equal(rot_kernel.chase_pass(Wp2, b, w, n), CS)
+    assert torch.equal(Wp2, Wp)
+
+
+def test_tt_solve_on_the_card_launches_its_kernels(cuda):
+    n, s, w = 300, 6, 16
+    p = md_like(n, device=cuda)
+    kernels.reset_launches()
+    res = solve(p.A, p.B, s, variant="TT", band_width=w)
+    launches = res.info["kernel_launches"]
+    n_panels = len(range(0, n - w - 1, w))
+    passes = len(sbr._executed_passes(n, w))
+    assert launches["house_panel"] == launches["syr2k"] == n_panels
+    assert launches["chase_pass"] == launches["replay_pass"] == passes
+    assert launches["bisect_sturm"] == 1 and launches["invit"] > 0
+    assert res.info["tt1"]["kernel_launches"] == {"house_panel": n_panels,
+                                                  "syr2k": n_panels}
+    acc = accuracy_report(p.A, p.B, res.X, res.evals)
+    assert float(acc.relative_residual) <= 1e-12
+    assert float(acc.b_orthogonality) <= 1e-12
+    exact = p.exact_evals
+    assert float(torch.abs(res.evals - exact[:s]).max()) <= (
+        1e-10 * float(exact.abs().max()))

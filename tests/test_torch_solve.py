@@ -1,5 +1,5 @@
-"""The TD, KE and KI solves of the PyTorch port against ``repro.core.solve``,
-on the CPU.
+"""The TD, TT, KE and KI solves of the PyTorch port against
+``repro.core.solve``, on the CPU.
 
 The reference's pencils and random starts (TD2's inverse-iteration block,
 the Lanczos start block and the filter probe) are carried across
@@ -32,6 +32,10 @@ from repro_torch.resilience.recovery import SolverError
 ROOT = Path(__file__).resolve().parents[1]
 N, S = 64, 6
 TABLE3 = {"relative_residual": 1e-12, "b_orthogonality": 1e-12}
+#: every kernel wrapper's launches in a CPU solve
+NO_LAUNCHES = {"bisect_sturm": 0, "invit": 0, "symv": 0, "symm_block": 0,
+               "house_panel": 0, "syr2k": 0, "rot_apply": 0, "chase_pass": 0,
+               "replay_pass": 0}
 CASES = [("md", "smallest", False), ("md", "largest", False),
          ("dft", "smallest", False), ("dft", "largest", False),
          ("md", "smallest", True)]
@@ -86,6 +90,34 @@ def test_td_solve_parity(problem, which, invert):
     assert set(res.stage_times) == {"GS1", "GS2", "TD1", "TD2", "TD3",
                                     "BT1", "Tot."}
     assert res.info["health"]["healthy"]
+
+
+@pytest.mark.parametrize("problem,which,invert", CASES)
+def test_tt_solve_parity(problem, which, invert):
+    p, tp = _pencil(problem)
+    ref = j_solve(p.A, p.B, S, variant="TT", which=which, invert=invert)
+    # TT3 draws the same start block as TD2 in the reference
+    res = solve(tp.A, tp.B, S, variant="TT", which=which, invert=invert,
+                x0=start_block_from_numpy(_reference_x0(N, S), "cpu"),
+                device="cpu")
+    ev, ev_ref = res.evals.numpy(), np.asarray(ref.evals)
+    assert np.abs(ev - ev_ref).max() <= 1e-12 * np.abs(ev_ref).max()
+    # vectors after fixing each column's sign: a vector moves by about
+    # u ||C|| / gap, and the MD low end is clustered (gaps ~1e-3 ||C||)
+    X, X_ref = res.X.numpy(), np.asarray(ref.X)
+    sign = np.where(np.sum(X * X_ref, axis=0) < 0, -1.0, 1.0)
+    assert np.abs(X * sign - X_ref).max() <= 1e-10
+    _table3(p, X, ev)
+    _table3(p, X_ref, ev_ref)
+    exact = np.asarray(p.exact_evals)
+    want = exact[:S] if which == "smallest" else exact[-S:]
+    assert np.abs(ev - want).max() <= 1e-10 * np.abs(exact).max()
+    assert set(res.stage_times) == set(ref.stage_times) == {
+        "GS1", "GS2", "TT1", "TT2", "TT3", "TT4", "BT1", "Tot."}
+    assert res.info["tt1"]["n_chunks"] == ref.info["tt1"]["n_chunks"]
+    assert res.info["tt1"]["kernel_launches"] == {"house_panel": 0,
+                                                  "syr2k": 0}
+    assert res.info["health"] == ref.info["health"]
 
 
 KRYLOV_CASES = [
@@ -160,8 +192,7 @@ def test_krylov_info_is_json_clean():
     assert all(isinstance(r, float) for r in info["resid_bounds"])
     assert info["health"]["stages"] == {"GS1": True, "KI_iter": True,
                                         "OUT": True}
-    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
-                                       "symv": 0, "symm_block": 0}
+    assert info["kernel_launches"] == NO_LAUNCHES
 
 
 def test_unconverged_krylov_warns():
@@ -179,8 +210,7 @@ def test_info_is_json_clean():
     res = solve(tp.A, tp.B, 3, device="cpu")
     info = json.loads(json.dumps(res.info))
     assert info["variant"] == "TD" and info["device"] == "cpu"
-    assert info["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
-                                       "symv": 0, "symm_block": 0}
+    assert info["kernel_launches"] == NO_LAUNCHES
     assert info["recovery"] == []
     assert info["health"]["stages"] == {"GS1": True, "GS2": True,
                                         "TD1": True, "OUT": True}
@@ -253,7 +283,7 @@ def test_nonfinite_a_poisons_ki_iter_and_retries_under_recover():
     assert res.info["n_restart"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(variant="TT"), dict(variant="auto"),
+@pytest.mark.parametrize("kw", [dict(variant="auto"),
                                 dict(precision="mixed"), dict(td1="blocked"),
                                 dict(gs2="sygst"), dict(gs1="blocked")])
 def test_unported_options_raise(kw):
@@ -282,15 +312,25 @@ def test_unconverged_krylov_escalates_under_recover():
 
 
 def test_failed_escalation_raises_for_the_tt_fallback():
-    # the reference falls back to TT here; the port has no TT yet
+    # a failed escalate_krylov rung raises the TT fallback rung, as in the
+    # reference: the recovery trail is the reference's, action by action
     p, tp = _pencil("dft")
     ref = j_solve(p.A, p.B, 4, variant="KE", max_restarts=3,
                   on_failure="recover")
-    assert [r["action"] for r in ref.info["recovery"]] == [
-        "escalate_krylov", "fallback_variant"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        solve(tp.A, tp.B, 4, variant="KE", max_restarts=3,
-              on_failure="recover", device="cpu")
+    res = solve(tp.A, tp.B, 4, variant="KE", max_restarts=3,
+                on_failure="recover", device="cpu")
+    assert res.info["recovery"] == ref.info["recovery"] == [
+        {"action": "escalate_krylov", "stage": "KE_iter",
+         "outcome": "failed",
+         "params": {"max_restarts": 12, "filter_degree": 16}},
+        {"action": "fallback_variant", "stage": "KE_iter",
+         "outcome": "recovered", "params": {"variant": "TT"}}]
+    assert res.info["variant"] == ref.info["variant"] == "TT"
+    json.dumps(res.info)
+    _table3(p, res.X.numpy(), res.evals.numpy())
+    exact = np.asarray(p.exact_evals)
+    assert np.abs(res.evals.numpy() - exact[:4]).max() <= (
+        1e-10 * np.abs(exact).max())
 
 
 # ------------------------------------------------------------ device rule --
@@ -318,10 +358,27 @@ def test_cli_payload(monkeypatch):
     assert payload["relative_residual"] <= 1e-12
     assert payload["b_orthogonality"] <= 1e-12
     assert payload["max_abs_eval_error"] <= 1e-10
-    assert payload["kernel_launches"] == {"bisect_sturm": 0, "invit": 0,
-                                          "symv": 0, "symm_block": 0}
+    assert payload["kernel_launches"] == NO_LAUNCHES
     assert set(payload["stage_times_s"]) == {"GS1", "GS2", "TD1", "TD2",
                                              "TD3", "BT1", "Tot."}
+
+
+def test_cli_payload_tt(monkeypatch):
+    from repro_torch.launch import eigsolve
+    monkeypatch.setattr(sys, "argv", [
+        "eigsolve", "--problem", "md", "--n", "64", "--s", "4", "--variant",
+        "TT", "--band-width", "6", "--device", "cpu", "--json"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        eigsolve.main()
+    payload = json.loads(buf.getvalue())
+    assert payload["variant"] == "TT" and payload["device"] == "cpu"
+    assert payload["relative_residual"] <= 1e-12
+    assert payload["b_orthogonality"] <= 1e-12
+    assert payload["max_abs_eval_error"] <= 1e-10
+    assert payload["kernel_launches"] == NO_LAUNCHES
+    assert set(payload["stage_times_s"]) == {"GS1", "GS2", "TT1", "TT2",
+                                             "TT3", "TT4", "BT1", "Tot."}
 
 
 def test_cli_payload_krylov(monkeypatch):

@@ -1,0 +1,320 @@
+"""The TT kernels' plain versions and band storage of the PyTorch port
+against the JAX reference, on the CPU.
+
+The same inputs, made with numpy from a seed, go through the reference's
+Pallas kernels in interpret mode (``force_kernel=True,
+force_interpret=True``, as its own tests run them), its ``ref.py``
+oracles, and the port's plain versions — the code a CPU tensor runs.
+Each tolerance is stated where it is used, with its reason. The CUDA
+kernels themselves are held against these plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import band_storage as j_bs
+from repro.core import sbr as j_sbr
+from repro.core.linalg_utils import givens as j_givens
+from repro.core.linalg_utils import qr_wy_masked as j_qr_wy_masked
+from repro.kernels.house_panel.ops import house_panel as j_house_panel
+from repro.kernels.house_panel.ref import house_panel_ref as j_house_ref
+from repro.kernels.rot_apply.ops import rot_apply as j_rot_apply
+from repro.kernels.syr2k.ops import syr2k as j_syr2k
+from repro_torch.core import band_storage as bs
+from repro_torch.core.linalg_utils import givens, qr_wy_masked
+from repro_torch.kernels.house_panel import kernel as hp_kernel
+from repro_torch.kernels.house_panel import ops as hp_ops
+from repro_torch.kernels.rot_apply import kernel as rot_kernel
+from repro_torch.kernels.rot_apply import ops as rot_ops
+from repro_torch.kernels.rot_apply import schedule as rot_sched
+from repro_torch.kernels.syr2k import kernel as syr2k_kernel
+from repro_torch.kernels.syr2k import ops as syr2k_ops
+
+U = np.finfo(np.float64).eps / 2
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float64))
+
+
+def _sym(n, seed):
+    A = np.random.default_rng(seed).standard_normal((n, n))
+    return 0.5 * (A + A.T)
+
+
+# ------------------------------------------------------------ band storage --
+
+BAND_GRID = [(17, 3), (32, 8), (5, 7), (1, 2), (40, 40), (12, 11)]
+
+
+@pytest.mark.parametrize("n,w", BAND_GRID)
+def test_band_storage_bitwise_vs_reference(n, w):
+    A = np.random.default_rng(n * 31 + w).standard_normal((n, n))
+    for sym in (False, True):
+        band = bs.pack_band(_t(A), w, symmetrize=sym)
+        j_band = j_bs.pack_band(jnp.asarray(A), w, symmetrize=sym)
+        np.testing.assert_array_equal(band.numpy(), np.asarray(j_band))
+        np.testing.assert_array_equal(bs.unpack_band(band).numpy(),
+                                      np.asarray(j_bs.unpack_band(j_band)))
+    raw = _t(np.random.default_rng(n).standard_normal((w + 1, n)))
+    np.testing.assert_array_equal(
+        bs.clean_band(raw).numpy(),
+        np.asarray(j_bs.clean_band(jnp.asarray(raw.numpy()))))
+    d, e = bs.band_extract_tridiag(raw)
+    jd, je = j_bs.band_extract_tridiag(jnp.asarray(raw.numpy()))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+    bm = bs.to_band_mv_layout(raw)
+    np.testing.assert_array_equal(
+        bm.numpy(), np.asarray(j_bs.to_band_mv_layout(jnp.asarray(raw.numpy()))))
+    np.testing.assert_array_equal(bs.from_band_mv_layout(bm).numpy(),
+                                  raw.numpy())
+
+
+# ---------------------------------------------------------- house_panel --
+
+# the grid of tests/test_house_panel.py: odd rows, b not dividing rows,
+# the rows < b tail panel, and the pivot-past-the-end case
+HOUSE_GRID = [(37, 5, 10), (40, 8, 0), (33, 4, 7), (12, 8, 8), (21, 16, 9),
+              (33, 4, 32)]
+
+
+def _panel(rows, b, seed):
+    return np.random.default_rng(seed).standard_normal((rows, b))
+
+
+@pytest.mark.parametrize("rows,b,row_start", HOUSE_GRID)
+def test_house_panel_plain_vs_pallas_interpret_and_ref(rows, b, row_start):
+    E = _panel(rows, b, rows * 100 + b + row_start)
+    V, T = hp_ops.house_panel(_t(E), row_start)
+    # |v| <= 1 and |tau| <= 2: entries agree to the rounding of O(rows)
+    # sums, far inside 1e-13
+    for jV, jT in (j_house_panel(jnp.asarray(E), row_start, force_kernel=True,
+                                 force_interpret=True),
+                   j_house_ref(jnp.asarray(E), row_start)):
+        np.testing.assert_allclose(V.numpy(), np.asarray(jV), rtol=0,
+                                   atol=1e-13)
+        np.testing.assert_allclose(T.numpy(), np.asarray(jT), rtol=0,
+                                   atol=1e-13)
+
+
+@pytest.mark.parametrize("rows,b,row_start", HOUSE_GRID)
+def test_house_panel_plain_invariants(rows, b, row_start):
+    E = _panel(rows, b, rows * 31 + b)
+    V, T = (x.numpy() for x in hp_ops.house_panel(_t(E), row_start))
+    Q = np.eye(rows) - V @ T @ V.T
+    np.testing.assert_allclose(Q.T @ Q, np.eye(rows), atol=1e-12)
+    R = Q.T @ E
+    for j in range(b):
+        p = row_start + j
+        if p + 1 < rows:
+            np.testing.assert_allclose(R[p + 1:, j], 0.0, atol=1e-12)
+    np.testing.assert_array_equal(V[:row_start], 0.0)
+
+
+def test_qr_wy_masked_vs_reference():
+    E = _panel(29, 6, 5)
+    got = qr_wy_masked(_t(E), 7)
+    want = j_qr_wy_masked(jnp.asarray(E), 7)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+
+
+# ---------------------------------------------------------------- syr2k --
+
+@pytest.mark.parametrize("n,k", [(1, 1), (9, 4), (33, 16), (100, 17),
+                                 (130, 8)])
+def test_syr2k_plain_vs_pallas_interpret(n, k):
+    rng = np.random.default_rng(n + k)
+    C, V, W = (rng.standard_normal(s) for s in ((n, n), (n, k), (n, k)))
+    got = syr2k_ops.syr2k(_t(C), _t(V), _t(W), alpha=-1.0).numpy()
+    want = np.asarray(j_syr2k(jnp.asarray(C), jnp.asarray(V), jnp.asarray(W),
+                              alpha=-1.0, force_interpret=True))
+    # each entry is C + alpha (2k products): any order of summation is
+    # within gamma_{2k+1} (|C| + |alpha| (|V||W|^T + |W||V|^T)) of the
+    # exact value, so two orders are within twice that
+    m = 2 * k + 1
+    gamma = m * U / (1 - m * U)
+    bound = gamma * (np.abs(C) + np.abs(V) @ np.abs(W).T
+                     + np.abs(W) @ np.abs(V).T)
+    assert np.all(np.abs(got - want) <= 2 * bound)
+
+
+def test_syr2k_symmetrize_and_out_in_place():
+    rng = np.random.default_rng(3)
+    C = _t(_sym(20, 3))
+    V, W = _t(rng.standard_normal((20, 4))), _t(rng.standard_normal((20, 4)))
+    R = syr2k_ops.syr2k(C, V, W, alpha=-0.5)
+    S = syr2k_ops.syr2k(C, V, W, alpha=-0.5, symmetrize=True)
+    torch.testing.assert_close(S, 0.5 * (R + R.mT), rtol=0, atol=0)
+    out = C.clone()
+    assert syr2k_ops.syr2k(out, V, W, alpha=-0.5, symmetrize=True,
+                           out=out) is out
+    torch.testing.assert_close(out, S, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ rot_apply --
+
+@pytest.mark.parametrize("G,L", [(1, 1), (7, 5), (64, 8), (209, 36)])
+def test_rot_apply_plain_vs_pallas_interpret(G, L):
+    rng = np.random.default_rng(G * 7 + L)
+    pairs = rng.standard_normal((G, 2, L))
+    cs = rng.standard_normal((G, 2))
+    got = rot_ops.rot_apply(_t(pairs), _t(cs)).numpy()
+    want = np.asarray(j_rot_apply(jnp.asarray(pairs), jnp.asarray(cs),
+                                  force_kernel=True, force_interpret=True))
+    # XLA may contract c x0 + s x1 into an FMA, the port never does. Each
+    # side is within 2u (|c||x0| + |s||x1|) of the exact value (a product
+    # and the sum rounded, or all three), so the two are within twice that
+    c, s = np.abs(cs[:, :1]), np.abs(cs[:, 1:])
+    x0, x1 = np.abs(pairs[:, 0]), np.abs(pairs[:, 1])
+    assert np.all(np.abs(got[:, 0] - want[:, 0]) <= 4 * U * (c * x0 + s * x1))
+    assert np.all(np.abs(got[:, 1] - want[:, 1]) <= 4 * U * (s * x0 + c * x1))
+
+
+def test_givens_vs_reference():
+    rng = np.random.default_rng(11)
+    a = np.concatenate([rng.standard_normal(200), [0.0, 0.0, 3.0]])
+    b = np.concatenate([rng.standard_normal(200), [0.0, 2.0, 0.0]])
+    c, s = givens(_t(a), _t(b))
+    jc, js = j_givens(jnp.asarray(a), jnp.asarray(b))
+    # an FMA in a*a + b*b moves r by an ulp: c and s agree to a few ulps
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=4 * U, atol=0)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=4 * U, atol=0)
+    assert (c[200].item(), s[200].item()) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("n,w", [(40, 4), (37, 7)])
+def test_replay_pass_plain_vs_reference(n, w):
+    # the reference's own chase tables, replayed by both packages onto the
+    # same rows: the same rotations, so only the rounding of each differs
+    C = _sym(n, n + w)
+    band = j_sbr.reduce_to_band(jnp.asarray(C), w=w)
+    chase = j_sbr.band_chase(band.Wb, w)
+    X = np.random.default_rng(1).standard_normal((n + 2, 5))
+    X[-2:] = 0.0
+    for reverse in (False, True):
+        got, want = _t(X), jnp.asarray(X)
+        passes = j_sbr._executed_passes(n, w)
+        order = zip(passes, chase.cs)
+        if reverse:
+            order = zip(reversed(passes), reversed(chase.cs))
+        for b, CS in order:
+            rot_ops.replay_pass(got, _t(CS), b, n, reverse)
+            want = j_sbr._replay_pass(want, CS, b, n, reverse)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-13)
+
+
+def test_chase_pass_plain_keeps_the_reference_table_layout():
+    n, w = 30, 5
+    C = _sym(n, 8)
+    band = j_sbr.reduce_to_band(jnp.asarray(C), w=w)
+    Wp = torch.zeros((w + 2, 2 + n + 3 * w + 8), dtype=torch.float64)
+    Wp[: w + 1, 2: 2 + n] = _t(band.Wb)
+    CS = rot_ops.chase_pass(Wp, w, w, n)
+    g, T_pass, G, J, K0 = j_sbr._pass_schedule(n, w)
+    assert tuple(CS.shape) == (J + 1, K0 + 1, 2)
+    # slots past each sweep's end keep the identity rotation
+    for j in range(J):
+        Kj = (n - 1 - j - w) // w + 1
+        assert torch.equal(CS[j, Kj:, 0], torch.ones(K0 + 1 - Kj,
+                                                     dtype=torch.float64))
+        assert torch.equal(CS[j, Kj:, 1], torch.zeros(K0 + 1 - Kj,
+                                                      dtype=torch.float64))
+    # the pass leaves bandwidth w-1: the annihilated diagonals are zero
+    assert torch.equal(Wp[w:], torch.zeros_like(Wp[w:]))
+
+
+# ------------------------------------------------------------- dispatch --
+
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached a CUDA kernel wrapper")
+    for mod, name in ((hp_kernel, "house_panel"), (syr2k_kernel, "syr2k"),
+                      (rot_kernel, "rot_apply"), (rot_kernel, "chase_pass"),
+                      (rot_kernel, "replay_pass")):
+        monkeypatch.setattr(mod, name, boom)
+    E = _t(_panel(12, 3, 1))
+    hp_ops.house_panel(E, 2)
+    syr2k_ops.syr2k(_t(_sym(6, 1)), E[:6], E[6:])
+    rot_ops.rot_apply(_t(np.ones((2, 2, 3))), _t(np.ones((2, 2))))
+    n, w = 12, 3
+    Wp = torch.zeros((w + 2, 2 + n + 3 * w + 8), dtype=torch.float64)
+    CS = rot_ops.chase_pass(Wp, w, w, n)
+    rot_ops.replay_pass(torch.zeros((n, 2), dtype=torch.float64), CS, w, n,
+                        True)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: hp_kernel.house_panel(x, 0),
+    lambda x: syr2k_kernel.syr2k(x, x[:, :2], x[:, :2]),
+    lambda x: rot_kernel.rot_apply(x[:2, :2].reshape(1, 2, 2), x[0, :2][None]),
+    lambda x: rot_kernel.chase_pass(x, 2, 2, 3),
+    lambda x: rot_kernel.replay_pass(x, x[None], 2, 4, False),
+])
+def test_kernel_wrappers_refuse_a_cpu_tensor(call):
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.zeros((4, 4), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: hp_ops.house_panel(x, 0),
+    lambda x: syr2k_ops.syr2k(x, x[:, :2], x[:, :2]),
+    lambda x: rot_ops.rot_apply(x[:2, :2].reshape(1, 2, 2), x[0, :2][None]),
+    lambda x: rot_ops.chase_pass(x, 2, 2, 3),
+    lambda x: rot_ops.replay_pass(x, x[None], 2, 4, False),
+])
+def test_lower_precisions_raise_naming_the_roadmap_item(call):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        call(torch.zeros((4, 4), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n", [9, 40, 97])
+def test_chase_stagger_keeps_lane_footprints_disjoint(n):
+    # the CUDA chase runs at a tighter stagger than the reference: a lane
+    # at plane (r-1, r) touches only packed columns r-b-2 .. r, so lanes in
+    # flight at one step must own disjoint column ranges (a footprint only
+    # moves forward, by b a step, so the sweep ahead then stays ahead)
+    for b in range(2, 17):
+        if n - b <= 0:
+            continue
+        g, T_pass, G, J, K0 = rot_sched.pass_schedule(
+            n, b, rot_sched.chase_stagger(b))
+        assert g <= rot_sched.pass_schedule(n, b)[0]
+        for t in range(T_pass):
+            spans = []
+            for l in range(G):
+                j = min(t // g, J - 1) - l
+                k = t - g * j
+                if j >= 0 and 0 <= k < (n - 1 - j - b) // b + 1:
+                    r = j + (k + 1) * b
+                    spans.append((r - b - 2, r))
+            spans.sort()
+            for (_, hi), (lo, _) in zip(spans, spans[1:]):
+                assert hi < lo, (n, b, t, spans)
+
+
+def test_pass_schedule_matches_the_reference():
+    for n in (3, 9, 40, 97, 9997):
+        for b in range(2, 17):
+            if n - b > 0:
+                assert rot_sched.pass_schedule(n, b) == \
+                    j_sbr._pass_schedule(n, b)
+
+
+@pytest.mark.parametrize("n,w", [(3, 2), (40, 4), (97, 16)])
+def test_padded_band_layout(n, w):
+    # the chase's storage: Wb in place, column-major, zero everywhere else
+    Wb = torch.arange(1.0, (w + 1) * n + 1, dtype=torch.float64).reshape(
+        w + 1, n)
+    Wp = rot_sched.padded_band(Wb, w)
+    P = rot_sched.P_LEFT
+    assert tuple(Wp.shape) == (w + 2, P + n + 3 * w + 8)
+    assert Wp.stride() == (1, w + 2)
+    assert torch.equal(Wp[: w + 1, P: P + n], Wb)
+    Wp[: w + 1, P: P + n] = 0.0
+    assert not bool(Wp.any())
