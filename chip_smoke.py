@@ -34,6 +34,18 @@ Phases, each printed as it runs; any failed check exits nonzero:
    plain version on the card (on the same input) and the replay of all
    the MD tables onto an (n, 100) slab; the band within 1e-12 ||W||_2,
    the slab within 1e-12, and band, tables and slab bitwise;
+3c. the BLAS kernels at the MD shapes, with U = cholesky_upper(B):
+   ``gemm`` at (n, n)(n, 100) and (n, n)(n, n) within gamma_k |A||B| of
+   its plain version (``torch.matmul`` on the card, also the library
+   call); the blocked ``trsm`` (``trsm_tile`` + ``gemm``) at the BT1 shape
+   (U X = B, B (n, 100)) and the GS2 shape (U^T X = A) against the plain
+   composite on the card, with its backward error ||op(U) X - B||_F /
+   (||U||_F ||X||_F) within n eps, its launches per call (ceil(n/128)
+   tiles, one product fewer), beside ``torch.linalg.solve_triangular``;
+   ``trsm_tile`` alone on U's first (128, 128) tile with n RHS columns;
+   ``band_mv`` on the MD band (TT1 at w=16, ``to_band_mv_layout``) against
+   its plain version and ``unpack_band(Wb) @ x``, within gamma_(2w+1)
+   |A||x|;
 4. the main paths, each with every launch count set to 0 just before and
    read just after: ``solve(A, B, 100, variant="TD")`` on the MD pencil;
    ``solve(A, B, 100, variant="KE"|"KI", invert=True, use_kernel=True)``
@@ -41,9 +53,14 @@ Phases, each printed as it runs; any failed check exits nonzero:
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
    ``chase_pass`` and ``replay_pass``) and TT on the DFT pencil at
    n=4096, s=64; each held to the Table-3 bars (1e-12) and to the
-   generator's exact spectrum; then one ``apply_op(ExplicitC(C), x,
-   use_kernel=True)`` on a vector (``symv``) and one ``rot_apply`` through
-   its public wrapper;
+   generator's exact spectrum; the blocked stages (the paper's Table 4):
+   ``solve(..., variant="TD", gs1="blocked", gs2="sygst", td1="blocked")``
+   and KE with ``gs1="blocked", gs2="sygst"`` on the MD pencil, held to the
+   same bars and to the fused TD's eigenvalues within 1e-10 max|lambda|,
+   their GS1/GS2/TD1 times printed beside the fused ones; then one call of
+   each public entry point that ``solve`` does not reach: ``apply_op(
+   ExplicitC(C), x, use_kernel=True)`` on a vector (``symv``),
+   ``rot_apply``, ``gemm``, ``trsm`` (the BT1 shape) and ``band_mv``;
 5. one JSON line of the kernels (launches on their main path, error
    against the plain version, times, bound), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
@@ -63,9 +80,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp64 outside the tensor cores
-# and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense): fp64 outside the tensor cores,
+# fp64 through the tensor cores (DMMA, which cuBLAS reaches: the bound of
+# the BLAS-3 kernels gemm, trsm, trsm_tile and of band_mv) and HBM3
+# bandwidth
 FP64_VECTOR_FLOPS = 34e12
+FP64_TENSOR_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 TABLE3 = 1e-12           # relative_residual and b_orthogonality bars
@@ -80,10 +100,20 @@ HOUSE_TOL = 1e-12        # V and T entrywise, kernel vs plain (|v| <= 1)
 HOUSE_ORTH = 1e-13       # max |Q^T Q - I| / rows for Q = I - V T V^T
 CHASE_TOL = 1e-12        # d, e of the chase vs plain, relative to ||W||_2
 REPLAY_TOL = 1e-12       # the replayed slab vs plain, entrywise
+# blocked trsm and trsm_tile vs their plain versions: max|X_k - X_p| /
+# max|X_p|. U = cholesky(B) of the MD pencil is I + N with N strictly upper
+# of entries ~0.3/sqrt(n) (data/problems.py), so ||N||_2 < 1 and
+# kappa(U) is O(1); two backward-stable solves then differ by ~2 kappa n u
+# (~1e-11 at n = 9997 for kappa ~ 5) at most
+TRSM_REL = 1e-10
+TRSM_BLOCK = 128         # trsm's default block (the tile kernel's largest)
 TT_W = 16                # the TT band width of the main path (solve's default)
 
 _ROT = "src/repro_torch/csrc/rot_apply.cu"
-SOURCES = {"bisect_sturm": "src/repro_torch/csrc/tridiag_eig.cu",
+SOURCES = {"gemm": "src/repro_torch/csrc/gemm.cu",
+           "trsm_tile": "src/repro_torch/csrc/trsm.cu",
+           "band_mv": "src/repro_torch/csrc/band_mv.cu",
+           "bisect_sturm": "src/repro_torch/csrc/tridiag_eig.cu",
            "invit": "src/repro_torch/csrc/tridiag_eig.cu",
            "symv": "src/repro_torch/csrc/symv.cu",
            "symm_block": "src/repro_torch/csrc/symv.cu",
@@ -98,9 +128,13 @@ REPLACES = {"bisect_sturm": "src/repro/kernels/tridiag_eig/kernel.py:74",
             "syr2k": "src/repro/kernels/syr2k/kernel.py:34",
             "rot_apply": "src/repro/kernels/rot_apply/kernel.py:37",
             "chase_pass": "src/repro/kernels/rot_apply/kernel.py:37",
-            "replay_pass": "src/repro/kernels/rot_apply/kernel.py:37"}
+            "replay_pass": "src/repro/kernels/rot_apply/kernel.py:37",
+            "gemm": "src/repro/kernels/gemm/kernel.py:45",
+            "trsm_tile": "src/repro/kernels/trsm/kernel.py:65",
+            "band_mv": "src/repro/kernels/band_mv/kernel.py:53"}
 KERNEL_ORDER = ("bisect_sturm", "invit", "symv", "symm_block", "house_panel",
-                "syr2k", "rot_apply", "chase_pass", "replay_pass")
+                "syr2k", "rot_apply", "chase_pass", "replay_pass", "gemm",
+                "trsm_tile", "band_mv")
 
 
 def _nvidia_smi() -> str:
@@ -138,10 +172,11 @@ def _tridiag_matvec(d, e, Z):
     return TZ
 
 
-def _bound(ops: float, nbytes: float) -> dict:
-    """Least time for the work: operations over the fp64 vector peak, bytes
-    (inputs read once, outputs written once) over HBM bandwidth."""
-    t_ops = 1e3 * ops / FP64_VECTOR_FLOPS
+def _bound(ops: float, nbytes: float, peak: float = FP64_VECTOR_FLOPS) -> dict:
+    """Least time for the work: operations over the fp64 peak (the vector
+    rate unless ``peak`` says otherwise), bytes (inputs read once, outputs
+    written once) over HBM bandwidth."""
+    t_ops = 1e3 * ops / peak
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -645,9 +680,203 @@ def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
                                           checks, dev)}
 
 
+def _gamma(k: int) -> float:
+    import torch
+    u = torch.finfo(torch.float64).eps / 2
+    return k * u / (1 - k * u)
+
+
+def compare_gemm(label: str, A, B, checks: Checks, reps: int) -> dict:
+    """``gemm`` (A B) against its plain version on the card, which is also
+    the library call (``torch.matmul``), in turns; componentwise within
+    gamma_k |A||B|, the bound each result meets against the exact
+    product. ``reps`` launches per timed window."""
+    import torch
+    from repro_torch.kernels.gemm import kernel, ref
+
+    m, k = A.shape
+    n = B.shape[1]
+    run = lambda: kernel.gemm(A, B)                     # noqa: E731
+    plain = lambda: ref.gemm_ref(A, B)                  # noqa: E731
+    run()                                               # warm-up
+    plain()
+    Y, k1 = _time_cuda(run, reps)
+    Yp, p1 = _time_cuda(plain, reps)
+    _, k2 = _time_cuda(run, reps)
+    _, p2 = _time_cuda(plain, reps)
+    diff = (Y - Yp).abs_()
+    del Y, Yp
+    bound = (A.abs() @ B.abs()).mul_(_gamma(k))
+    ok = bool(torch.all(diff <= bound))
+    ratio = float((diff / bound).max())
+    err = float(diff.max())
+    del diff, bound
+    print(f"{label} gemm ({m}, {k}) x ({k}, {n}): kernel {k1:.3f} / "
+          f"{k2:.3f} ms, plain = torch.matmul {p1:.3f} / {p2:.3f} ms (on the "
+          f"card), kernel {2e-9 * m * n * k / ((k1 + k2) / 2):.2f} TFLOP/s",
+          flush=True)
+    checks.check(f"{label} gemm within gamma_k of plain", ok,
+                 f"max |kernel - plain| / (gamma_k |A||B|) = {ratio!r}, "
+                 f"max |kernel - plain| = {err!r}")
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(p1 + p2) / 2,
+                **_bound(2.0 * m * n * k, 8.0 * (m * k + k * n + m * n),
+                         FP64_TENSOR_FLOPS))
+
+
+def _trsm_backward_error(U, X, B, trans: bool) -> float:
+    """||op(U) X - B||_F / (||U||_F ||X||_F), op(U) = U^T with ``trans``."""
+    import torch
+    R = (U.mT if trans else U) @ X
+    R -= B
+    return float(torch.linalg.matrix_norm(R)
+                 / (torch.linalg.matrix_norm(U) * torch.linalg.matrix_norm(X)))
+
+
+def compare_trsm(label: str, U, B, trans: bool, checks: Checks) -> dict:
+    """The blocked ``trsm`` (one ``trsm_tile`` launch per block row, one
+    ``gemm`` per update) against the plain composite on the card (the same
+    schedule on ``trsm_tile_ref`` and the plain product), in turns, beside
+    ``torch.linalg.solve_triangular``; checks the launches of one call, the
+    two within TRSM_REL, and the backward error within n eps."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.trsm import ops, ref
+
+    n, s = B.shape
+    eps = torch.finfo(torch.float64).eps
+    kernels.reset_launches()
+    ops.trsm(U, B, trans=trans)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    tiles = -(-n // TRSM_BLOCK)
+    want = {"trsm_tile": tiles, "gemm": tiles - 1}
+    checks.check(f"{label} trsm launches per call",
+                 {k: got[k] for k in want} == want,
+                 f"{json.dumps({k: got[k] for k in want})} (expected "
+                 f"{json.dumps(want)})")
+    run = lambda: ops.trsm(U, B, trans=trans)                     # noqa: E731
+    plain = lambda: ref.trsm_blocked_ref(U, B, trans=trans)       # noqa: E731
+    Ul = U.mT if trans else U
+    lib = lambda: torch.linalg.solve_triangular(                  # noqa: E731
+        Ul, B, upper=not trans)
+    plain()                                                       # warm-up
+    lib()
+    X, k1 = _time_cuda(run)
+    Xp, p1 = _time_cuda(plain)
+    _, l1 = _time_cuda(lib)
+    _, k2 = _time_cuda(run)
+    _, p2 = _time_cuda(plain)
+    _, l2 = _time_cuda(lib)
+    err = float((X - Xp).abs().max())
+    rel = err / float(Xp.abs().max())
+    del Xp
+    be = _trsm_backward_error(U, X, B, trans)
+    del X
+    print(f"{label} trsm ({'U^T' if trans else 'U'} X = B, B ({n}, {s}), "
+          f"block {TRSM_BLOCK}): kernels {k1:.3f} / {k2:.3f} ms, plain "
+          f"composite {p1:.1f} / {p2:.1f} ms (on the card), "
+          f"torch.linalg.solve_triangular {l1:.3f} / {l2:.3f} ms", flush=True)
+    checks.check(f"{label} trsm vs plain composite", rel <= TRSM_REL,
+                 f"max |kernel - plain| / max|plain| = {rel!r} (bar "
+                 f"{TRSM_REL})")
+    checks.check(f"{label} trsm backward error", be <= n * eps,
+                 f"||op(U) X - B||_F / (||U||_F ||X||_F) = {be!r} (bar n eps "
+                 f"= {n * eps!r})")
+    # U's triangle, B and X once; n^2 s flops (n^2/2 multiply-adds a column)
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2, launches=got["trsm_tile"],
+                **_bound(float(n) * n * s, 8.0 * (n * (n + 1) / 2 + 2 * n * s),
+                         FP64_TENSOR_FLOPS))
+
+
+def compare_trsm_tile(label: str, Ut, B, checks: Checks) -> dict:
+    """``trsm_tile`` (U X = B) on one (b, b) tile against its plain version
+    on the card (``trsm_tile_ref``, row by row), in turns, beside
+    ``torch.linalg.solve_triangular``. The timed kernel solves in place
+    ``TIMING_REPS`` times on one copy of B."""
+    import torch
+    from repro_torch.kernels.trsm import kernel, ref
+
+    b, s = B.shape
+    eps = torch.finfo(torch.float64).eps
+    X = kernel.trsm_tile(Ut, B.clone())
+    Xt = B.clone()
+    run = lambda: kernel.trsm_tile(Ut, Xt)                        # noqa: E731
+    plain = lambda: ref.trsm_tile_ref(Ut, B)                      # noqa: E731
+    lib = lambda: torch.linalg.solve_triangular(Ut, B, upper=True)  # noqa: E731
+    plain()
+    lib()
+    _, k1 = _time_cuda(run, TIMING_REPS)
+    Xp, p1 = _time_cuda(plain)
+    _, l1 = _time_cuda(lib, TIMING_REPS)
+    _, k2 = _time_cuda(run, TIMING_REPS)
+    _, p2 = _time_cuda(plain)
+    _, l2 = _time_cuda(lib, TIMING_REPS)
+    err = float((X - Xp).abs().max())
+    rel = err / float(Xp.abs().max())
+    be = _trsm_backward_error(Ut, X, B, False)
+    print(f"{label} trsm_tile ({b}, {b}) with {s} RHS columns: kernel "
+          f"{k1:.4f} / {k2:.4f} ms, plain {p1:.1f} / {p2:.1f} ms (on the "
+          f"card), torch.linalg.solve_triangular {l1:.4f} / {l2:.4f} ms",
+          flush=True)
+    checks.check(f"{label} trsm_tile vs plain", rel <= TRSM_REL,
+                 f"max |kernel - plain| / max|plain| = {rel!r} (bar "
+                 f"{TRSM_REL})")
+    checks.check(f"{label} trsm_tile backward error", be <= b * eps,
+                 f"{be!r} (bar b eps = {b * eps!r})")
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2,
+                **_bound(float(b) * b * s, 8.0 * (b * (b + 1) / 2 + 2 * b * s),
+                         FP64_TENSOR_FLOPS))
+
+
+def compare_band_mv(label: str, Wb, w: int, checks: Checks, seed: int) -> dict:
+    """``band_mv`` on the (n, w+1) layout of the TT band Wb against its
+    plain version (the dense product ``band_to_dense(band) @ x``) and
+    against ``unpack_band(Wb) @ x``, on the card, componentwise within
+    gamma_(2w+1) |A||x| (at most 2w+1 nonzero terms a row); in turns."""
+    import torch
+    from repro_torch.core.band_storage import to_band_mv_layout, unpack_band
+    from repro_torch.kernels.band_mv import kernel, ref
+
+    n = Wb.shape[1]
+    band = to_band_mv_layout(Wb).contiguous()
+    gen = torch.Generator(device=Wb.device).manual_seed(seed)
+    x = torch.randn((n,), generator=gen, dtype=torch.float64, device=Wb.device)
+    run = lambda: kernel.band_mv(band, x, w)                      # noqa: E731
+    plain = lambda: ref.band_mv_ref(band, x)                      # noqa: E731
+    run()
+    plain()
+    y, k1 = _time_cuda(run, TIMING_REPS)
+    yp, p1 = _time_cuda(plain)
+    _, k2 = _time_cuda(run, TIMING_REPS)
+    _, p2 = _time_cuda(plain)
+    A = unpack_band(Wb)
+    yd = A @ x
+    bound = _gamma(2 * w + 1) * (A.abs_() @ x.abs())
+    del A
+    err = float((y - yp).abs().max())
+    print(f"{label} band_mv (n={n}, w={w}): kernel {k1 * 1e3:.2f} / "
+          f"{k2 * 1e3:.2f} us, plain {p1:.2f} / {p2:.2f} ms (dense, on the "
+          f"card)", flush=True)
+    checks.check(f"{label} band_mv within gamma_(2w+1) of plain",
+                 bool(torch.all((y - yp).abs() <= bound)),
+                 f"max |kernel - plain| = {err!r}")
+    checks.check(f"{label} band_mv within gamma_(2w+1) of unpack_band @ x",
+                 bool(torch.all((y - yd).abs() <= bound)),
+                 f"max |kernel - dense| = {float((y - yd).abs().max())!r}")
+    # the band once, x once, y once; 2 (2w+1) flops a row
+    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=None,
+                **_bound(2.0 * (2 * w + 1) * n, 8.0 * (n * (w + 1) + 2 * n),
+                         FP64_TENSOR_FLOPS))
+
+
 def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     """One main-path solve with every launch count set to 0 just before and
-    read just after; returns the launch counts."""
+    read just after; returns the result (its ``info["kernel_launches"]``
+    checked equal to the counts read)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import accuracy_report, solve
@@ -699,7 +928,7 @@ def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     checks.check(f"{label} info kernel_launches",
                  res.info["kernel_launches"] == launches,
                  json.dumps(res.info["kernel_launches"]))
-    return launches
+    return res
 
 
 def main() -> int:
@@ -727,8 +956,12 @@ def main() -> int:
         from repro_torch.core.sbr import (_chunk_bounds, _executed_passes,
                                           _n_panels, default_n_chunks,
                                           reduce_to_band)
+        from repro_torch.core.band_storage import to_band_mv_layout
+        from repro_torch.kernels.band_mv import ops as band_mv_ops
+        from repro_torch.kernels.gemm import ops as gemm_ops
         from repro_torch.kernels.house_panel.ops import house_panel
         from repro_torch.kernels.rot_apply import ops as rot_ops
+        from repro_torch.kernels.trsm import ops as trsm_ops
         from repro_torch.core.standard_form import to_standard_two_trsm
         from repro_torch.core.tridiag import tridiagonalize
         from repro_torch.data.problems import dft_like, md_like
@@ -756,6 +989,12 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     checks = Checks()
+    last = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
 
     # ---- phase 2: the TD2 kernels against their plain versions -----------
     def standard_form(prob):
@@ -782,6 +1021,7 @@ def main() -> int:
     compare_td2_kernels(f"DFT n={args.dft_n} s={args.dft_s}", res.d, res.e,
                         args.dft_s, checks)
     del res
+    phase_done("2 (TD2 kernels)")
 
     # ---- phase 3: the one-triangle product against its plain version -----
     prod = compare_product(f"MD C n={args.md_n}", C, checks, seed=1)
@@ -791,6 +1031,7 @@ def main() -> int:
     compare_product(f"garbage-lower n={args.wide_n}", W, checks, seed=3)
     del W
     torch.cuda.empty_cache()
+    phase_done("3 (product)")
 
     # ---- phase 3b: the TT kernels against their plain versions -----------
     n = args.md_n
@@ -819,27 +1060,79 @@ def main() -> int:
     rows.update(compare_chase_md(
         f"MD band n={n} w={TT_W}", band.Wb, TT_W,
         float(md.exact_evals.abs().max()), checks, dev))
+    phase_done("3b (TT kernels)")
+    rows["band_mv"] = compare_band_mv(f"MD band n={n} w={TT_W}", band.Wb, TT_W,
+                                      checks, seed=9)
+    band_bm = to_band_mv_layout(band.Wb).contiguous()
     del band
     torch.cuda.empty_cache()
 
+    # ---- phase 3c: gemm and trsm at the MD shapes -------------------------
+    U = cholesky_upper(md.B).contiguous()
+    Xs = torch.randn((n, args.md_s), dtype=torch.float64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(10))
+    compare_gemm(f"MD C n={n}", C, Xs, checks, TIMING_REPS)
+    rows["gemm"] = compare_gemm(f"MD C U n={n}", C, U, checks, 1)
+    torch.cuda.empty_cache()
+    trsm_bt1 = compare_trsm(f"BT1 shape n={n}", U, Xs, False, checks)
+    trsm_gs2 = compare_trsm(f"GS2 shape n={n}", U, md.A, True, checks)
+    rows["trsm_tile"] = compare_trsm_tile(
+        f"U[:{TRSM_BLOCK}, :{TRSM_BLOCK}]", U[:TRSM_BLOCK, :TRSM_BLOCK],
+        md.A[:TRSM_BLOCK], checks)
+    for label, r in (("BT1", trsm_bt1), ("GS2", trsm_gs2)):
+        print("trsm composite " + label + ": " + json.dumps(
+            {k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}),
+              flush=True)
+    torch.cuda.empty_cache()
+    phase_done("3c (band_mv, gemm, trsm)")
+
     # ---- phase 4: the main paths -----------------------------------------
-    td = run_solve("TD", md, args.md_s, checks, variant="TD")
+    td_res = run_solve("TD", md, args.md_s, checks, variant="TD")
+    td = td_res.info["kernel_launches"]
     ke = run_solve("KE", md, args.md_s, checks, variant="KE", invert=True,
-                   use_kernel=True)
+                   use_kernel=True).info["kernel_launches"]
     run_solve("KI", md, args.md_s, checks, variant="KI", invert=True,
               use_kernel=True)
     run_solve("KE p=4", md, args.md_s, checks, variant="KE", invert=True,
               use_kernel=True, krylov_block=4)
     tt = run_solve("TT", md, args.md_s, checks, variant="TT",
-                   band_width=TT_W)
+                   band_width=TT_W).info["kernel_launches"]
     dft = dft_like(args.dft_n, device=dev)
     tt_dft = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
-                       band_width=TT_W)
+                       band_width=TT_W).info["kernel_launches"]
     del dft
+    # the paper's Table 4: the blocked GS1/GS2/TD1 against the fused ones
+    tdb_res = run_solve("TD blocked", md, args.md_s, checks, variant="TD",
+                        gs1="blocked", gs2="sygst", td1="blocked")
+    keb_res = run_solve("KE blocked", md, args.md_s, checks, variant="KE",
+                        invert=True, use_kernel=True, gs1="blocked",
+                        gs2="sygst")
+    scale = float(md.exact_evals.abs().max())
+    for label, r in (("TD blocked", tdb_res), ("KE blocked", keb_res)):
+        gap = float((r.evals - td_res.evals).abs().max())
+        checks.check(f"{label} eigenvalues vs the fused TD's", gap <= EVAL_BAR
+                     * scale, f"max gap {gap!r}, bar {EVAL_BAR} * max|lambda| "
+                     f"= {EVAL_BAR * scale!r}")
+    st, sb, kb = td_res.stage_times, tdb_res.stage_times, keb_res.stage_times
+    print(f"Table 4 (MD n={args.md_n}, s={args.md_s}; s): GS1 fused "
+          f"{st['GS1']:.4f}, blocked {sb['GS1']:.4f} (KE {kb['GS1']:.4f}); GS2 "
+          f"trsm {st['GS2']:.4f}, sygst {sb['GS2']:.4f} (KE {kb['GS2']:.4f}); "
+          f"TD1 unblocked {st['TD1']:.4f}, blocked {sb['TD1']:.4f}; TD total "
+          f"{st['Tot.']:.4f} against {sb['Tot.']:.4f}", flush=True)
+    tdb = tdb_res.info["kernel_launches"]
+    keb = keb_res.info["kernel_launches"]
+    del td_res, tdb_res, keb_res
+    phase_done("4 (main paths)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("TT", tt, ("bisect_sturm", "invit")),
-                                 ("TT DFT", tt_dft, ("bisect_sturm", "invit"))):
+                                 ("TT DFT", tt_dft, ("bisect_sturm", "invit")),
+                                 ("TD blocked", tdb, ("gemm", "trsm_tile",
+                                                      "syr2k", "bisect_sturm",
+                                                      "invit")),
+                                 ("KE blocked", keb, ("gemm", "trsm_tile",
+                                                      "syr2k", "symm_block"))):
         for name in names:
             checks.check(f"main path {label} launched {name}",
                          counts[name] > 0, f"{counts[name]} launches")
@@ -882,11 +1175,35 @@ def main() -> int:
     print(f"rot_apply ops call launches: {json.dumps(ra)}", flush=True)
     checks.check("rot_apply ops call launched rot_apply", ra["rot_apply"] == 1,
                  f"{ra['rot_apply']} launches")
+    # gemm, trsm and band_mv: reached by their public entry points
+    public = {}
+    for name, call in (("gemm", lambda: gemm_ops.gemm(C, Xs)),
+                       ("trsm", lambda: trsm_ops.trsm(U, Xs)),
+                       ("band_mv", lambda: band_mv_ops.band_mv(band_bm, x,
+                                                               TT_W))):
+        kernels.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        public[name] = kernels.launch_counts()
+        print(f"{name} ops call launches: {json.dumps(public[name])}",
+              flush=True)
+    tiles = -(-args.md_n // TRSM_BLOCK)
+    for name, kname, want in (("gemm", "gemm", 1), ("trsm", "trsm_tile", tiles),
+                              ("trsm", "gemm", tiles - 1),
+                              ("band_mv", "band_mv", 1)):
+        checks.check(f"{name} ops call launched {kname}",
+                     public[name][kname] == want,
+                     f"{public[name][kname]} launches (expected {want})")
+    del U, Xs, band_bm
+    phase_done("4 (public calls)")
     launches = {"bisect_sturm": td["bisect_sturm"], "invit": td["invit"],
                 "symm_block": ke["symm_block"], "symv": sv["symv"],
                 "house_panel": tt["house_panel"], "syr2k": tt["syr2k"],
                 "rot_apply": ra["rot_apply"], "chase_pass": tt["chase_pass"],
-                "replay_pass": tt["replay_pass"]}
+                "replay_pass": tt["replay_pass"],
+                "gemm": public["gemm"]["gemm"],
+                "trsm_tile": public["trsm"]["trsm_tile"],
+                "band_mv": public["band_mv"]["band_mv"]}
 
     # ---- phase 5: the report ---------------------------------------------
     kernel_rows = []

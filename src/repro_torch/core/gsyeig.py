@@ -17,6 +17,14 @@ kernel (``kernels/symv``); the default ``False`` is ``torch.matmul`` on the
 full matrix, as the reference's default is XLA's dot. Precisions other
 than fp64 are not ported yet and raise.
 
+The paper's blocked alternatives (its Table 4) run on the port's block
+kernels: ``gs1="blocked"`` the right-looking blocked Cholesky,
+``gs2="sygst"`` the blocked DSYGST, both at ``block`` (256, the
+reference's default), and ``td1="blocked"`` the dlatrd-style panel
+tridiagonalization at a panel of 32 (``trsm``, ``gemm`` and ``syr2k`` on
+the card); the defaults are the fused library factorization, the two
+triangular solves and the unblocked TD1.
+
 ``which='smallest'|'largest'`` selects the end of the spectrum;
 ``invert=True`` applies the paper's MD trick (solve the inverse pair
 (B, A) for its largest eigenpairs — valid when A is also SPD — and map
@@ -41,14 +49,14 @@ from repro_torch.resilience.recovery import (SolverError, cholesky_shift_taus,
                                              rung, validate_on_failure)
 
 from .back_transform import back_transform_generalized
-from .cholesky import cholesky_upper, diag_shifted
+from .cholesky import cholesky_blocked, cholesky_upper, diag_shifted
 from .lanczos import default_subspace, lanczos_solve
 from .operators import ExplicitC, ImplicitC
 from .precision import ensure_strong, validate_precision
 from .residuals import b_normalize
 from .sbr import apply_q2, band_chase, default_n_chunks, reduce_to_band
-from .standard_form import to_standard_two_trsm
-from .tridiag import apply_q, tridiagonalize
+from .standard_form import to_standard_sygst, to_standard_two_trsm
+from .tridiag import apply_q, tridiagonalize, tridiagonalize_blocked
 from .tridiag_eig import eigh_tridiag_selected
 
 VARIANTS = ("TD", "TT", "KE", "KI")
@@ -90,8 +98,19 @@ def _chol_fused(B):
     return U, ok
 
 
-def _gs2_fused(A, U):
+def _chol_blocked_fused(B, block):
+    U = cholesky_blocked(B, block)
+    ok, _ = chol_health(U)
+    return U, ok
+
+
+def _gs2_trsm_fused(A, U):
     C = to_standard_two_trsm(A, U)
+    return C, array_finite(C)
+
+
+def _gs2_sygst_fused(A, U, block):
+    C = to_standard_sygst(A, U, block=block)
     return C, array_finite(C)
 
 
@@ -104,16 +123,16 @@ def _check_options(variant: str, which: str, gs1: str, gs2: str,
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if which not in ("smallest", "largest"):
         raise ValueError(f"which must be 'smallest' or 'largest', got {which!r}")
-    for name, value, ported in (("gs1", gs1, "fused"), ("gs2", gs2, "trsm"),
-                                ("td1", td1, "unblocked")):
-        if value != ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md §1 item 4); "
-                f"the port runs {name}={ported!r}")
+    for name, value, known in (("gs1", gs1, ("fused", "blocked")),
+                               ("gs2", gs2, ("trsm", "sygst")),
+                               ("td1", td1, ("unblocked", "blocked"))):
+        if value not in known:
+            raise ValueError(f"{name} must be one of {known}, got {value!r}")
 
 
 def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
-                gs1: str, gs2: str, td1: str, band_width: int, m, tol: float,
+                gs1: str, gs2: str, td1: str, band_width: int, block: int,
+                m, tol: float,
                 max_restarts: int, use_kernel: bool, clustered: bool,
                 krylov_block, filter, x0, v0, probe_v0,  # noqa: A002
                 generator, precision: str, on_failure: str, recovery: list,
@@ -153,7 +172,11 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                           health=verdict_from_stages(stage_health).as_json_dict())
 
     # ---- GS1: B = U^T U --------------------------------------------------
-    U, gs1_ok = _timed(times, "GS1", device)(_chol_fused, B)
+    if gs1 == "blocked":
+        U, gs1_ok = _timed(times, "GS1", device)(_chol_blocked_fused, B,
+                                                 block)
+    else:
+        U, gs1_ok = _timed(times, "GS1", device)(_chol_fused, B)
     gs1_ok = bool(gs1_ok)
     if not gs1_ok and on_failure != "ignore":
         if not host_finite(B):
@@ -188,7 +211,11 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     # ---- GS2: C = U^{-T} A U^{-1} (not for KI) ---------------------------
     C = None
     if variant in ("TD", "TT", "KE"):
-        C, gs2_ok = _timed(times, "GS2", device)(_gs2_fused, A, U)
+        if gs2 == "sygst":
+            C, gs2_ok = _timed(times, "GS2", device)(_gs2_sygst_fused, A, U,
+                                                     block)
+        else:
+            C, gs2_ok = _timed(times, "GS2", device)(_gs2_trsm_fused, A, U)
         stage_health["GS2"] = bool(gs2_ok)
         if not stage_health["GS2"] and on_failure != "ignore":
             fail("GS2", "nonfinite_stage",
@@ -200,7 +227,11 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
         # ---- TD1 / TD2 / TD3 ---------------------------------------------
         ks = (torch.arange(s, device=device) if which == "smallest"
               else torch.arange(n - s, n, device=device))
-        res = _timed(times, "TD1", device)(tridiagonalize, C)
+        if td1 == "blocked":
+            res = _timed(times, "TD1", device)(tridiagonalize_blocked, C,
+                                               panel=32)
+        else:
+            res = _timed(times, "TD1", device)(tridiagonalize, C)
         del C
         # host sentinel on the (n,)/(n-1,) tridiagonal the TD2 stage reads
         stage_health["TD1"] = host_finite(res.d, res.e)
@@ -302,7 +333,7 @@ def _finalize(lam, X, B_orig, invert: bool, times: Dict[str, float],
 
 def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           invert: bool = False, gs2: str = "trsm", gs1: str = "fused",
-          td1: str = "unblocked", band_width: int = 16,
+          td1: str = "unblocked", band_width: int = 16, block: int = 256,
           m: int | None = None, tol: float = 0.0,
           max_restarts: int = 500, use_kernel: bool = False,
           clustered: bool = False, krylov_block: int | None = None,
@@ -322,6 +353,10 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     block size p (``None`` = 1), ``filter`` the Chebyshev start-filter
     degree (``None`` = 16 when ``clustered``, else off). ``info['krylov']``
     records p and the degree.
+
+    ``gs1="blocked"``, ``gs2="sygst"`` and ``td1="blocked"`` pick the
+    blocked stages; ``block`` is the block of the first two (the
+    reference's default, 256).
 
     ``band_width`` is TT's band (the reference's default, 16); with
     ``variant="TT"``, ``info['tt1']`` records the window ladder's
@@ -352,7 +387,8 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     recovery: list = []
     kw: Dict[str, Any] = dict(
         variant=variant, which=which, invert=invert, gs1=gs1, gs2=gs2,
-        td1=td1, band_width=band_width, m=m, tol=tol, max_restarts=max_restarts,
+        td1=td1, band_width=band_width, block=block, m=m, tol=tol,
+        max_restarts=max_restarts,
         use_kernel=use_kernel, clustered=clustered,
         krylov_block=krylov_block, filter=filter, x0=x0, v0=v0,
         probe_v0=probe_v0, generator=generator, precision=precision)

@@ -3,13 +3,17 @@
 ``launch_counts()`` and ``reset_launches()`` cover the wrappers of every
 family, by wrapper name.
 """
+from .band_mv import kernel as _band_mv
+from .gemm import kernel as _gemm
 from .house_panel import kernel as _house_panel
 from .rot_apply import kernel as _rot_apply
 from .symv import kernel as _symv
 from .syr2k import kernel as _syr2k
+from .trsm import kernel as _trsm
 from .tridiag_eig import kernel as _tridiag_eig
 
-_MODULES = (_tridiag_eig, _symv, _house_panel, _syr2k, _rot_apply)
+_MODULES = (_tridiag_eig, _symv, _house_panel, _syr2k, _rot_apply, _gemm,
+            _trsm, _band_mv)
 
 
 def launch_counts() -> dict:

@@ -31,6 +31,11 @@ def main() -> None:
                     default="smallest")
     ap.add_argument("--invert", action="store_true",
                     help="the paper's MD trick (requires A SPD)")
+    ap.add_argument("--gs2", choices=["trsm", "sygst"], default="trsm",
+                    help="GS2: two triangular solves, or the blocked DSYGST")
+    ap.add_argument("--td1", choices=["unblocked", "blocked"],
+                    default="unblocked",
+                    help="TD1: unblocked, or the dlatrd-style panels of 32")
     ap.add_argument("--band-width", type=int, default=8,
                     help="TT's band width w (stage 1 reduces to w)")
     ap.add_argument("--m", type=int, default=None)
@@ -54,8 +59,8 @@ def main() -> None:
     dev = resolve_device(args.device)
     prob = (md_like if args.problem == "md" else dft_like)(args.n, device=dev)
     res = solve(prob.A, prob.B, args.s, variant=args.variant,
-                which=args.which, invert=args.invert,
-                band_width=args.band_width, m=args.m,
+                which=args.which, invert=args.invert, gs2=args.gs2,
+                td1=args.td1, band_width=args.band_width, m=args.m,
                 tol=args.tol, max_restarts=args.max_restarts,
                 krylov_block=args.krylov_block,
                 filter=args.filter_degree,

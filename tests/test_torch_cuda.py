@@ -9,7 +9,8 @@ which the GPU machine need not have.)
 
 Each kernel is held against its plain version on the same inputs (the
 plain version on CPU copies, as the wrapper runs it for a CPU tensor),
-and small TD, TT and KE solves on the card must launch their kernels.
+and small TD, TT and KE solves on the card, and the blocked GS1/GS2/TD1
+stages, must launch their kernels.
 """
 import pytest
 import torch
@@ -20,7 +21,16 @@ from repro_torch.core import sbr
 from repro_torch.core.tridiag_eig import (_cluster_ids, _pivmin, _scale,
                                           bisect_inputs, normalize_columns,
                                           start_block)
+from repro_torch.core.cholesky import cholesky_blocked, cholesky_upper
+from repro_torch.core.standard_form import (to_standard_sygst,
+                                            to_standard_two_trsm)
+from repro_torch.core.tridiag import tridiagonalize, tridiagonalize_blocked
 from repro_torch.data.problems import dft_like, md_like
+from repro_torch.kernels.band_mv import kernel as bmv_kernel
+from repro_torch.kernels.band_mv import ops as bmv_ops
+from repro_torch.kernels.band_mv import ref as bmv_ref
+from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.house_panel import kernel as hp_kernel
 from repro_torch.kernels.house_panel import ref as hp_ref
 from repro_torch.kernels.rot_apply import kernel as rot_kernel
@@ -31,6 +41,9 @@ from repro_torch.kernels.symv import ref as symv_ref
 from repro_torch.kernels.syr2k import kernel as syr2k_kernel
 from repro_torch.kernels.syr2k import ref as syr2k_ref
 from repro_torch.kernels.tridiag_eig import kernel, ref
+from repro_torch.kernels.trsm import kernel as trsm_kernel
+from repro_torch.kernels.trsm import ops as trsm_ops
+from repro_torch.kernels.trsm import ref as trsm_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -85,7 +98,7 @@ def test_td_solve_on_the_card_launches_both_kernels(cuda):
     assert res.info["kernel_launches"] == {
         "bisect_sturm": 1, "invit": 6, "symv": 0, "symm_block": 0,
         "house_panel": 0, "syr2k": 0, "rot_apply": 0, "chase_pass": 0,
-        "replay_pass": 0}
+        "replay_pass": 0, "gemm": 0, "trsm_tile": 0, "band_mv": 0}
     acc = accuracy_report(p.A, p.B, res.X, res.evals)
     assert float(acc.relative_residual) <= 1e-12
     assert float(acc.b_orthogonality) <= 1e-12
@@ -296,3 +309,184 @@ def test_tt_solve_on_the_card_launches_its_kernels(cuda):
     exact = p.exact_evals
     assert float(torch.abs(res.evals - exact[:s]).max()) <= (
         1e-10 * float(exact.abs().max()))
+
+
+# ------------------------------------------- gemm, trsm_tile and band_mv --
+
+U64 = torch.finfo(torch.float64).eps / 2
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (5, 7, 3), (100, 70, 50),
+                                   (129, 257, 65), (300, 1000, 130)])
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_gemm_vs_plain(cuda, m, k, n, trans_a, accumulate):
+    # within gamma_(k+1) (|C| + |A||B|): a bound for any order of summation
+    # of the k products and the one add of C
+    A = _randn((k, m), m, cuda).mT if trans_a else _randn((m, k), m, cuda)
+    B = _randn((k, n), k, cuda)
+    C = _randn((m, n), n, cuda)
+    gemm_kernel.reset_launches()
+    if accumulate:
+        got = gemm_kernel.gemm(A, B, out=C.clone(), alpha=-0.5,
+                               accumulate=True)
+        want = C.cpu() - 0.5 * (A.cpu() @ B.cpu())
+    else:
+        got = gemm_kernel.gemm(A, B)
+        want = A.cpu() @ B.cpu()
+    assert gemm_kernel.launch_counts() == {"gemm": 1}
+    bound = _gamma(k + 1) * ((C.cpu().abs() if accumulate else 0)
+                               + A.cpu().abs() @ B.cpu().abs())
+    assert bool(torch.all((got.cpu() - want).abs() <= bound))
+
+
+@pytest.mark.parametrize("bm,bn,bk", [(16, 16, 8), (32, 128, 16),
+                                      (128, 32, 24), (64, 64, 32),
+                                      (128, 128, 128)])
+def test_gemm_tile_knobs(cuda, bm, bn, bk):
+    A, B = _randn((257, 333), 1, cuda), _randn((333, 129), 2, cuda)
+    got = gemm_ops.gemm(A, B, bm=bm, bn=bn, bk=bk).cpu()
+    want = A.cpu() @ B.cpu()
+    bound = _gamma(333) * (A.cpu().abs() @ B.cpu().abs())
+    assert bool(torch.all((got - want).abs() <= bound))
+
+
+def test_gemm_accumulates_into_a_view_and_refuses_other_layouts(cuda):
+    A, B = _randn((40, 30), 3, cuda), _randn((30, 20), 4, cuda)
+    big = _randn((100, 100), 5, cuda)
+    want = big.cpu().clone()
+    want[10:50, 60:80] += A.cpu() @ B.cpu()
+    gemm_ops.gemm_accum(big[10:50, 60:80], A, B)
+    bound = _gamma(31) * (want.abs() + 0)
+    bound[10:50, 60:80] += _gamma(31) * (A.cpu().abs() @ B.cpu().abs())
+    assert bool(torch.all((big.cpu() - want).abs() <= bound))
+    with pytest.raises(ValueError, match="B must be row-major"):
+        gemm_kernel.gemm(A, _randn((20, 30), 6, cuda).mT)
+    with pytest.raises(ValueError, match="out must be row-major"):
+        gemm_kernel.gemm(A, B, out=torch.empty((20, 40), dtype=torch.float64,
+                                               device=cuda).mT)
+    # the dispatch copies a column-major B rather than misreading it
+    Bt = _randn((20, 30), 6, cuda).mT
+    assert torch.allclose(gemm_ops.gemm(A, Bt).cpu(), A.cpu() @ Bt.cpu(),
+                          rtol=1e-13, atol=1e-13)
+
+
+def _upper(n, seed, device):
+    # well conditioned: kappa(U) < 10
+    return (torch.triu(_randn((n, n), seed, "cpu"))
+            + n * torch.eye(n, dtype=torch.float64)).to(device)
+
+
+def _solve_bar(U, X):
+    """n eps ||U|| ||X|| (Frobenius): the substitution's backward error,
+    componentwise gamma_n |U||X|, bounds ||U X - B|| by it."""
+    n = U.shape[0]
+    return 2 * n * U64 * float(torch.linalg.matrix_norm(U)
+                               * torch.linalg.matrix_norm(X))
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (13, 5), (64, 65), (128, 300)])
+@pytest.mark.parametrize("trans", [False, True])
+def test_trsm_tile_vs_plain(cuda, b, s, trans):
+    U = _upper(b, b, cuda)
+    B = _randn((b, s), s, cuda)
+    trsm_kernel.reset_launches()
+    X = trsm_kernel.trsm_tile(U, B.clone(), trans)
+    assert trsm_kernel.launch_counts() == {"trsm_tile": 1}
+    Xp = trsm_ref.trsm_tile_ref(U.cpu(), B.cpu(), trans)
+    # both backward stable on a kappa < 10 tile: they agree to ~b u kappa
+    assert float((X.cpu() - Xp).abs().max()) <= 1e-12 * float(Xp.abs().max())
+    Uc = U.cpu().mT if trans else U.cpu()
+    assert float(torch.linalg.matrix_norm(Uc @ X.cpu() - B.cpu())) <= \
+        _solve_bar(U.cpu(), X.cpu())
+
+
+@pytest.mark.parametrize("n,s,block", [(1, 1, 128), (97, 5, 32),
+                                       (300, 7, 128), (300, 0, 64),
+                                       (257, 130, 128), (200, None, 64)])
+@pytest.mark.parametrize("trans", [False, True])
+def test_trsm_vs_plain(cuda, n, s, block, trans):
+    U = _upper(n, n, cuda)
+    B = _randn((n,) if s is None else (n, s), n + 1, cuda)
+    gemm_kernel.reset_launches()
+    trsm_kernel.reset_launches()
+    X = trsm_ops.trsm(U, B, trans=trans, block=block)
+    tiles = -(-n // min(block, n)) if s != 0 else 0
+    assert trsm_kernel.launch_counts() == {"trsm_tile": tiles}
+    assert gemm_kernel.launch_counts() == {"gemm": max(tiles - 1, 0)}
+    Xp = trsm_ref.trsm_blocked_ref(U.cpu(), B.cpu(), trans=trans, block=block)
+    assert X.shape == B.shape
+    if s != 0:
+        assert float((X.cpu() - Xp).abs().max()) <= \
+            1e-12 * float(Xp.abs().max())
+        Xm = X.cpu().reshape(n, -1)
+        Uc = U.cpu().mT if trans else U.cpu()
+        assert float(torch.linalg.matrix_norm(
+            Uc @ Xm - B.cpu().reshape(n, -1))) <= _solve_bar(U.cpu(), Xm)
+
+
+def test_trsm_reads_a_column_major_u_and_refuses_bad_tiles(cuda):
+    n = 150
+    U = _upper(n, 7, cuda)
+    B = _randn((n, 4), 8, cuda)
+    Ucm = U.mT.contiguous().mT          # the same matrix, column-major
+    X = trsm_ops.trsm(Ucm, B, trans=True)
+    Xp = trsm_ref.trsm_blocked_ref(U.cpu(), B.cpu(), trans=True)
+    assert float((X.cpu() - Xp).abs().max()) <= 1e-12 * float(Xp.abs().max())
+    with pytest.raises(ValueError, match="at most 128"):
+        trsm_ops.trsm(U, B, block=256)
+    with pytest.raises(ValueError, match="X must be row-major"):
+        trsm_kernel.trsm_tile(U[:16, :16], B[:16].mT.contiguous().mT)
+
+
+def _band_problem(n, w, seed):
+    A = _randn((n, n), seed, "cpu")
+    A = 0.5 * (A + A.mT)
+    idx = torch.arange(n)
+    A = torch.where((idx[:, None] - idx[None, :]).abs() <= w, A, 0.0)
+    return A, bmv_ref.dense_to_band(A, w)
+
+
+@pytest.mark.parametrize("n,w", [(1, 0), (37, 1), (300, 16), (1000, 3),
+                                 (20, 25)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_band_mv_vs_plain(cuda, n, w, transposed):
+    A, band = _band_problem(n, w, n + w)
+    x = _randn((n,), n, "cpu")
+    bd = band.to(cuda)
+    if transposed:          # the TT pipeline's lower band, as a view
+        bd = bd.mT.contiguous().mT
+    bmv_kernel.reset_launches()
+    y = bmv_ops.band_mv(bd, x.to(cuda), w, bm=64)
+    assert bmv_kernel.launch_counts() == {"band_mv": 1}
+    # within gamma_(2w+1) |A| |x|: at most 2w+1 products a row
+    bound = _gamma(2 * w + 1) * (A.abs() @ x.abs())
+    assert bool(torch.all((y.cpu() - bmv_ref.band_mv_ref(band, x)).abs()
+                          <= 2 * bound))
+
+
+def test_blocked_stages_on_the_card_launch_their_kernels(cuda):
+    n, s = 300, 6
+    p = md_like(n, device=cuda)
+    kernels.reset_launches()
+    U = cholesky_blocked(p.B, 64)
+    C = to_standard_sygst(p.A, U, 64)
+    res = tridiagonalize_blocked(C, 32)
+    counts = kernels.launch_counts()
+    assert counts["gemm"] > 0 and counts["trsm_tile"] > 0
+    assert counts["syr2k"] > 0
+    Uf = cholesky_upper(p.B)
+    Cf = to_standard_two_trsm(p.A, Uf)
+    scale = float(p.exact_evals.abs().max())
+    assert float((U - Uf).abs().max()) <= 1e-12
+    assert float((C - Cf).abs().max()) <= 1e-12 * scale
+    ref_res = tridiagonalize(Cf)
+    assert float((res.d - ref_res.d).abs().max()) <= 1e-11 * scale
+    kernels.reset_launches()
+    out = solve(p.A, p.B, s, gs1="blocked", gs2="sygst", td1="blocked",
+                block=64)
+    assert out.info["kernel_launches"]["trsm_tile"] > 0
+    acc = accuracy_report(p.A, p.B, out.X, out.evals)
+    assert float(acc.relative_residual) <= 1e-12
+    assert float(acc.b_orthogonality) <= 1e-12
+    assert float((out.evals - p.exact_evals[:s]).abs().max()) <= 1e-10 * scale

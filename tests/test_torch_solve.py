@@ -35,7 +35,7 @@ TABLE3 = {"relative_residual": 1e-12, "b_orthogonality": 1e-12}
 #: every kernel wrapper's launches in a CPU solve
 NO_LAUNCHES = {"bisect_sturm": 0, "invit": 0, "symv": 0, "symm_block": 0,
                "house_panel": 0, "syr2k": 0, "rot_apply": 0, "chase_pass": 0,
-               "replay_pass": 0}
+               "replay_pass": 0, "gemm": 0, "trsm_tile": 0, "band_mv": 0}
 CASES = [("md", "smallest", False), ("md", "largest", False),
          ("dft", "smallest", False), ("dft", "largest", False),
          ("md", "smallest", True)]
@@ -284,8 +284,7 @@ def test_nonfinite_a_poisons_ki_iter_and_retries_under_recover():
 
 
 @pytest.mark.parametrize("kw", [dict(variant="auto"),
-                                dict(precision="mixed"), dict(td1="blocked"),
-                                dict(gs2="sygst"), dict(gs1="blocked")])
+                                dict(precision="mixed")])
 def test_unported_options_raise(kw):
     _, tp = _pencil("md")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
