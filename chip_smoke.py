@@ -41,8 +41,18 @@ Phases, each printed as it runs; any failed check exits nonzero:
    (U X = B, B (n, 100)) and the GS2 shape (U^T X = A) against the plain
    composite on the card, with its backward error ||op(U) X - B||_F /
    (||U||_F ||X||_F) within n eps, its launches per call (ceil(n/128)
-   tiles, one product fewer), beside ``torch.linalg.solve_triangular``;
+   tiles, and per update the launches ``gemm_kernel.plan`` gives: two
+   where K is split), beside ``torch.linalg.solve_triangular``;
    ``trsm_tile`` alone on U's first (128, 128) tile with n RHS columns;
+   the products the blocked stages launch, at their MD shapes, each
+   within gamma_(k+1) (|C| + |A||B|) of its plain version and timed in
+   turns beside ``addmm_``: a BT1 update (128 x 100, K = n - 128, A read
+   in place from U), a GS2 sygst update (128 x 256, K = n - 256, A
+   transposed) and the first GS1 SYRK update (n - 256 square, K = 256,
+   into a view); max|S - S^T| of the SYRK-shaped product; two runs of
+   ``gemm`` at (n^2, 100) and of the BT1 ``trsm`` checked bitwise equal;
+   the DMMA instructions in ``libgemm.so`` (``cuobjdump -sass``, checked
+   > 0, "not measured" without cuobjdump);
    ``band_mv`` on the MD band (TT1 at w=16, ``to_band_mv_layout``) against
    its plain version and ``unpack_band(Wb) @ x``, within gamma_(2w+1)
    |A||x|;
@@ -57,7 +67,9 @@ Phases, each printed as it runs; any failed check exits nonzero:
    ``solve(..., variant="TD", gs1="blocked", gs2="sygst", td1="blocked")``
    and KE with ``gs1="blocked", gs2="sygst"`` on the MD pencil, held to the
    same bars and to the fused TD's eigenvalues within 1e-10 max|lambda|,
-   their GS1/GS2/TD1 times printed beside the fused ones; then one call of
+   their GS1/GS2/TD1 times printed beside the fused ones, and GS1 blocked
+   and GS2 sygst alone: wall clock, host enqueue time and device time by
+   kernel (``torch.profiler``); then one call of
    each public entry point that ``solve`` does not reach: ``apply_op(
    ExplicitC(C), x, use_kernel=True)`` on a vector (``symv``),
    ``rot_apply``, ``gemm``, ``trsm`` (the BT1 shape) and ``band_mv``;
@@ -735,7 +747,8 @@ def _trsm_backward_error(U, X, B, trans: bool) -> float:
 
 def compare_trsm(label: str, U, B, trans: bool, checks: Checks) -> dict:
     """The blocked ``trsm`` (one ``trsm_tile`` launch per block row, one
-    ``gemm`` per update) against the plain composite on the card (the same
+    ``gemm`` per update and its split-K reduce where the planner splits)
+    against the plain composite on the card (the same
     schedule on ``trsm_tile_ref`` and the plain product), in turns, beside
     ``torch.linalg.solve_triangular``; checks the launches of one call, the
     two within TRSM_REL, and the backward error within n eps."""
@@ -749,8 +762,8 @@ def compare_trsm(label: str, U, B, trans: bool, checks: Checks) -> dict:
     ops.trsm(U, B, trans=trans)
     torch.cuda.synchronize()
     got = kernels.launch_counts()
-    tiles = -(-n // TRSM_BLOCK)
-    want = {"trsm_tile": tiles, "gemm": tiles - 1}
+    # a tile a block row; a product an update, two where its K is split
+    want = ops.launches(n, s, trans, TRSM_BLOCK)
     checks.check(f"{label} trsm launches per call",
                  {k: got[k] for k in want} == want,
                  f"{json.dumps({k: got[k] for k in want})} (expected "
@@ -788,6 +801,63 @@ def compare_trsm(label: str, U, B, trans: bool, checks: Checks) -> dict:
                 library_ms=(l1 + l2) / 2, launches=got["trsm_tile"],
                 **_bound(float(n) * n * s, 8.0 * (n * (n + 1) / 2 + 2 * n * s),
                          FP64_TENSOR_FLOPS))
+
+
+def compare_update(label: str, A, B, C, alpha: float, checks: Checks) -> dict:
+    """One stage-shaped product ``C += alpha A B`` in place on the view C
+    (A read in place, transposed or not), against the plain version on a
+    copy, componentwise within gamma_(k+1) (|C| + |alpha| |A||B|); the
+    kernel and the library call (``addmm_`` in place on a copy of C) timed
+    in turns on scratch copies."""
+    import torch
+    from repro_torch.kernels.gemm import kernel, ref
+
+    m, k = A.shape
+    n = B.shape[1]
+    p = kernel.plan(m, n, k)
+    C0 = C.clone()
+    want = ref.gemm_accum_ref(C0, A, B, alpha)
+    kernel.gemm(A, B, out=C, alpha=alpha, accumulate=True)
+    bound = (A.abs() @ B.abs()).mul_(abs(alpha)).add_(C0.abs())
+    bound.mul_(_gamma(k + 1))
+    diff = (C - want).abs_()
+    ok = bool(torch.all(diff <= bound))
+    ratio, err = float((diff / bound).max()), float(diff.max())
+    del diff, bound, want
+    Ck, Cl = C0.clone(), C0.clone()
+    run = lambda: kernel.gemm(A, B, out=Ck, alpha=alpha,       # noqa: E731
+                              accumulate=True)
+    lib = lambda: Cl.addmm_(A, B, alpha=alpha)                 # noqa: E731
+    run()
+    lib()
+    _, k1 = _time_cuda(run, TIMING_REPS)
+    _, l1 = _time_cuda(lib, TIMING_REPS)
+    _, k2 = _time_cuda(run, TIMING_REPS)
+    _, l2 = _time_cuda(lib, TIMING_REPS)
+    del Ck, Cl, C0
+    tr = ", A transposed" if kernel.layout(A)[0] else ""
+    print(f"{label} update ({m} x {n}, K={k}{tr}; "
+          f"plan {p.tile}x{p.tile}, {p.splits} split(s), {p.launches} "
+          f"launch(es)): kernel {k1:.4f} / {k2:.4f} ms, torch addmm_ "
+          f"{l1:.4f} / {l2:.4f} ms, kernel "
+          f"{2e-9 * m * n * k / ((k1 + k2) / 2):.2f} TFLOP/s", flush=True)
+    checks.check(f"{label} update within gamma_(k+1) of plain", ok,
+                 f"max |kernel - plain| / bar = {ratio!r}, max |kernel - "
+                 f"plain| = {err!r}")
+    return dict(ms=(k1 + k2) / 2, library_ms=(l1 + l2) / 2)
+
+
+def _dmma_count(lib_path) -> str:
+    """The DMMA instructions in a library's SASS (``cuobjdump -sass``), or
+    "not measured" where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not measured"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return str(len(re.findall(r"\bDMMA\b", sass)))
 
 
 def compare_trsm_tile(label: str, Ut, B, checks: Checks) -> dict:
@@ -873,6 +943,44 @@ def compare_band_mv(label: str, Wb, w: int, checks: Checks, seed: int) -> dict:
                          FP64_TENSOR_FLOPS))
 
 
+def _kernel_name(key: str) -> str:
+    """``gemm_dmma`` of ``void (anonymous namespace)::gemm_dmma<2, 16,
+    true>(double const*, ...)``: the profiler's kernel name, bare."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    name = name.split("<")[0].split()
+    return name[-1].split("::")[-1][:32] if name else key[:32]
+
+
+def profile_stage(label: str, fn) -> None:
+    """One call of a stage: host wall clock to the synchronize and the
+    host's enqueue time alone, then the device time by kernel over a
+    second call under ``torch.profiler`` (CUPTI); "not measured" where
+    the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(ev, "device_time_total", 0.0) / 1e3, ev.count,
+                    _kernel_name(ev.key)) for ev in prof.key_averages()),
+                  reverse=True)
+    device = sum(r[0] for r in rows)
+    top = "; ".join(f"{name} {ms:.2f} ms x{count}"
+                    for ms, count, name in rows[:5]) if device else \
+        "not measured"
+    print(f"{label} profile: wall {1e3 * (t2 - t0):.1f} ms, host enqueue "
+          f"{1e3 * (t1 - t0):.1f} ms, device {device:.1f} ms: {top}",
+          flush=True)
+
+
 def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     """One main-path solve with every launch count set to 0 just before and
     read just after; returns the result (its ``info["kernel_launches"]``
@@ -951,18 +1059,20 @@ def main() -> int:
     try:
         from repro_torch import kernels
         from repro_torch.core import ExplicitC, apply_op
-        from repro_torch.core.cholesky import cholesky_upper
+        from repro_torch.core.cholesky import cholesky_blocked, cholesky_upper
         from repro_torch.core.linalg_utils import wy_syr2k_panel
         from repro_torch.core.sbr import (_chunk_bounds, _executed_passes,
                                           _n_panels, default_n_chunks,
                                           reduce_to_band)
         from repro_torch.core.band_storage import to_band_mv_layout
         from repro_torch.kernels.band_mv import ops as band_mv_ops
+        from repro_torch.kernels.gemm import kernel as gemm_kernel
         from repro_torch.kernels.gemm import ops as gemm_ops
         from repro_torch.kernels.house_panel.ops import house_panel
         from repro_torch.kernels.rot_apply import ops as rot_ops
         from repro_torch.kernels.trsm import ops as trsm_ops
-        from repro_torch.core.standard_form import to_standard_two_trsm
+        from repro_torch.core.standard_form import (to_standard_sygst,
+                                                    to_standard_two_trsm)
         from repro_torch.core.tridiag import tridiagonalize
         from repro_torch.data.problems import dft_like, md_like
         from repro_torch.kernels import _build
@@ -984,9 +1094,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s into "
           f"{out_dir.relative_to(ROOT)}", flush=True)
     for src, log in _build.BUILD_INFO["ptxas"].items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                # the mangled name, cut to what tells the variants apart
+                entry = line.split("'")[1][-40:] if "'" in line else ""
             if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+                print(f"  {src} {entry}: {line.strip()}")
 
     checks = Checks()
     last = [time.perf_counter()]
@@ -1085,6 +1199,43 @@ def main() -> int:
                                "bound_ms", "bound_by", "library_ms")}),
               flush=True)
     torch.cuda.empty_cache()
+    # the products the blocked stages launch, at their MD shapes
+    k1 = TRSM_BLOCK
+    Xu = Xs[:k1].clone()
+    compare_update(f"BT1 n={n}", U[:k1, k1:], Xs[k1:], Xu, -1.0, checks)
+    t1 = n - 2 * TRSM_BLOCK                # GS2 sygst's first trailing solve
+    R256 = torch.randn((t1, 2 * TRSM_BLOCK), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(11))
+    Xg = torch.randn((k1, 2 * TRSM_BLOCK), dtype=torch.float64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(12))
+    compare_update(f"GS2 sygst n={n}", U[:t1, t1 - k1:t1].mT, R256, Xg, -1.0,
+                   checks)
+    del R256, Xg, Xu
+    g0 = 2 * TRSM_BLOCK                    # GS1's first block row, block 256
+    row = U[:g0, g0:].contiguous()
+    M = md.B.clone()
+    compare_update(f"GS1 SYRK n={n}", row.mT, row, M[g0:, g0:], -1.0, checks)
+    S = gemm_ops.gemm(row.mT, row)
+    asym = float((S - S.mT).abs().max())
+    print(f"GS1 SYRK symmetry: max|S - S^T| of S = row^T row ({n - g0}^2, "
+          f"K={g0}) = {asym!r}; of the updated block "
+          f"{float((M[g0:, g0:] - M[g0:, g0:].mT).abs().max())!r}", flush=True)
+    del S, M, row
+    torch.cuda.empty_cache()
+    # bitwise repeats: no atomics in the sums, the same plan every call
+    for label, fn in (("gemm (n^2, 100)", lambda: gemm_ops.gemm(C, Xs)),
+                      ("BT1 trsm", lambda: trsm_ops.trsm(U, Xs))):
+        first, second = fn(), fn()
+        checks.check(f"{label} repeats bitwise", bool(torch.equal(first,
+                                                                  second)),
+                     f"max |run 1 - run 2| = "
+                     f"{float((first - second).abs().max())!r}")
+        del first, second
+    dmma = _dmma_count(out_dir / "libgemm.so")
+    print(f"DMMA instructions in libgemm.so: {dmma}", flush=True)
+    if dmma != "not measured":
+        checks.check("gemm runs on the fp64 tensor cores", int(dmma) > 0,
+                     f"{dmma} DMMA in the SASS")
     phase_done("3c (band_mv, gemm, trsm)")
 
     # ---- phase 4: the main paths -----------------------------------------
@@ -1120,6 +1271,8 @@ def main() -> int:
           f"trsm {st['GS2']:.4f}, sygst {sb['GS2']:.4f} (KE {kb['GS2']:.4f}); "
           f"TD1 unblocked {st['TD1']:.4f}, blocked {sb['TD1']:.4f}; TD total "
           f"{st['Tot.']:.4f} against {sb['Tot.']:.4f}", flush=True)
+    profile_stage("GS1 blocked", lambda: cholesky_blocked(md.B))
+    profile_stage("GS2 sygst", lambda: to_standard_sygst(md.A, U))
     tdb = tdb_res.info["kernel_launches"]
     keb = keb_res.info["kernel_launches"]
     del td_res, tdb_res, keb_res
@@ -1187,9 +1340,11 @@ def main() -> int:
         public[name] = kernels.launch_counts()
         print(f"{name} ops call launches: {json.dumps(public[name])}",
               flush=True)
-    tiles = -(-args.md_n // TRSM_BLOCK)
-    for name, kname, want in (("gemm", "gemm", 1), ("trsm", "trsm_tile", tiles),
-                              ("trsm", "gemm", tiles - 1),
+    bt1 = trsm_ops.launches(args.md_n, args.md_s)
+    gemm_want = gemm_kernel.plan(args.md_n, args.md_s, args.md_n).launches
+    for name, kname, want in (("gemm", "gemm", gemm_want),
+                              ("trsm", "trsm_tile", bt1["trsm_tile"]),
+                              ("trsm", "gemm", bt1["gemm"]),
                               ("band_mv", "band_mv", 1)):
         checks.check(f"{name} ops call launched {kname}",
                      public[name][kname] == want,

@@ -19,3 +19,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a kernel launch.
+    ``torch.cuda.current_stream(device)`` builds a Stream object on every
+    call, a host cost the blocked solves pay on every block row."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

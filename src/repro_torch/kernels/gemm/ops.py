@@ -32,10 +32,11 @@ def _operands(A: torch.Tensor, B: torch.Tensor):
     return A, B
 
 
-def gemm(A: torch.Tensor, B: torch.Tensor, bm: int = 128, bn: int = 128,
-         bk: int = 128) -> torch.Tensor:
-    """C = A @ B; ``bm``, ``bn``, ``bk`` are the CUDA kernel's block knobs
-    (the output tile of a block and the K slice it stages per step)."""
+def gemm(A: torch.Tensor, B: torch.Tensor, bm: int | None = None,
+         bn: int | None = None, bk: int | None = None) -> torch.Tensor:
+    """C = A @ B; ``bm``, ``bn``, ``bk`` override the CUDA kernel's plan
+    (``kernel.plan``: the output tile of a block and the K it covers);
+    ``None`` leaves them to the planner."""
     _fp64(A, B)
     if A.device.type == "cpu":
         return ref.gemm_ref(A, B)
@@ -44,8 +45,8 @@ def gemm(A: torch.Tensor, B: torch.Tensor, bm: int = 128, bn: int = 128,
 
 
 def gemm_accum(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-               alpha: float = 1.0, bm: int = 128, bn: int = 128,
-               bk: int = 128) -> torch.Tensor:
+               alpha: float = 1.0, bm: int | None = None,
+               bn: int | None = None, bk: int | None = None) -> torch.Tensor:
     """C += alpha A @ B in place (C row-major, a view of a larger matrix
     included); returns C."""
     _fp64(C, A, B)

@@ -2,7 +2,8 @@
 
 ``trsm_tile`` replaces the reference's ``trsm_tile``
 (``repro/kernels/trsm/kernel.py``); the source note in the ``.cu`` file
-says what bounds the kernel and what its design does about it. The
+says what bounds the kernel and what its design does about it (a warp a
+column; ``warps`` picks the columns of a block). The
 wrapper checks device, dtype, shapes and strides, solves in place on X,
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
 and adds one to its ``launches`` count per launch. U and X are read
@@ -12,20 +13,37 @@ of a larger X go in as they are); another layout raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.device import current_stream
 from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_SIG = ([_P, _L, _P, _L, _I, _I, _I, _P], _I)
+_SIG = ([_P, _L, _P, _L, _I, _I, _I, _I, _P], _I)
 
 #: the largest tile the kernel holds in shared memory
 MAX_B = 128
+#: the most columns (warps) of one block
+MAX_WARPS = 32
+#: SMs of an H100
+SMS = 132
 
 
+def warps(s: int) -> int:
+    """The RHS columns of one block (a warp each). The columns of one SM
+    share its fp64 pipe, so fewer a block run faster, but each block
+    loads the tile again: at least 4, and enough that the s columns fill
+    two waves of two blocks an SM (two blocks of up to 23 warps fit one
+    at the kernel's 44 registers a thread); at most ``MAX_WARPS``. s = 100
+    gives 4 (25 blocks), s = 9997 gives 19 (527 blocks)."""
+    return max(4, min(MAX_WARPS, -(-s // (4 * SMS))))
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("trsm")
     lib.trsm_tile_fp64.argtypes, lib.trsm_tile_fp64.restype = _SIG
@@ -37,17 +55,16 @@ def _row_major(name: str, t: torch.Tensor, device, shape: tuple) -> int:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != torch.float64:
         raise ValueError(f"{name} must be torch.float64, got {t.dtype}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
     rows, cols = shape
-    if rows > 1 and cols > 1 and (t.stride(1) != 1 or t.stride(0) < cols):
+    sr, sc = t.stride()
+    if rows > 1 and cols > 1 and (sc != 1 or sr < cols):
         raise ValueError(f"{name} must be row-major with unit column "
-                         f"stride, got strides {t.stride()}")
-    if cols == 1 and rows > 1:
-        # one column: element (r, 0) lies at r * stride(0)
-        return t.stride(0)
-    return t.stride(0) if rows > 1 else cols
+                         f"stride, got strides {(sr, sc)}")
+    # one column: element (r, 0) lies at r * stride(0)
+    return sr if rows > 1 else cols
 
 
 def trsm_tile(U: torch.Tensor, X: torch.Tensor,
@@ -62,13 +79,14 @@ def trsm_tile(U: torch.Tensor, X: torch.Tensor,
     b, s = X.shape
     if not 1 <= b <= MAX_B:
         raise ValueError(f"the tile must have 1 to {MAX_B} rows, got {b}")
-    ldu = _row_major("U", U, U.device, (b, b))
-    ldx = _row_major("X", X, U.device, (b, s))
+    dev = U.device
+    ldu = _row_major("U", U, dev, (b, b))
+    ldx = _row_major("X", X, dev, (b, s))
     if s == 0:
         return X
     err = _lib().trsm_tile_fp64(U.data_ptr(), ldu, X.data_ptr(), ldx, b, s,
-                                int(bool(trans)),
-                                torch.cuda.current_stream(U.device).cuda_stream)
+                                int(bool(trans)), warps(s),
+                                current_stream(dev))
     trsm_tile.launches += 1
     if err != 0:
         raise RuntimeError(f"trsm_tile_fp64 failed with cudaError {err}")

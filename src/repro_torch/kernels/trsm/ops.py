@@ -8,7 +8,8 @@ rows for U X = B, forward for U^T X = B; each block row first takes the
 product update of the rows already solved (``gemm``, reading U's
 off-diagonal block in place, transposed for U^T), then the diagonal tile
 (``trsm_tile``). At n = 9997 and ``block=128`` that is 79 tile solves and
-78 products (9997 = 78 * 128 + 13).
+78 products (9997 = 78 * 128 + 13); a product whose output is too small
+to fill the card is split over K, one more launch (``launches``).
 """
 from __future__ import annotations
 
@@ -19,20 +20,31 @@ from repro_torch.kernels.gemm import kernel as gemm_kernel
 from . import kernel, ref
 
 
-def _update_tiles(rows: int, cols: int) -> int:
-    """The output tile of a product update: the largest compiled edge that
-    still gives about one block per SM of an H100 (132), since a block row
-    is only ``block`` rows tall and K runs over every solved row."""
-    for t in reversed(gemm_kernel.TILES):
-        if -(-rows // t) * -(-cols // t) >= 132:
-            return t
-    return gemm_kernel.TILES[0]
-
-
 def _update_kernel(Xk, A, Xj):
-    t = _update_tiles(*Xk.shape)
-    gemm_kernel.gemm(A, Xj, out=Xk, alpha=-1.0, accumulate=True, bm=t, bn=t,
-                     bk=gemm_kernel.MAX_BK)
+    # the planner splits K where the (block, s) output is too small to
+    # fill the card (gemm_kernel.plan)
+    gemm_kernel.gemm(A, Xj, out=Xk, alpha=-1.0, accumulate=True)
+
+
+def launches(n: int, s: int, trans: bool = False, block: int = 128) -> dict:
+    """The kernel launches of one card ``trsm`` of an (n, s) right-hand
+    side: the schedule run on meta tensors (shapes only), a ``trsm_tile``
+    per block row and per product update the launches its
+    ``gemm_kernel.plan`` gives (two where K is split)."""
+    counts = {"trsm_tile": 0, "gemm": 0}
+
+    def tile(Uk, Xk, t):
+        counts["trsm_tile"] += 1
+
+    def update(Xk, A, Xj):
+        counts["gemm"] += gemm_kernel.plan(*Xk.shape, A.shape[1]).launches
+
+    if n and s:
+        meta = dict(dtype=torch.float64, device="meta")
+        ref.blocked_solve(torch.empty((n, n), **meta),
+                          torch.empty((n, s), **meta), trans, min(block, n),
+                          tile, update)
+    return counts
 
 
 def trsm(U: torch.Tensor, B: torch.Tensor, trans: bool = False,
@@ -67,4 +79,4 @@ def trsm(U: torch.Tensor, B: torch.Tensor, trans: bool = False,
     return X[:, 0] if vec else X
 
 
-__all__ = ["trsm"]
+__all__ = ["trsm", "launches"]

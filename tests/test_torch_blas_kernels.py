@@ -97,26 +97,82 @@ def test_gemm_accum_on_views_matches_reference(alpha):
 
 
 def test_gemm_kernel_knobs_and_layouts():
-    # the tile a knob gives on a dimension: rounded up to a compiled edge,
-    # halved while the half still covers the dimension
-    assert gemm_kernel.tile(128, 9997) == 128
-    assert gemm_kernel.tile(128, 100) == 128
-    assert gemm_kernel.tile(128, 60) == 64
-    assert gemm_kernel.tile(128, 5) == 16
-    assert gemm_kernel.tile(48, 1000) == 64
-    assert gemm_kernel.tile(512, 1000) == 128
-    assert gemm_kernel.tile(1, 1000) == 16
-    # the K slice: a multiple of 8, at most 32 and at most K rounded to 8
-    assert gemm_kernel.depth(128, 9997) == 32
-    assert gemm_kernel.depth(128, 5) == 8
-    assert gemm_kernel.depth(20, 100) == 16
-    assert gemm_kernel.depth(128, 0) == 8
+    # the knobs map onto the compiled menu: 128 x 128 or 64 x 64 output
+    # tiles, and the K a block covers rounded up to SPLIT_K (32)
+    plan = gemm_kernel.plan
+    assert gemm_kernel.TILES == (128, 64)
+    assert plan(9997, 9997, 9997, bm=128).tile == 128
+    assert plan(60, 9997, 9997, bm=128).tile == 64      # m fits in 64 rows
+    assert plan(9997, 9997, 9997, bm=48, bn=64).tile == 64
+    assert plan(9997, 9997, 9997, bm=16, bn=128).tile == 128
+    assert plan(257, 129, 333, bm=128, bn=128, bk=128) == (128, 128, 3)
+    assert plan(257, 129, 333, bm=16, bn=16, bk=8) == (64, 32, 11)
+    assert plan(257, 129, 333, bm=128, bn=32, bk=24) == (128, 32, 11)
+    # bk never asks for more than MAX_SPLITS spans
+    assert plan(128, 100, 9869, bk=16).splits <= gemm_kernel.MAX_SPLITS
+    assert plan(128, 100, 9869, bk=16).kspan == 160
+    # a launch, and one more for the reduce pass of a split
+    assert plan(128, 100, 13).launches == 1
+    assert plan(128, 100, 9869).launches == 2
+    # every K is covered by exactly the splits the kernel launches
+    for m, n, k in ((1, 1, 0), (5, 7, 3), (128, 100, 9869), (300, 130, 1000)):
+        p = plan(m, n, k)
+        assert p.kspan % gemm_kernel.SPLIT_K == 0
+        assert p.splits == max(1, -(-k // p.kspan))
+        assert (p.splits - 1) * p.kspan < max(k, 1)
     X = torch.zeros((50, 40), dtype=torch.float64)
     assert gemm_kernel.layout(X) == (False, 40)
     assert gemm_kernel.layout(X[5:20, 3:9]) == (False, 40)
     assert gemm_kernel.layout(X[5:20, 3:9].mT) == (True, 40)
     assert gemm_kernel.layout(X[:, 7:8]) == (False, 40)
     assert gemm_kernel.layout(X[::2, ::2]) is None
+
+
+# (m, n, k) of the products the MD stages launch (n = 9997, s = 100), and
+# the plan pinned for each: (tile, kspan, splits)
+STAGE_PLANS = [
+    # BT1: the last block row's update, U[k0:k1, k1:] X[k1:], K = 9869
+    ((128, 100, 9869), (64, 160, 62)),
+    # GS2 sygst: a trailing solve's update with 256 columns, K = 9741
+    ((128, 256, 9741), (64, 320, 31)),
+    # GS1: the first SYRK update M[k1:, k1:] -= row^T row, K = 256 (short
+    # K: the 64 x 64 tile, 23716 blocks)
+    ((9741, 9741, 256), (64, 256, 1)),
+    # the full product 9997^3
+    ((9997, 9997, 9997), (128, 10016, 1)),
+    # the product with a 100-column block, (9997^2, 100): 79 big tiles,
+    # each K split in 5 (395 blocks, three whole waves of 132)
+    ((9997, 100, 9997), (128, 2016, 5)),
+]
+
+
+@pytest.mark.parametrize("shape,want", STAGE_PLANS)
+def test_gemm_plan_at_the_stage_shapes(shape, want):
+    p = gemm_kernel.plan(*shape)
+    assert tuple(p) == want
+    # at least a block an SM wherever the output alone is short of it
+    m, n, _ = shape
+    blocks = -(-m // p.tile) * -(-n // p.tile) * p.splits
+    assert blocks >= gemm_kernel.SMS
+    assert p.launches == 1 + (p.splits > 1)
+
+
+def test_trsm_launch_plan_at_the_md_size():
+    # 79 tile solves; of the 78 updates the long-K ones are split (two
+    # launches), the shallow ones near the start of the sweep are not
+    n = 9997
+    assert trsm_ops.launches(n, 100) == {"trsm_tile": 79, "gemm": 154}
+    assert trsm_ops.launches(n, 100, trans=True) == {"trsm_tile": 79,
+                                                     "gemm": 155}
+    # the GS2-shape solve (9997 columns): big tiles, K split where it is
+    # at least BIG_TILE_K (71 of the 78 updates)
+    assert trsm_ops.launches(n, n, trans=True) == {"trsm_tile": 79,
+                                                   "gemm": 149}
+    assert trsm_ops.launches(n, 0) == {"trsm_tile": 0, "gemm": 0}
+    # a block of columns a warp each: >= 25 blocks at s = 100
+    assert trsm_kernel.warps(100) == 4 and -(-100 // 4) >= 25
+    assert trsm_kernel.warps(9997) == 19
+    assert trsm_kernel.warps(10 ** 6) == trsm_kernel.MAX_WARPS
 
 
 def test_gemm_wrappers_refuse_what_they_do_not_run():

@@ -334,7 +334,9 @@ def test_gemm_vs_plain(cuda, m, k, n, trans_a, accumulate):
     else:
         got = gemm_kernel.gemm(A, B)
         want = A.cpu() @ B.cpu()
-    assert gemm_kernel.launch_counts() == {"gemm": 1}
+    # one launch, two where the planner splits K
+    assert gemm_kernel.launch_counts() == {
+        "gemm": gemm_kernel.plan(m, n, k).launches}
     bound = _gamma(k + 1) * ((C.cpu().abs() if accumulate else 0)
                                + A.cpu().abs() @ B.cpu().abs())
     assert bool(torch.all((got.cpu() - want).abs() <= bound))
@@ -369,6 +371,69 @@ def test_gemm_accumulates_into_a_view_and_refuses_other_layouts(cuda):
     Bt = _randn((20, 30), 6, cuda).mT
     assert torch.allclose(gemm_ops.gemm(A, Bt).cpu(), A.cpu() @ Bt.cpu(),
                           rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_gemm_split_k_on_odd_views(cuda, trans_a, accumulate):
+    # a skinny output (128 x 100, 4 tiles) with K = 990: the planner splits
+    # K; every operand a view of a 1001-wide matrix (an odd leading
+    # dimension) at an odd offset, as the MD stages pass them
+    m, n, k = 128, 100, 990
+    p = gemm_kernel.plan(m, n, k)
+    assert p.splits > 1 and p.launches == 2
+    src = _randn((1100, 1001), 11, cuda)
+    A = src[1:1 + k, 7:7 + m].mT if trans_a else src[3:3 + m, 5:5 + k]
+    B = _randn((1000, 1001), 12, cuda)[3:3 + k, 11:11 + n]
+    big = _randn((200, 1001), 13, cuda)
+    C = big[5:5 + m, 9:9 + n]
+    C0 = C.cpu().clone()
+    gemm_kernel.reset_launches()
+    if accumulate:
+        got = gemm_kernel.gemm(A, B, out=C, alpha=-0.5, accumulate=True)
+        want = C0 - 0.5 * (A.cpu() @ B.cpu())
+    else:
+        got = gemm_kernel.gemm(A, B, out=C, alpha=-0.5)
+        want = -0.5 * (A.cpu() @ B.cpu())
+    assert got.data_ptr() == C.data_ptr()
+    assert gemm_kernel.launch_counts() == {"gemm": 2}
+    bound = _gamma(k + 1) * ((C0.abs() if accumulate else 0)
+                               + 0.5 * (A.cpu().abs() @ B.cpu().abs()))
+    assert bool(torch.all((got.cpu() - want).abs() <= bound))
+    rest = big.cpu()
+    rest[5:5 + m, 9:9 + n] = 0.0
+    ref = _randn((200, 1001), 13, "cpu")
+    ref[5:5 + m, 9:9 + n] = 0.0
+    assert torch.equal(rest, ref)           # nothing outside the view moved
+
+
+def test_gemm_and_trsm_repeat_bitwise(cuda):
+    # no atomics: the same call gives the same bits, split K included
+    A = _randn((128, 3000), 14, cuda)
+    B = _randn((3000, 100), 15, cuda)
+    assert gemm_kernel.plan(128, 100, 3000).splits > 1
+    assert torch.equal(gemm_ops.gemm(A, B), gemm_ops.gemm(A, B))
+    U = _upper(700, 16, cuda)
+    Bs = _randn((700, 100), 17, cuda)
+    for trans in (False, True):
+        assert torch.equal(trsm_ops.trsm(U, Bs, trans=trans),
+                           trsm_ops.trsm(U, Bs, trans=trans))
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_trsm_tile_full_tile_ragged_columns(cuda, trans):
+    # b = 128 (every lane holds four rows) and s not a multiple of the
+    # columns of a block, so the last block has idle warps
+    b, s = 128, 1001
+    assert s % trsm_kernel.warps(s) != 0
+    U = _upper(b, 18, cuda)
+    B = _randn((b, s), 19, cuda)
+    X = trsm_kernel.trsm_tile(U, B.clone(), trans)
+    Xp = trsm_ref.trsm_tile_ref(U.cpu(), B.cpu(), trans)
+    assert float((X.cpu() - Xp).abs().max()) <= 1e-12 * float(Xp.abs().max())
+    Uc = U.cpu().mT if trans else U.cpu()
+    assert float(torch.linalg.matrix_norm(Uc @ X.cpu() - B.cpu())) <= \
+        _solve_bar(U.cpu(), X.cpu())
 
 
 def _upper(n, seed, device):
@@ -413,7 +478,10 @@ def test_trsm_vs_plain(cuda, n, s, block, trans):
     X = trsm_ops.trsm(U, B, trans=trans, block=block)
     tiles = -(-n // min(block, n)) if s != 0 else 0
     assert trsm_kernel.launch_counts() == {"trsm_tile": tiles}
-    assert gemm_kernel.launch_counts() == {"gemm": max(tiles - 1, 0)}
+    # a product per update, plus a reduce pass where its K is split
+    want = trsm_ops.launches(n, 1 if s is None else s, trans, block)
+    assert want["trsm_tile"] == tiles
+    assert gemm_kernel.launch_counts() == {"gemm": want["gemm"]}
     Xp = trsm_ref.trsm_blocked_ref(U.cpu(), B.cpu(), trans=trans, block=block)
     assert X.shape == B.shape
     if s != 0:
