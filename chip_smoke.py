@@ -18,8 +18,15 @@ Phases, each printed as it runs; any failed check exits nonzero:
    against its plain version on CPU copies, componentwise within
    gamma_n (|sym(triu A)| |X|), on the MD standard-form C and on a random
    symmetric matrix at the DFT width n=17243 whose strictly lower triangle
-   holds 1e6-scale garbage; timed in turns, beside ``torch.matmul`` on the
-   full matrix (the library call that computes the same function);
+   holds 1e6-scale garbage; two runs of each checked bitwise equal; timed
+   in turns, beside ``torch.matmul`` on the full matrix (the library call
+   that computes the same function), with the kernel's TB/s on the
+   triangle; on the MD C, ``symm_block`` at p=1 under each compiled width
+   of X a pass in turns, the wrapper's host time a call, ``torch.sum``
+   over A (the card's read rate on those bytes), the device
+   time of the tile pass and the slot sum (``torch.profiler``), and the
+   rounding error of ``symm_block`` and ``torch.matmul`` against an
+   extended-precision reference;
 3b. the TT kernels against their plain versions on CPU copies:
    ``house_panel`` on the first panel of the MD standard-form C
    (``C[:, :16]``, row_start 16) and on a mid-ladder panel (V and T
@@ -27,7 +34,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    (n=9997, k=16) within gamma_{2k+1} (|C| + |V||W|^T + |W||V|^T), beside
    ``torch.addmm`` of the concatenated panels; ``rot_apply`` bitwise at
    the chase's wavefront shapes and a replay shape, beside ``torch.matmul``
-   of the (G, 2, 2) rotations with the pairs; the whole TT2 chase
+   of the (G, 2, 2) rotations with the pairs, both timed per call (CUDA
+   events) and as device time (``torch.profiler``); the whole TT2 chase
    (``chase_pass``) and the TT4 replay (``replay_pass``) of the MD band
    at n=512, w=16 against the plain versions on the host CPU; then, at the
    main path's n=9997, w=16, the first and last chase pass against the
@@ -59,7 +67,10 @@ Phases, each printed as it runs; any failed check exits nonzero:
 4. the main paths, each with every launch count set to 0 just before and
    read just after: ``solve(A, B, 100, variant="TD")`` on the MD pencil;
    ``solve(A, B, 100, variant="KE"|"KI", invert=True, use_kernel=True)``
-   and KE with ``krylov_block=4``; ``solve(A, B, 100, variant="TT",
+   and KE with ``krylov_block=4`` (their ``symm_block`` launches printed
+   beside ``n_matvec``; then KE p=4 on ``torch.matmul`` for its counts,
+   and one KE solve under ``torch.profiler``: wall, host enqueue and
+   device time by kernel); ``solve(A, B, 100, variant="TT",
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
    ``chase_pass`` and ``replay_pass``) and TT on the DFT pencil at
    n=4096, s=64; each held to the Table-3 bars (1e-12) and to the
@@ -309,8 +320,9 @@ def gamma_bound(A_h, X_h):
 def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
     """``symm_block`` at p=1 and p=4 and ``symv`` on A against their plain
     versions (CPU copies), componentwise within gamma_n (|sym(triu A)| |X|)
-    — a bound on the error of any order of summation. Returns one row per
-    case (error, times, bound, ``torch.matmul`` time)."""
+    — a bound on the error of any order of summation — and two runs of
+    each checked bitwise equal. Returns one row per case (error, times,
+    bound, ``torch.matmul`` time)."""
     import torch
     from repro_torch.kernels.symv import kernel, ref
 
@@ -342,19 +354,122 @@ def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
         bound = gamma_bound(A_h, X_h)
         ratio = float(torch.max(diff / bound))
         key = f"{name} p={p}" if name == "symm_block" else name
+        # the upper triangle once, X once, Y once; 2 n^2 p flops
+        nbytes = 8 * (n * (n + 1) / 2 + 2 * n * p)
+        ms = (k1 + k2) / 2
         print(f"{label} {key}: kernel {k1:.4f} / {k2:.4f} ms, plain "
               f"{p1:.1f} / {p2:.1f} ms (plain on the host CPU), "
-              f"torch.matmul {l1:.4f} / {l2:.4f} ms", flush=True)
+              f"torch.matmul {l1:.4f} / {l2:.4f} ms; kernel "
+              f"{nbytes / ms / 1e9:.3f} TB/s on the triangle, bound "
+              f"{HBM_BYTES_PER_S / 1e12:.2f}", flush=True)
         checks.check(f"{label} {key} within gamma_n of plain",
                      bool(torch.all(diff <= bound)),
                      f"max |kernel - plain| / (gamma_n |A||X|) = {ratio!r}, "
                      f"max |kernel - plain| = {float(diff.max())!r}")
+        again = run()
+        checks.check(f"{label} {key} repeats bitwise",
+                     bool(torch.equal(again, Y_k)),
+                     f"max |run 1 - run 2| = "
+                     f"{float((again - Y_k).abs().max())!r}")
         rows[key] = dict(
-            max_abs_err=float(diff.max()), ms=(k1 + k2) / 2,
+            max_abs_err=float(diff.max()), ms=ms,
             plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
-            # the upper triangle once, X once, Y once; 2 n^2 p flops
-            **_bound(2.0 * n * n * p, 8 * (n * (n + 1) / 2 + 2 * n * p)))
+            **_bound(2.0 * n * n * p, nbytes))
     return rows
+
+
+def _symm_block_at_width(A, X, kc: int):
+    """``symm_block`` through symv.cu's instance for kc (1, 2 or 4) columns
+    of X a pass, whatever p is: the C entry point called directly, so no
+    launch is counted and the wrapper keeps the plan's width."""
+    import torch
+    from repro_torch.device import current_stream
+    from repro_torch.kernels.symv import kernel
+
+    n, p = X.shape
+    Y = torch.empty((n, p), dtype=torch.float64, device=A.device)
+    P = torch.empty(kernel.plan(n, p).scratch, dtype=torch.float64,
+                    device=A.device)
+    err = kernel._lib().symm_block_upper(
+        A.data_ptr(), A.stride(0), X.data_ptr(), X.stride(0), P.data_ptr(),
+        Y.data_ptr(), n, p, kc, current_stream(A.device))
+    if err != 0:
+        raise RuntimeError(f"symm_block_upper at kc={kc}: cudaError {err}")
+    return Y
+
+
+def product_variants(label: str, A, seed: int) -> None:
+    """``symm_block`` at p=1 under each compiled width of X a pass (kc;
+    the plan takes 1), timed in turns; the wrapper's host time a call,
+    without the device; the card's read rate on A (``torch.sum``, a
+    yardstick of what a read can reach); and one call's device time by
+    kernel (the tile pass and the slot sum) under ``torch.profiler``."""
+    import torch
+    from repro_torch.kernels.symv import kernel
+
+    n = A.shape[0]
+    X = torch.randn((n, 1), dtype=torch.float64, device=A.device,
+                    generator=torch.Generator(device=A.device).manual_seed(
+                        seed))
+    times = {kc: [] for kc in (1, 2, 4)}
+    for _ in range(2):
+        for kc in times:
+            _symm_block_at_width(A, X, kc)
+            _, ms = _time_cuda(lambda: _symm_block_at_width(A, X, kc),
+                               TIMING_REPS)
+            times[kc].append(ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMING_REPS):
+        kernel.symm_block(A, X)
+    host = 1e3 * (time.perf_counter() - t0) / TIMING_REPS
+    torch.cuda.synchronize()
+    # the card's read rate on these bytes: one reduction over all of A
+    A.sum()
+    _, sum_ms = _time_cuda(lambda: A.sum(), TIMING_REPS)
+    print(f"{label} symm_block p=1 by width a pass (ms, in turns; the plan "
+          f"takes kc={kernel.plan(n, 1).kc}): " + ", ".join(
+              f"kc={k} {v[0]:.4f} / {v[1]:.4f}" for k, v in times.items())
+          + f"; wrapper host time {host:.4f} ms a call; torch.sum over all "
+          f"of A {sum_ms:.4f} ms, {8 * n * n / sum_ms / 1e9:.3f} TB/s",
+          flush=True)
+    profile_stage(f"{label} symm_block p=1", lambda: kernel.symm_block(A, X))
+
+
+def product_accuracy(label: str, A, seed: int) -> None:
+    """The rounding error of ``symm_block`` (p=4, and p=1 a column at a
+    time) and of ``torch.matmul`` on sym(triu A), against a reference in
+    extended precision (numpy ``longdouble`` on the host), for four
+    orthonormal columns: max and rms of |Y - Y_ref| / (|A| |X|). The
+    Lanczos restart counts at tol=0 read this rounding."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.symv import kernel
+
+    n = A.shape[0]
+    X = torch.randn((n, 4), dtype=torch.float64, device=A.device,
+                    generator=torch.Generator(device=A.device).manual_seed(
+                        seed))
+    Q, _ = torch.linalg.qr(X)
+    S = torch.triu(A)
+    S += torch.triu(A, 1).mT
+    outs = {"symm_block p=4": kernel.symm_block(A, Q),
+            "symm_block p=1": torch.cat([kernel.symm_block(A, Q[:, k:k + 1])
+                                         for k in range(4)], 1),
+            "torch.matmul": S @ Q}
+    S_h = S.cpu().numpy().astype(np.longdouble)
+    del S
+    Q_h = Q.cpu().numpy().astype(np.longdouble)
+    ref = S_h @ Q_h
+    scale = np.abs(S_h) @ np.abs(Q_h)
+    del S_h
+    parts = []
+    for name, Y in outs.items():
+        rel = np.abs(Y.cpu().numpy().astype(np.longdouble) - ref) / scale
+        parts.append(f"{name} max {float(rel.max()):.3e}, rms "
+                     f"{float(np.sqrt((rel ** 2).mean())):.3e}")
+    print(f"{label} product error / (|A||X|) against longdouble, 4 "
+          f"orthonormal columns: " + "; ".join(parts), flush=True)
 
 
 def _wide_matrix(n: int, seed: int, device):
@@ -452,9 +567,34 @@ def compare_syr2k(label: str, C, V, W, checks: Checks) -> dict:
                 **_bound(4.0 * k * n * n, 8 * (2.0 * n * n + 2 * n * k)))
 
 
+def _device_ms(fn, calls: int = TIMING_REPS):
+    """Device time a call: the kernels' time under ``torch.profiler``
+    (CUPTI) over ``calls`` back-to-back calls, summed, over the calls;
+    None where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total", 0.0)
+                for ev in prof.key_averages())
+    return total / 1e3 / calls if total else None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.5f} ms"
+
+
 def compare_rot_apply(checks: Checks, dev) -> dict:
     """``rot_apply`` bitwise against its plain version at the wavefront
-    shapes of the MD chase (b=16 and b=2 lanes) and at a replay shape."""
+    shapes of the MD chase (b=16 and b=2 lanes) and at a replay shape;
+    kernel and the batched ``torch.matmul`` timed per call (CUDA events
+    over back-to-back calls: the host's cost a call where it exceeds the
+    device's) and as device time (``torch.profiler``)."""
     import torch
     from repro_torch.kernels.rot_apply import kernel, ref
 
@@ -481,11 +621,17 @@ def compare_rot_apply(checks: Checks, dev) -> dict:
         _, k2 = _time_cuda(run, TIMING_REPS)
         _, p2 = _time_host(plain)
         _, l2 = _time_cuda(lib, TIMING_REPS)
+        kd, ld = _device_ms(run), _device_ms(lib)
         err = float((y.cpu() - y_p).abs().max())
         print(f"rot_apply (G={G}, L={L}): kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.3f} / {p2:.3f} ms (plain on the host CPU), "
               f"torch.matmul {l1:.4f} / {l2:.4f} ms (max |matmul - kernel| "
               f"= {float((y_l - y).abs().max())!r})", flush=True)
+        print(f"rot_apply (G={G}, L={L}) device time (torch.profiler, "
+              f"{TIMING_REPS} calls): kernel {_ms(kd)}, torch.matmul "
+              f"{_ms(ld)}; per call (CUDA events): kernel "
+              f"{(k1 + k2) / 2:.5f} ms, torch.matmul {(l1 + l2) / 2:.5f} ms",
+              flush=True)
         checks.check(f"rot_apply G={G} L={L} bitwise vs plain",
                      bool(torch.equal(y.cpu(), y_p)),
                      f"max |kernel - plain| = {err!r}")
@@ -1058,7 +1204,7 @@ def main() -> int:
         return 2
     try:
         from repro_torch import kernels
-        from repro_torch.core import ExplicitC, apply_op
+        from repro_torch.core import ExplicitC, apply_op, solve
         from repro_torch.core.cholesky import cholesky_blocked, cholesky_upper
         from repro_torch.core.linalg_utils import wy_syr2k_panel
         from repro_torch.core.sbr import (_chunk_bounds, _executed_passes,
@@ -1141,6 +1287,8 @@ def main() -> int:
     prod = compare_product(f"MD C n={args.md_n}", C, checks, seed=1)
     rows["symm_block"] = prod["symm_block p=1"]
     rows["symv"] = prod["symv"]
+    product_variants(f"MD C n={args.md_n}", C, seed=13)
+    product_accuracy(f"MD C n={args.md_n}", C, seed=14)
     W = _wide_matrix(args.wide_n, seed=2, device=dev)
     compare_product(f"garbage-lower n={args.wide_n}", W, checks, seed=3)
     del W
@@ -1241,12 +1389,33 @@ def main() -> int:
     # ---- phase 4: the main paths -----------------------------------------
     td_res = run_solve("TD", md, args.md_s, checks, variant="TD")
     td = td_res.info["kernel_launches"]
-    ke = run_solve("KE", md, args.md_s, checks, variant="KE", invert=True,
-                   use_kernel=True).info["kernel_launches"]
-    run_solve("KI", md, args.md_s, checks, variant="KI", invert=True,
-              use_kernel=True)
-    run_solve("KE p=4", md, args.md_s, checks, variant="KE", invert=True,
-              use_kernel=True, krylov_block=4)
+    ke_res = run_solve("KE", md, args.md_s, checks, variant="KE",
+                       invert=True, use_kernel=True)
+    ke = ke_res.info["kernel_launches"]
+    ki_res = run_solve("KI", md, args.md_s, checks, variant="KI",
+                       invert=True, use_kernel=True)
+    ke4_res = run_solve("KE p=4", md, args.md_s, checks, variant="KE",
+                        invert=True, use_kernel=True, krylov_block=4)
+    ki = ki_res.info["kernel_launches"]
+    ke4 = ke4_res.info["kernel_launches"]
+    krylov = (("KE", ke_res), ("KI", ki_res), ("KE p=4", ke4_res))
+    print("symm_block launches on the Krylov paths: " + ", ".join(
+        f"{label} {r.info['kernel_launches']['symm_block']} (n_matvec "
+        f"{r.info['n_matvec']}, {label[:2]}_iter "
+        f"{r.stage_times[label[:2] + '_iter']:.4f} s)"
+        for label, r in krylov), flush=True)
+    del ke_res, ki_res, ke4_res, krylov
+    # the restart count at tol=0 follows the product's rounding: the same
+    # block solve on torch.matmul, and one KE solve under the profiler
+    mm4 = solve(md.A, md.B, args.md_s, variant="KE", invert=True,
+                use_kernel=False, krylov_block=4)
+    print(f"KE p=4 on torch.matmul (use_kernel=False): n_matvec "
+          f"{mm4.info['n_matvec']}, n_restart {mm4.info['n_restart']}, "
+          f"KE_iter {mm4.stage_times['KE_iter']:.4f} s", flush=True)
+    del mm4
+    profile_stage("KE solve", lambda: solve(md.A, md.B, args.md_s,
+                                            variant="KE", invert=True,
+                                            use_kernel=True))
     tt = run_solve("TT", md, args.md_s, checks, variant="TT",
                    band_width=TT_W).info["kernel_launches"]
     dft = dft_like(args.dft_n, device=dev)
@@ -1279,6 +1448,8 @@ def main() -> int:
     phase_done("4 (main paths)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
+                                 ("KI", ki, ("symm_block",)),
+                                 ("KE p=4", ke4, ("symm_block",)),
                                  ("TT", tt, ("bisect_sturm", "invit")),
                                  ("TT DFT", tt_dft, ("bisect_sturm", "invit")),
                                  ("TD blocked", tdb, ("gemm", "trsm_tile",

@@ -22,7 +22,14 @@
 // versions.
 //
 // What bounds them.
-//   rot_apply: bytes, 2 G L doubles in and out.
+//   rot_apply: bytes, 2 G L doubles in and out: 256 KB at the chase's
+//     widest wavefront (G = 1000, L = 8), under 0.1 us of HBM, so a call
+//     costs its launch and the host's work around it. The kernel takes a
+//     2-D grid, x over pairs and y over column chunks: a block of 256
+//     threads holds 256 / tx pairs of tx = min(256, pow2 >= L) threads,
+//     consecutive threads on consecutive L entries; each pair's (c, s) is
+//     loaded once into shared memory; 32-bit offsets (the wrapper checks
+//     G L < 2^31, so the 2 G L entries fit below 2^32); no division.
 //   chase_pass: latency. At the MD band (n = 9997, w = 16) the 15 passes
 //     take 319,612 dependent time steps here (489,403 at the reference's
 //     stagger); their work (~4.7e10 flops) and bytes (the 1.4 MB band
@@ -84,19 +91,28 @@ __device__ __forceinline__ void rotate(double c, double s, double x0,
   *y1 = -s * x0 + c * x1;
 }
 
-__global__ void rot_apply_kernel(const double* __restrict__ X,
-                                 const double* __restrict__ CS,
-                                 double* __restrict__ Y, int64_t G, int64_t L) {
-  const int64_t total = G * L;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t g = idx / L;
-    const int64_t l = idx % L;
-    const double c = CS[2 * g];
-    const double s = CS[2 * g + 1];
-    const double* x = X + g * 2 * L;
-    double* y = Y + g * 2 * L;
-    rotate(c, s, x[l], x[L + l], &y[l], &y[L + l]);
+__global__ void __launch_bounds__(256)
+rot_apply_kernel(const double* __restrict__ X, const double* __restrict__ CS,
+                 double* __restrict__ Y, unsigned G, unsigned L) {
+  __shared__ double cs[2 * 256];
+  const unsigned tx = blockDim.x;                 // threads of a pair
+  const unsigned ty = blockDim.y;                 // pairs of the block
+  const unsigned tid = threadIdx.y * tx + threadIdx.x;
+  const unsigned g0 = blockIdx.x * ty;
+  // the block's 2 ty (c, s) entries; at L = 1 a block holds 256 pairs,
+  // so each thread stages two
+  for (unsigned i = tid; i < 2 * ty && g0 + i / 2 < G; i += tx * ty)
+    cs[i] = CS[2 * g0 + i];
+  __syncthreads();
+  const unsigned g = g0 + threadIdx.y;
+  if (g >= G) return;
+  const double c = cs[2 * threadIdx.y];
+  const double s = cs[2 * threadIdx.y + 1];
+  const unsigned base = 2 * g * L;
+  for (unsigned l = blockIdx.y * tx + threadIdx.x; l < L;
+       l += gridDim.y * tx) {
+    rotate(c, s, X[base + l], X[base + L + l], &Y[base + l],
+           &Y[base + L + l]);
   }
 }
 
@@ -302,15 +318,14 @@ replay_pass_kernel(double* __restrict__ X, int64_t ldx, int ncols,
 extern "C" {
 
 // Y (G, 2, L) = the rotations CS (G, 2) of the row pairs X (G, 2, L);
-// all contiguous.
-int rot_apply_fp64(const double* X, const double* CS, double* Y, int64_t G,
-                   int64_t L, cudaStream_t stream) {
-  const int64_t total = G * L;
-  if (total == 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;
-  rot_apply_kernel<<<(unsigned)blocks, threads, 0, stream>>>(X, CS, Y, G, L);
+// all contiguous, G L < 2^31. Blocks of (tx, 256 / tx) threads, grid
+// (gx, gy): the wrapper's launch_shape.
+int rot_apply_fp64(const double* X, const double* CS, double* Y, int G,
+                   int L, int tx, int gx, int gy, cudaStream_t stream) {
+  if (G <= 0 || L <= 0) return 0;
+  if (tx < 1 || tx > 256 || 256 % tx != 0) return (int)cudaErrorInvalidValue;
+  rot_apply_kernel<<<dim3(gx, gy), dim3(tx, 256 / tx), 0, stream>>>(
+      X, CS, Y, (unsigned)G, (unsigned)L);
   return (int)cudaGetLastError();
 }
 

@@ -15,155 +15,272 @@
 // the work is far below the card's fp64 rate: the least time is the
 // upper triangle n(n+1)/2 * 8 B, plus X, plus Y, over 3.35 TB/s, which is
 // 0.119 ms at n=9997 (p=1). A dense product would read twice the bytes.
+// To come near that bound the card must keep ~20-40 KB of A in flight on
+// every SM all the time, and spend little on anything but those loads.
 //
 // Design. The TPU kernel walks the upper tiles in order and carries y
 // across grid steps in its output refs; CUDA blocks run in no order, so
-// here no block depends on another and no sum is carried:
-//   symm_upper_tiles — one block per upper tile (i, j >= i) of kT x kT.
-//     It stages the tile in shared memory with coalesced row reads
-//     (masking the ragged edge, and on the diagonal tile reading only the
-//     upper part and mirroring it in shared memory), then computes
-//       A_ij X_j   -> scratch slot j, rows of block i
-//       A_ij^T X_i -> scratch slot i, rows of block j   (j > i only)
-//     P is (nb, n, p): every (slot, row block) pair is written exactly
-//     once, so P needs no zero fill and no atomics.
-//   symm_upper_slot_sum — Y = sum over the nb slots of P, in slot order.
+// here no warp depends on another and no sum is carried:
+//   symm_tiles — a triangle grid of WARPS, one per upper tile (i, j >= i)
+//     of 64 x 64: warp t takes the tile at position t of the reference's
+//     row-major triangle_indices (tile_of; its Python twin is in
+//     kernel.py), so only upper tiles are launched. A tile is read in
+//     chunks of R rows: lane l holds columns l and l + 32 of each row (a
+//     warp reads 256 contiguous bytes a load: coalesced, with 8-byte loads
+//     because lda = 9997 is odd and rules out 16-byte ones), in registers,
+//     no shared memory, no barrier. The next chunk's loads are issued
+//     before the current chunk is computed, so each warp always has a
+//     chunk in flight; 16 warps an SM keep ~64 KB in flight at p = 1, and
+//     the hardware hands finished warps' slots to the next tiles. (A
+//     persistent walk of several tiles a warp, with the prefetch crossing
+//     tiles, was slower on the H100: a fixed share per SM balances worse.)
+//     Per chunk and column k of X:
+//       A_ij X_j: each lane's partial sums of the R rows meet by a
+//         transpose-reduce (butterfly shuffles that halve the values a
+//         lane holds at each step, in a fixed order): R KC values cost
+//         ~R KC shuffles, and lane l ends with one finished row sum,
+//         which it stores to scratch slot j, rows of block i.
+//       A_ij^T X_i: lane l accumulates its two columns over the tile's
+//         rows in registers, written once per tile to scratch slot i,
+//         rows of block j. On the diagonal tile (loaded with its strictly
+//         lower part masked to zero, so garbage there is never read) the
+//         mirror uses only the strictly upper part and goes to the extra
+//         slot nb, so no (slot, row) pair is written twice.
+//     KC, the columns of X per pass over a chunk, is a template parameter
+//     (1, 2 or 4): p = 1 reads one column of X and does one multiply-add
+//     per entry and direction; p > 4 takes passes of 4 columns, each
+//     reading the tile again (from L2, where the last pass left it).
+//     Every multiply-add is an explicit __fma_rn (the build has
+//     --fmad=false for the bitwise kernels of other files).
+//   symm_slot_sum — Y = sum over the nb + 1 slots of P: 8 warps of a
+//     block each sum a fixed range of slots in slot order for 32 outputs,
+//     and the 8 partials meet in shared memory in a fixed order.
 // The sums run in a fixed order, so a result repeats bitwise from run to
-// run and the Lanczos iteration counts do too. The scratch costs
-// nb * n * p * 8 B of extra traffic (12.5 MB at n=9997, p=1, against the
-// 400 MB triangle). X may be a column slice of a wider row-major array (the
-// Lanczos basis): it is read through its leading dimension ldx, and A
-// through lda; neither is copied or padded.
+// run and the Lanczos iteration counts do too; no atomics. The scratch
+// costs (nb + 1) * n * p * 8 B written and read again (12.6 MB each at
+// n=9997, p=1, against the 400 MB triangle). X may be a column slice of a
+// wider row-major array (the Lanczos basis): it is read through its
+// leading dimension ldx, and A through lda; neither is copied or padded.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kT = 64;         // tile rows and columns
-constexpr int kThreads = 256;  // 4 threads per tile row, 4 row groups per column
-constexpr int kPC = 4;         // right-hand sides per pass over the staged tile
-constexpr int kGroups = kThreads / kT;
+constexpr int kT = 64;               // tile rows and columns
+constexpr int kWarpsPerBlock = 4;    // independent warps of a block
+constexpr int kMinBlocks = 4;        // 16 warps an SM: <= 128 registers
+constexpr int kSumGroups = 8;        // slot ranges of a slot-sum block
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-symm_upper_tiles(const double* __restrict__ A, int64_t lda,
-                 const double* __restrict__ X, int64_t ldx,
-                 double* __restrict__ P, int n, int p) {
-  const int jb = blockIdx.x;
-  const int ib = blockIdx.y;
-  if (jb < ib) return;  // the lower tiles are never read
-  __shared__ double a[kT][kT + 1];
-  __shared__ double xi[kT][kPC];
-  __shared__ double xj[kT][kPC];
-  __shared__ double part[kGroups][kT][kPC];
-  const int tid = threadIdx.x;
+// the tile at position t of the row-major upper triangle of nb x nb
+// tiles: row i starts at s(i) = i nb - i (i - 1) / 2, so i is the larger
+// root's floor of s(i) = t, stepped to the exact row against rounding
+__device__ __forceinline__ void tile_of(int t, int nb, int* ib, int* jb) {
+  const double b = 2.0 * nb + 1.0;
+  int i = (int)(0.5 * (b - sqrt(b * b - 8.0 * t)));
+  while (i > 0 && i * nb - i * (i - 1) / 2 > t) --i;
+  while ((i + 1) * nb - (i + 1) * i / 2 <= t) ++i;
+  *ib = i;
+  *jb = i + t - (i * nb - i * (i - 1) / 2);
+}
+
+// Sum each of the V values a lane holds over the 32 lanes of the warp.
+// Step by step, lanes whose bit O is set keep the upper half (H values)
+// of their values and send the lower half to lane ^ O, the others the
+// reverse, so the values a lane holds halve while the lanes they sum over
+// double; then lanes that share bits 16 .. 32/V add up by xor shuffles.
+// Lane l returns the sum of value l / (32 / V). Fixed order: bitwise
+// repeatable. The steps recurse at compile time, so every index into v
+// is a constant and v stays in registers.
+template <int V, int H, int O>
+__device__ __forceinline__ void halve(double (&v)[V], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      const double send = up ? v[q] : v[q + H];
+      const double keep = up ? v[q + H] : v[q];
+      v[q] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    halve<V, H / 2, O / 2>(v, lane);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ double transpose_reduce(double (&v)[V], int lane) {
+  halve<V, V / 2, 16>(v, lane);
+  double s = v[0];
+#pragma unroll
+  for (int o = 16 / V; o >= 1; o /= 2) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// rows c R .. c R + R - 1 of tile (ib, jb), columns lane and lane + 32;
+// zero outside A and, on the diagonal tile, strictly below the diagonal
+template <int R>
+__device__ __forceinline__ void load_chunk(const double* __restrict__ A,
+                                           int64_t lda, int n, int ib, int jb,
+                                           int c, int lane, double (&a)[R][2]) {
+  const int i0 = ib * kT + c * R;
+  const int j0 = jb * kT + lane;
+  const bool diag = ib == jb;
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = i0 + rr;
+      const int gj = j0 + 32 * h;
+      const bool in = gi < n && gj < n && (!diag || gi <= gj);
+      a[rr][h] = in ? __ldcs(A + (int64_t)gi * lda + gj) : 0.0;
+    }
+  }
+}
+
+template <int KC, int R>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocks)
+symm_tiles(const double* __restrict__ A, int64_t lda,
+           const double* __restrict__ X, int64_t ldx, double* __restrict__ P,
+           int n, int p, int nb, int ntiles) {
+  constexpr int V = R * KC;            // values of one transpose-reduce
+  constexpr int kLanesPerValue = 32 / V;
+  constexpr int kChunks = kT / R;
+  static_assert(V <= 32 && 32 % V == 0 && kT % R == 0, "chunk shape");
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (t >= ntiles) return;              // whole warps leave together
+  int ib, jb;
+  tile_of(t, nb, &ib, &jb);
   const int i0 = ib * kT;
   const int j0 = jb * kT;
   const bool diag = ib == jb;
-
-#pragma unroll
-  for (int it = 0; it < kT * kT / kThreads; ++it) {
-    const int e = it * kThreads + tid;
-    const int r = e / kT;
-    const int c = e % kT;
-    const bool in = i0 + r < n && j0 + c < n && (!diag || r <= c);
-    a[r][c] = in ? A[(int64_t)(i0 + r) * lda + (j0 + c)] : 0.0;
-  }
-  __syncthreads();
-  if (diag) {
-    // the diagonal tile's lower half is the mirror of its upper half
-    for (int e = tid; e < kT * kT; e += kThreads) {
-      const int r = e / kT;
-      const int c = e % kT;
-      if (r > c) a[r][c] = a[c][r];
-    }
-  }
-
+  const int nk = (p + KC - 1) / KC;     // passes of KC columns
   const int64_t np = (int64_t)n * p;
-  for (int k0 = 0; k0 < p; k0 += kPC) {
-    const int pc = min(kPC, p - k0);
-    for (int e = tid; e < kT * kPC; e += kThreads) {
-      const int r = e / kPC;
-      const int k = e % kPC;
-      xi[r][k] = (i0 + r < n && k < pc) ? X[(int64_t)(i0 + r) * ldx + k0 + k] : 0.0;
-      xj[r][k] = (j0 + r < n && k < pc) ? X[(int64_t)(j0 + r) * ldx + k0 + k] : 0.0;
-    }
-    __syncthreads();
+  double* const row_out = P + (int64_t)jb * np;
+  double* const col_out = P + (int64_t)(diag ? nb : ib) * np;
 
-    // A_ij X_j: thread (r, q) sums columns [16q, 16q + 16) of row r, and
-    // the four partial sums of a row meet by shuffles in a fixed order
-    {
-      const int r = tid >> 2;
-      const int q = tid & 3;
-      double acc[kPC];
+  double a[R][2];
+  load_chunk<R>(A, lda, n, ib, jb, 0, lane, a);
+  for (int kk = 0; kk < nk; ++kk) {
+    const int k0 = kk * KC;
+    const int pc = min(KC, p - k0);
+    double xj[2][KC], cacc[2][KC];
 #pragma unroll
-      for (int k = 0; k < kPC; ++k) acc[k] = 0.0;
-#pragma unroll 4
-      for (int c = q * (kT / 4); c < (q + 1) * (kT / 4); ++c) {
-        const double v = a[r][c];
+    for (int h = 0; h < 2; ++h) {
+      const int gj = j0 + lane + 32 * h;
 #pragma unroll
-        for (int k = 0; k < kPC; ++k) acc[k] += v * xj[c][k];
-      }
-#pragma unroll
-      for (int k = 0; k < kPC; ++k) {
-        acc[k] += __shfl_down_sync(0xffffffffu, acc[k], 2);
-        acc[k] += __shfl_down_sync(0xffffffffu, acc[k], 1);
-      }
-      if (q == 0 && i0 + r < n) {
-        double* out = P + (int64_t)jb * np + (int64_t)(i0 + r) * p + k0;
-        for (int k = 0; k < pc; ++k) out[k] = acc[k];
+      for (int k = 0; k < KC; ++k) {
+        xj[h][k] = (k < pc && gj < n) ? __ldg(X + (int64_t)gj * ldx + k0 + k)
+                                      : 0.0;
+        cacc[h][k] = 0.0;
       }
     }
-
-    // A_ij^T X_i: thread (c, g) sums rows [16g, 16g + 16) of column c;
-    // the four row groups meet in shared memory
-    if (!diag) {
-      const int c = tid % kT;
-      const int g = tid / kT;
-      double acc[kPC];
+    for (int c = 0; c < kChunks; ++c) {
+      // the next chunk's loads are issued before this one is computed:
+      // chunk c + 1 of this pass, or chunk 0 again for the next pass
+      double an[R][2];
+      if (c + 1 < kChunks || kk + 1 < nk) {
+        load_chunk<R>(A, lda, n, ib, jb, c + 1 < kChunks ? c + 1 : 0, lane,
+                      an);
+      } else {
 #pragma unroll
-      for (int k = 0; k < kPC; ++k) acc[k] = 0.0;
-#pragma unroll 4
-      for (int r = g * (kT / kGroups); r < (g + 1) * (kT / kGroups); ++r) {
-        const double v = a[r][c];
-#pragma unroll
-        for (int k = 0; k < kPC; ++k) acc[k] += v * xi[r][k];
+        for (int rr = 0; rr < R; ++rr) an[rr][0] = an[rr][1] = 0.0;
       }
+
+      double v[V];
 #pragma unroll
-      for (int k = 0; k < kPC; ++k) part[g][c][k] = acc[k];
-      __syncthreads();
-      if (tid < kT && j0 + tid < n) {
-        double* out = P + (int64_t)ib * np + (int64_t)(j0 + tid) * p + k0;
-        for (int k = 0; k < pc; ++k) {
-          double s = part[0][tid][k];
-          for (int h = 1; h < kGroups; ++h) s += part[h][tid][k];
-          out[k] = s;
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = c * R + rr;       // row within the tile
+        const int gi = i0 + r;
+        // the mirror: strictly upper entries only on the diagonal tile
+        const double m0 = (diag && r >= lane) ? 0.0 : a[rr][0];
+        const double m1 = (diag && r >= lane + 32) ? 0.0 : a[rr][1];
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          const double xi = (k < pc && gi < n)
+                                ? __ldg(X + (int64_t)gi * ldx + k0 + k) : 0.0;
+          v[rr * KC + k] = __fma_rn(a[rr][1], xj[1][k],
+                                    __dmul_rn(a[rr][0], xj[0][k]));
+          cacc[0][k] = __fma_rn(m0, xi, cacc[0][k]);
+          cacc[1][k] = __fma_rn(m1, xi, cacc[1][k]);
         }
       }
+      const double s = transpose_reduce<V>(v, lane);
+      if (lane % kLanesPerValue == 0) {
+        const int q = lane / kLanesPerValue;
+        const int k = q % KC;
+        const int gi = i0 + c * R + q / KC;
+        if (gi < n && k < pc) row_out[(int64_t)gi * p + k0 + k] = s;
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        a[rr][0] = an[rr][0];
+        a[rr][1] = an[rr][1];
+      }
     }
-    __syncthreads();  // xi, xj and part are reused by the next pass
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gj = j0 + lane + 32 * h;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (gj < n && k < pc) col_out[(int64_t)gj * p + k0 + k] = cacc[h][k];
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-symm_upper_slot_sum(const double* __restrict__ P, double* __restrict__ Y,
-                    int64_t np, int nb) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= np) return;
+__global__ void __launch_bounds__(kSumGroups * 32)
+symm_slot_sum(const double* __restrict__ P, double* __restrict__ Y,
+              int64_t np, int ns) {
+  __shared__ double part[kSumGroups][32];
+  const int x = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int64_t idx = (int64_t)blockIdx.x * 32 + x;
+  const int b0 = g * ns / kSumGroups;
+  const int b1 = (g + 1) * ns / kSumGroups;
   double s = 0.0;
-  for (int b = 0; b < nb; ++b) s += P[(int64_t)b * np + idx];
-  Y[idx] = s;
+  if (idx < np) {
+#pragma unroll 4
+    for (int b = b0; b < b1; ++b) s += __ldcs(P + (int64_t)b * np + idx);
+  }
+  part[g][x] = s;
+  __syncthreads();
+  if (g == 0 && idx < np) {
+    double y = part[0][x];
+#pragma unroll
+    for (int h = 1; h < kSumGroups; ++h) y += part[h][x];
+    Y[idx] = y;
+  }
+}
+
+template <int KC, int R>
+int launch_tiles(const double* A, int64_t lda, const double* X, int64_t ldx,
+                 double* P, int n, int p, int nb, int ntiles,
+                 cudaStream_t stream) {
+  const int blocks = (ntiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  symm_tiles<KC, R><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      A, lda, X, ldx, P, n, p, nb, ntiles);
+  return (int)cudaGetLastError();
 }
 
 int product(const double* A, int64_t lda, const double* X, int64_t ldx,
-            double* P, double* Y, int n, int p, cudaStream_t stream) {
+            double* P, double* Y, int n, int p, int kc, cudaStream_t stream) {
   const int nb = (n + kT - 1) / kT;
-  symm_upper_tiles<<<dim3(nb, nb), kThreads, 0, stream>>>(A, lda, X, ldx, P,
-                                                          n, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int ntiles = nb * (nb + 1) / 2;
+  int err;
+  switch (kc) {
+    case 1: err = launch_tiles<1, 8>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                     stream); break;
+    case 2: err = launch_tiles<2, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                     stream); break;
+    case 4: err = launch_tiles<4, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                     stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
   const int64_t np = (int64_t)n * p;
-  const int64_t blocks = (np + kThreads - 1) / kThreads;
-  symm_upper_slot_sum<<<(unsigned)blocks, kThreads, 0, stream>>>(P, Y, np, nb);
+  const int64_t blocks = (np + 31) / 32;
+  symm_slot_sum<<<(unsigned)blocks, kSumGroups * 32, 0, stream>>>(P, Y, np,
+                                                                  nb + 1);
   return (int)cudaGetLastError();
 }
 
@@ -172,21 +289,22 @@ int product(const double* A, int64_t lda, const double* X, int64_t ldx,
 extern "C" {
 
 // y (n,) = A x from the upper triangle of A (row stride lda); P scratch of
-// nb * n doubles, nb = ceil(n / 64).
+// (nb + 1) * n doubles, nb = ceil(n / 64).
 int symv_upper(const double* A, int64_t lda, const double* x, double* P,
                double* y, int n, cudaStream_t stream) {
-  return product(A, lda, x, 1, P, y, n, 1, stream);
+  return product(A, lda, x, 1, P, y, n, 1, 1, stream);
 }
 
 // Y (n, p) row-major = A X from the upper triangle of A; X (n, p) with row
-// stride ldx and unit column stride; P scratch of nb * n * p doubles.
+// stride ldx and unit column stride; P scratch of (nb + 1) * n * p
+// doubles; kc (1, 2 or 4) columns of X a pass.
 int symm_block_upper(const double* A, int64_t lda, const double* X,
-                     int64_t ldx, double* P, double* Y, int n, int p,
+                     int64_t ldx, double* P, double* Y, int n, int p, int kc,
                      cudaStream_t stream) {
-  return product(A, lda, X, ldx, P, Y, n, p, stream);
+  return product(A, lda, X, ldx, P, Y, n, p, kc, stream);
 }
 
-// tile edge, for the wrapper's scratch size
+// tile edge, for the wrapper's plan
 int symv_tile() { return kT; }
 
 }  // extern "C"

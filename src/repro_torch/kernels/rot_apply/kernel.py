@@ -10,13 +10,21 @@ it. Each wrapper checks device, dtype, shapes and strides, allocates with
 chase's grid-barrier counter: zeroed),
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
 and adds one to its ``launches`` count per launch.
+
+``rot_apply`` is a few microseconds of device work at the chase's shapes,
+so its host cost is the call's cost: the library handle is cached, the
+stream is read as a raw handle (``device.current_stream``), and
+``launch_shape`` (pure Python, reached by the CPU tests) is cached per
+shape.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.device import current_stream
 from repro_torch.kernels._build import load
 
 from .schedule import chase_stagger, identity_table, pass_schedule
@@ -25,13 +33,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
-    "rot_apply_fp64": [_P, _P, _P, _L, _L, _P],
+    "rot_apply_fp64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "chase_pass_fp64": [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P],
     "replay_pass_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
+#: threads of a ``rot_apply`` block, and the most column chunks of its grid
+ROT_THREADS = 256
+MAX_GRID_Y = 65535
+
+
+@functools.cache
+def launch_shape(G: int, L: int) -> tuple:
+    """(tx, ty, gx, gy) of ``rot_apply`` on (G, 2, L): tx threads a pair,
+    the next power of two >= L up to ``ROT_THREADS``; ty = ROT_THREADS /
+    tx pairs a block; gx blocks over the pairs, gy over column chunks of
+    tx (at most ``MAX_GRID_Y``; the kernel strides over the rest). The
+    kernel's offsets are 32-bit, so G L must stay below 2^31."""
+    if G * L >= 2 ** 31:
+        raise ValueError(f"rot_apply takes G L < 2^31 (32-bit offsets), "
+                         f"got G={G}, L={L}")
+    tx = min(ROT_THREADS, 1 << max(L - 1, 0).bit_length())
+    ty = ROT_THREADS // tx
+    return tx, ty, -(-G // ty), min(-(-L // tx), MAX_GRID_Y)
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("rot_apply")
     for fn, argtypes in _SIGS.items():
@@ -63,10 +92,6 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with cudaError {err}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     """(G, 2, L) row pairs rotated by (G, 2) (c, s), in one launch."""
     _check("pairs", pairs)
@@ -78,8 +103,10 @@ def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(pairs)
     if out.numel() == 0:
         return out
+    tx, _, gx, gy = launch_shape(G, L)
     err = _lib().rot_apply_fp64(pairs.data_ptr(), cs.data_ptr(),
-                                out.data_ptr(), G, L, _stream(pairs))
+                                out.data_ptr(), G, L, tx, gx, gy,
+                                current_stream(pairs.device))
     rot_apply.launches += 1
     _raise_on(err, "rot_apply_fp64")
     return out
@@ -107,7 +134,8 @@ def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
     bar = torch.zeros((1,), dtype=torch.int32, device=Wp.device)
     err = _lib().chase_pass_fp64(Wp.data_ptr(), Wp.stride(0), Wp.stride(1),
                                  Wp.shape[1], CS.data_ptr(), bar.data_ptr(),
-                                 n, b, w, g, T_pass, G, J, K0, _stream(Wp))
+                                 n, b, w, g, T_pass, G, J, K0,
+                                 current_stream(Wp.device))
     chase_pass.launches += 1
     _raise_on(err, "chase_pass_fp64")
     return CS
@@ -132,7 +160,7 @@ def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
                          f"{Xp.shape[0]} do not fit n={n}, b={b}")
     err = _lib().replay_pass_fp64(Xp.data_ptr(), Xp.stride(0), Xp.shape[1],
                                   CS.data_ptr(), n, b, J, K0, int(reverse),
-                                  _stream(Xp))
+                                  current_stream(Xp.device))
     replay_pass.launches += 1
     _raise_on(err, "replay_pass_fp64")
     return Xp

@@ -1,13 +1,20 @@
-"""ctypes launch wrappers for ``csrc/symv.cu`` (the KE1 matvec on Hopper).
+"""ctypes launch wrappers for ``csrc/symv.cu`` (the KE1 matvec on Hopper)
+and their plan.
 
 ``symv`` replaces ``symv_pallas`` and ``symm_block`` replaces
 ``symm_block_pallas`` (``repro/kernels/symv/kernel.py``); the source note
 in the ``.cu`` file says what bounds the kernel and what its design does
 about it. Each wrapper checks device, dtype, shape and strides, allocates
-the output and the (nb, n, p) slot scratch with ``torch.empty``, launches
-on the current stream, raises if ``cudaGetLastError`` is not 0, and adds
-one to its ``launches`` count for every product it launches (a tile pass
-and its slot sum).
+the output and the (nb + 1, n, p) slot scratch with ``torch.empty``,
+launches on the current stream, raises if ``cudaGetLastError`` is not 0,
+and adds one to its ``launches`` count for every product it launches (a
+tile pass and its slot sum).
+
+``plan`` is pure Python, so the CPU tests reach it: the upper tiles (one
+warp each), the columns of X a pass (the kernel's compiled width) and the
+scratch. ``tile_of`` is the Python twin of the kernel's triangle grid:
+warp t takes the tile at position t of the reference's
+``triangle_indices`` order.
 
 A is read in place through its row stride: it is never copied or padded.
 X may be a column slice of a wider row-major array (the Lanczos basis);
@@ -16,9 +23,13 @@ only an X of another layout is copied, and it is the small operand.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import current_stream
 from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
@@ -26,17 +37,58 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
     "symv_upper": ([_P, _L, _P, _P, _P, _I, _P], _I),
-    "symm_block_upper": ([_P, _L, _P, _L, _P, _P, _I, _I, _P], _I),
+    "symm_block_upper": ([_P, _L, _P, _L, _P, _P, _I, _I, _I, _P], _I),
     "symv_tile": ([], _I),
 }
 
+#: tile edge (``kT`` in symv.cu)
+TILE = 64
 
+
+class Plan(NamedTuple):
+    """One product's launch: ``nb`` row blocks of ``TILE``, the
+    ``ntiles`` upper tiles (one warp each), the compiled width ``kc``
+    (columns of X a pass) and the slot scratch's shape (``nb + 1`` slots
+    of (n, p))."""
+    nb: int
+    ntiles: int
+    kc: int
+    scratch: tuple
+
+
+@functools.cache
+def plan(n: int, p: int) -> Plan:
+    """The launch of an (n, n)(n, p) product. Width: p itself up to 2,
+    else 4 (wider p take passes of 4), the widths symv.cu is compiled
+    for."""
+    nb = -(-n // TILE)
+    return Plan(nb, nb * (nb + 1) // 2, p if p <= 2 else 4, (nb + 1, n, p))
+
+
+def tile_of(t: int, nb: int) -> tuple:
+    """The tile (i, j >= i) at position t of the row-major upper triangle
+    of nb x nb tiles, as ``tile_of`` in symv.cu computes it: row i starts
+    at s(i) = i nb - i (i - 1) / 2, so i is the floor of the root of
+    s(i) = t, stepped to the exact row against rounding."""
+    b = 2.0 * nb + 1.0
+    i = int(0.5 * (b - math.sqrt(b * b - 8.0 * t)))
+    while i > 0 and i * nb - i * (i - 1) // 2 > t:
+        i -= 1
+    while (i + 1) * nb - (i + 1) * i // 2 <= t:
+        i += 1
+    return i, i + t - (i * nb - i * (i - 1) // 2)
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("symv")
     for fn, (argtypes, restype) in _SIGS.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
+    if lib.symv_tile() != TILE:
+        raise RuntimeError(f"symv.cu tiles by {lib.symv_tile()}, the plan by "
+                           f"{TILE}")
     return lib
 
 
@@ -71,15 +123,6 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with cudaError {err}")
 
 
-def _scratch(lib, n: int, p: int, like: torch.Tensor) -> torch.Tensor:
-    nb = -(-n // lib.symv_tile())
-    return torch.empty((nb, n, p), dtype=torch.float64, device=like.device)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (n,) = A x from the upper triangle of A (n, n)."""
     n = _check_matrix(A)
@@ -89,10 +132,11 @@ def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y
     if x.stride(0) != 1:
         x = x.contiguous()
-    lib = _lib()
-    P = _scratch(lib, n, 1, A)
-    err = lib.symv_upper(A.data_ptr(), A.stride(0), x.data_ptr(),
-                         P.data_ptr(), y.data_ptr(), n, _stream(A))
+    pl = plan(n, 1)
+    P = torch.empty(pl.scratch, dtype=torch.float64, device=A.device)
+    err = _lib().symv_upper(A.data_ptr(), A.stride(0), x.data_ptr(),
+                            P.data_ptr(), y.data_ptr(), n,
+                            current_stream(A.device))
     symv.launches += 1
     _raise_on(err, "symv_upper")
     return y
@@ -114,11 +158,12 @@ def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if n > 1 and ((p > 1 and X.stride(1) != 1) or X.stride(0) < p):
         X = X.contiguous()
     ldx = X.stride(0) if n > 1 else p
-    lib = _lib()
-    P = _scratch(lib, n, p, A)
-    err = lib.symm_block_upper(A.data_ptr(), A.stride(0) if n > 1 else 1,
-                               X.data_ptr(), ldx, P.data_ptr(), Y.data_ptr(),
-                               n, p, _stream(A))
+    pl = plan(n, p)
+    P = torch.empty(pl.scratch, dtype=torch.float64, device=A.device)
+    err = _lib().symm_block_upper(A.data_ptr(), A.stride(0) if n > 1 else 1,
+                                  X.data_ptr(), ldx, P.data_ptr(),
+                                  Y.data_ptr(), n, p, pl.kc,
+                                  current_stream(A.device))
     symm_block.launches += 1
     _raise_on(err, "symm_block_upper")
     return Y

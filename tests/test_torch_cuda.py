@@ -159,6 +159,41 @@ def test_symm_block_reads_a_column_slice_in_place(cuda):
     assert torch.equal(Y, symv_kernel.symm_block(A, Xs.contiguous()))
 
 
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 3001])
+def test_symm_block_ragged_tile_edges(cuda, n, p):
+    # n around the 64-row tile edge, p around the compiled widths 1, 2, 4
+    A = _garbage_lower(n, 10 * n + p, cuda)
+    X = _randn((n, p), n + p, cuda)
+    Y = symv_kernel.symm_block(A, X)
+    Yp = symv_ref.symm_block_upper_ref(A.cpu(), X.cpu())
+    assert _within_gamma(Y.cpu(), Yp, A.cpu(), X.cpu())
+    assert torch.equal(symv_kernel.symm_block(A, X), Y)
+
+
+def test_symm_block_reads_one_column_of_the_basis_in_place(cuda):
+    n = 1000
+    A = _garbage_lower(n, 6, cuda)
+    V = _randn((n, 9), 7, cuda)
+    x = V[:, 5:6]
+    assert x.stride() == (9, 1)
+    assert torch.equal(symv_kernel.symm_block(A, x),
+                       symv_kernel.symm_block(A, x.contiguous()))
+
+
+def test_symm_block_never_reads_the_lower_triangle(cuda):
+    n = 300
+    A = _garbage_lower(n, 8, cuda)
+    X = _randn((n, 4), 9, cuda)
+    nan_lower = torch.triu(A) + torch.tril(torch.full_like(A, float("nan")),
+                                           -1)
+    for Xk in (X, X[:, :1]):
+        Y = symv_kernel.symm_block(A, Xk)
+        assert torch.equal(symv_kernel.symm_block(nan_lower, Xk), Y)
+    assert torch.equal(symv_kernel.symv(nan_lower, X[:, 0]),
+                       symv_kernel.symv(A, X[:, 0]))
+
+
 def test_symm_block_refuses_a_column_major_matrix(cuda):
     A = torch.randn((70, 70), dtype=torch.float64, device=cuda).mT
     with pytest.raises(ValueError, match="row-major"):
@@ -183,6 +218,19 @@ def test_ke_solve_on_the_card_launches_symm_block(cuda):
     assert _within_gamma(y.cpu()[:, None],
                          symv_ref.symv_upper_ref(p.A.cpu(), x.cpu())[:, None],
                          p.A.cpu(), x.cpu()[:, None])
+
+
+def test_ki_solve_on_the_card_launches_symm_block_per_application(cuda):
+    p = md_like(200, device=cuda)
+    kernels.reset_launches()
+    res = solve(p.A, p.B, 6, variant="KI", invert=True, use_kernel=True)
+    launches = res.info["kernel_launches"]
+    assert launches["symm_block"] == res.info["n_matvec"] > 0
+    assert launches["symv"] == 0
+    assert res.info["converged"]
+    acc = accuracy_report(p.A, p.B, res.X, res.evals)
+    assert float(acc.relative_residual) <= 1e-12
+    assert float(acc.b_orthogonality) <= 1e-12
 
 
 # ------------------------------------------------------------ the TT path --
@@ -241,7 +289,9 @@ def test_syr2k_vs_plain(cuda, n, k, sym):
 
 
 @pytest.mark.parametrize("G,L", [(1, 1), (7, 5), (1000, 8), (209, 36),
-                                 (625, 100)])
+                                 (625, 100), (3, 257), (517, 131),
+                                 (1000, 1), (300, 2), (129, 1), (513, 1),
+                                 (1, 65535 * 256 + 3)])
 def test_rot_apply_bitwise_vs_plain(cuda, G, L):
     pairs = _randn((G, 2, L), G + L, cuda)
     cs = _randn((G, 2), G, cuda)

@@ -272,3 +272,27 @@ def test_default_start_is_seeded_and_validated():
         tl.lanczos_solve(to.ExplicitC(C), 3, v0=torch.ones((50, 2)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.lanczos_solve(to.ExplicitC(C), 3, compute_dtype=torch.float32)
+
+
+def test_krylov_counts_prints_one_row_per_solve_and_restores_the_product(
+        monkeypatch, capsys):
+    import json
+    import sys
+    from repro_torch.kernels.symv import ops as symv_ops
+    from repro_torch.launch import krylov_counts
+    block = symv_ops.symm_block
+    monkeypatch.setattr(sys, "argv", [
+        "krylov_counts", "--n", "60", "--s", "4", "--p", "1", "2",
+        "--starts", "default", "3", "--products", "kernel", "columns",
+        "matmul", "--device", "cpu"])
+    krylov_counts.main()
+    lines = capsys.readouterr().out.splitlines()
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    # columns only at p > 1: 2 starts x (2 products at p=1 + 3 at p=2)
+    assert len(rows) == 10
+    assert {r["product"] for r in rows if r["p"] == 1} == {"kernel", "matmul"}
+    for r in rows:
+        assert r["converged"] and r["n_matvec"] > 0
+        assert r["eval_err"] <= 1e-10 * r["max_abs_eval"]
+    assert len(lines) == len(rows) + 1 + 4     # the header, one per key
+    assert symv_ops.symm_block is block

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.symv import ops as j_ops
 from repro.kernels.symv import ref as j_ref
+from repro.kernels.symv.kernel import triangle_indices
 from repro_torch.kernels.symv import kernel, ops, ref
 
 TOL = 1e-12
@@ -113,3 +114,35 @@ def test_launch_counters_reset_and_read():
     kernel.symv.launches = 3
     kernel.reset_launches()
     assert kernel.launch_counts() == {"symv": 0, "symm_block": 0}
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 64, 157, 270])
+def test_tile_map_follows_the_reference_triangle_order(nb):
+    # warp t of the kernel's triangle grid takes tile_of(t, nb): every
+    # upper tile exactly once, in the order of triangle_indices
+    ib, jb = triangle_indices(nb)
+    got = [kernel.tile_of(t, nb) for t in range(len(ib))]
+    assert got == list(zip(ib.tolist(), jb.tolist()))
+
+
+@pytest.mark.parametrize("n,p,kc", [(1, 1, 1), (64, 2, 2), (65, 3, 4),
+                                    (9997, 1, 1), (9997, 4, 4),
+                                    (17243, 5, 4), (100, 8, 4)])
+def test_plan_sizes(n, p, kc):
+    pl = kernel.plan(n, p)
+    nb = -(-n // kernel.TILE)
+    assert pl == kernel.Plan(nb, nb * (nb + 1) // 2, kc, (nb + 1, n, p))
+
+
+@pytest.mark.parametrize("n", [1, 64, 65, 200])
+def test_scratch_slots_are_written_once(n):
+    # tile (i, j) writes its row part to slot j, rows of block i, and its
+    # mirror to slot i, rows of block j (the diagonal tile's to slot nb):
+    # every (slot, row block) of the (nb + 1, n, p) scratch exactly once
+    pl = kernel.plan(n, 1)
+    seen = np.zeros((pl.scratch[0], pl.nb), dtype=int)
+    for t in range(pl.ntiles):
+        i, j = kernel.tile_of(t, pl.nb)
+        seen[j, i] += 1
+        seen[pl.nb if i == j else i, j] += 1
+    assert np.all(seen == 1)

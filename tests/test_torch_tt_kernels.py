@@ -175,6 +175,49 @@ def test_rot_apply_plain_vs_pallas_interpret(G, L):
     assert np.all(np.abs(got[:, 1] - want[:, 1]) <= 4 * U * (s * x0 + c * x1))
 
 
+@pytest.mark.parametrize("G,L", [(1, 1), (7, 5), (1000, 8), (209, 36),
+                                 (625, 100), (3, 257), (517, 131),
+                                 (1000, 1), (300, 2)])
+def test_rot_apply_launch_shape_covers_every_entry_once(G, L):
+    # the kernel's grid walk, in Python: block (bx, by), thread (x, y)
+    # takes pair bx ty + y and columns by tx + x, by tx + x + gy tx, ...
+    tx, ty, gx, gy = rot_kernel.launch_shape(G, L)
+    assert tx * ty == rot_kernel.ROT_THREADS and tx >= min(L, 256)
+    assert gy <= rot_kernel.MAX_GRID_Y
+    # ... after staging its 2 ty (c, s) entries, thread tid taking
+    # tid, tid + tx ty, ...: every entry of every pair exactly once
+    staged = np.zeros((G, 2), dtype=int)
+    for bx in range(gx):
+        for tid in range(tx * ty):
+            for i in range(tid, 2 * ty, tx * ty):
+                if bx * ty + i // 2 < G:
+                    staged[bx * ty + i // 2, i % 2] += 1
+    assert np.all(staged == 1)
+    seen = np.zeros((G, L), dtype=int)
+    for bx in range(gx):
+        for y in range(ty):
+            g = bx * ty + y
+            if g >= G:
+                continue
+            for by in range(gy):
+                for x in range(tx):
+                    seen[g, by * tx + x:L:gy * tx] += 1
+    assert np.all(seen == 1)
+
+
+def test_rot_apply_launch_shape_strides_past_the_grid_limit():
+    L = rot_kernel.MAX_GRID_Y * 256 + 3
+    tx, ty, gx, gy = rot_kernel.launch_shape(1, L)
+    assert (tx, ty, gx, gy) == (256, 1, 1, rot_kernel.MAX_GRID_Y)
+    assert gy * tx < L <= 2 * gy * tx     # the kernel's column loop
+
+
+def test_rot_apply_launch_shape_refuses_64_bit_offsets():
+    rot_kernel.launch_shape(2 ** 15, 2 ** 16 - 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        rot_kernel.launch_shape(2 ** 15, 2 ** 16)
+
+
 def test_givens_vs_reference():
     rng = np.random.default_rng(11)
     a = np.concatenate([rng.standard_normal(200), [0.0, 0.0, 3.0]])
@@ -259,6 +302,14 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
 def test_kernel_wrappers_refuse_a_cpu_tensor(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.zeros((4, 4), dtype=torch.float64))
+
+
+def test_rot_apply_launch_counters_reset_and_read():
+    rot_kernel.rot_apply.launches = 2
+    rot_kernel.replay_pass.launches = 5
+    rot_kernel.reset_launches()
+    assert rot_kernel.launch_counts() == {"rot_apply": 0, "chase_pass": 0,
+                                          "replay_pass": 0}
 
 
 @pytest.mark.parametrize("call", [
