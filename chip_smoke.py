@@ -7,13 +7,19 @@ Phases, each printed as it runs; any failed check exits nonzero:
 
 1. the card (``torch.cuda`` and ``nvidia-smi``), then the build of every
    CUDA source under ``src/repro_torch/csrc`` with ``nvcc`` (sm_90a);
-2. each TD2 kernel against its plain PyTorch version (run on CPU copies of
-   the same inputs, as the wrapper runs it for a CPU tensor), on the
-   tridiagonal that TD1 makes of the MD pencil at the paper's size
-   (n=9997, the s=100 smallest) and of the DFT pencil at n=4096, s=64:
+2. each TD2 kernel against its plain PyTorch version on the tridiagonal
+   that TD1 makes of the MD pencil at the paper's size (n=9997, the s=100
+   smallest; plain on CPU copies, as the wrapper runs it for a CPU tensor)
+   and that TT1 + TT2 make of the DFT pencil at the paper's size (n=17243,
+   s=448; the plain ``invit`` on the card, where the host would take
+   minutes):
    ``bisect_sturm`` bitwise, ``invit`` by residual, orthogonality,
-   per-cluster subspace angle and elementwise on singleton clusters;
-   kernel and plain timed in turns (kernel, plain, kernel, plain);
+   per-cluster subspace angle and elementwise on singleton clusters, and
+   bitwise on repeat; kernel and plain timed in turns (kernel, plain,
+   kernel); one ``invit``
+   call's device time by kernel (the solve and the Gram-Schmidt); the
+   dependent-chain floors (one lane of ``bisect_sturm`` and of the
+   ``invit`` solve against all s);
 3. the one-triangle product (``symm_block`` at p=1 and p=4, ``symv``)
    against its plain version on CPU copies, componentwise within
    gamma_n (|sym(triu A)| |X|), on the MD standard-form C and on a random
@@ -36,12 +42,17 @@ Phases, each printed as it runs; any failed check exits nonzero:
    the chase's wavefront shapes and a replay shape, beside ``torch.matmul``
    of the (G, 2, 2) rotations with the pairs, both timed per call (CUDA
    events) and as device time (``torch.profiler``); the whole TT2 chase
-   (``chase_pass``) and the TT4 replay (``replay_pass``) of the MD band
-   at n=512, w=16 against the plain versions on the host CPU; then, at the
-   main path's n=9997, w=16, the first and last chase pass against the
-   plain version on the card (on the same input) and the replay of all
-   the MD tables onto an (n, 100) slab; the band within 1e-12 ||W||_2,
-   the slab within 1e-12, and band, tables and slab bitwise;
+   (``chase_pass``, both paths: the band in one cluster's distributed
+   shared memory, and the cooperative kernel) and the TT4 replay
+   (``replay_pass``) of the MD band at n=512, w=16 against the plain
+   versions on the host CPU; then, at the main path's n=9997, w=16, the
+   whole chase, its first and last pass also through the cooperative path
+   and the plain version on the card (on the same input), each pass timed,
+   and the parts of a step timed apart on those two passes (each path
+   whole, its barriers alone, without them; the kernel's timing variants)
+   and the replay of all the MD tables onto an (n, 100) slab; the band
+   within 1e-12 ||W||_2, the slab within 1e-12, and band, tables and slab
+   bitwise;
 3c. the BLAS kernels at the MD shapes, with U = cholesky_upper(B):
    ``gemm`` at (n, n)(n, 100) and (n, n)(n, n) within gamma_k |A||B| of
    its plain version (``torch.matmul`` on the card, also the library
@@ -72,8 +83,9 @@ Phases, each printed as it runs; any failed check exits nonzero:
    and one KE solve under ``torch.profiler``: wall, host enqueue and
    device time by kernel); ``solve(A, B, 100, variant="TT",
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
-   ``chase_pass`` and ``replay_pass``) and TT on the DFT pencil at
-   n=4096, s=64; each held to the Table-3 bars (1e-12) and to the
+   ``chase_pass`` and ``replay_pass``, 6 of ``invit``) and TT and TD on
+   the DFT pencil at the paper's size (n=17243, s=448); each held to the
+   Table-3 bars (1e-12) and to the
    generator's exact spectrum; the blocked stages (the paper's Table 4):
    ``solve(..., variant="TD", gs1="blocked", gs2="sygst", td1="blocked")``
    and KE with ``gs1="blocked", gs2="sygst"`` on the MD pencil, held to the
@@ -216,9 +228,16 @@ class Checks:
 
 
 def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
-                        seed: int = 20120520) -> dict:
+                        plain_dev="cpu", seed: int = 20120520) -> dict:
     """Both TD2 kernels against their plain versions on tridiag(d, e), the s
-    smallest indices. Returns one row per kernel (error, times, bound)."""
+    smallest indices, the plain versions once each, between the kernel's
+    two runs (tens of seconds at these sizes): the bisection on CPU
+    copies (its row loop of small operations runs faster on the host than
+    as launches on the card), ``invit`` on ``plain_dev`` copies (the host
+    CPU, or the card where the host would take minutes). Then one
+    ``invit`` call's device time by kernel (the solve and the Gram-Schmidt)
+    and two runs checked bitwise equal. Returns one row per kernel (error,
+    times, bound)."""
     import torch
     from repro_torch.core.tridiag_eig import (_cluster_ids, _pivmin, _scale,
                                               bisect_inputs, normalize_columns,
@@ -226,6 +245,9 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     from repro_torch.kernels.tridiag_eig import kernel, ref
 
     n = d.shape[0]
+    on_card = torch.device(plain_dev).type == "cuda"
+    where = "the card" if on_card else "the host CPU"
+    timer = _time_cuda if on_card else _time_host
     e2, scal = bisect_inputs(d, e)
     ks = torch.arange(s, device=d.device)
     host = [t.cpu() for t in (d, e2, ks, scal)]
@@ -233,17 +255,15 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     lam_k, k1 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
     lam_p, p1 = _time_host(lambda: ref.bisect_sturm_ref(*host))
     _, k2 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
-    _, p2 = _time_host(lambda: ref.bisect_sturm_ref(*host))
     bis_err = float(torch.max(torch.abs(lam_k.cpu() - lam_p)))
     print(f"{label} bisect_sturm: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.1f} / {p2:.1f} ms (plain on the host CPU)", flush=True)
+          f"{p1:.1f} ms (plain on the host CPU)", flush=True)
     checks.check(f"{label} bisect_sturm bitwise",
                  torch.equal(lam_k.cpu(), lam_p),
                  f"max |kernel - plain| = {bis_err!r}")
     # Sturm recurrence: sub, div, sub per row, lane and sweep
     rows = {"bisect_sturm": dict(
-        max_abs_err=bis_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-        library_ms=None,
+        max_abs_err=bis_err, ms=(k1 + k2) / 2, plain_ms=p1, library_ms=None,
         **_bound(80 * n * s * 3, 8 * (2 * n + 3 + 2 * s)))}
 
     lam = lam_k
@@ -252,14 +272,19 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     gen = torch.Generator(device=d.device).manual_seed(seed)
     X0 = normalize_columns(start_block(n, s, gen, d.device))
     args = (d, e, lam, cid, piv, X0)
-    host = [t.cpu() for t in args]
+    plain_in = [t.to(plain_dev) for t in args]
     kernel.invit(*args)                    # warm-up
+    profile_stage(f"{label} invit", lambda: kernel.invit(*args))
     Z_k, k1 = _time_cuda(lambda: kernel.invit(*args))
-    Z_p, p1 = _time_host(lambda: ref.invit_ref(*host))
+    Z_p, p1 = timer(lambda: ref.invit_ref(*plain_in))
     _, k2 = _time_cuda(lambda: kernel.invit(*args))
-    _, p2 = _time_host(lambda: ref.invit_ref(*host))
+    Z_p = Z_p.cpu()
     print(f"{label} invit: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.1f} / {p2:.1f} ms (plain on the host CPU)", flush=True)
+          f"{p1:.1f} ms (plain on {where})", flush=True)
+    checks.check(f"{label} invit repeats bitwise",
+                 bool(torch.equal(kernel.invit(*args), Z_k)),
+                 "two runs of the kernel")
+    td2_chain_floors(label, d, e, e2, scal, lam, piv, X0)
 
     ea = torch.abs(e)
     zero = ea.new_zeros(1)
@@ -299,11 +324,46 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     # Gram-Schmidt 4n per in-cluster pair plus a renormalization (~4 n s)
     pairs = float(torch.sum(sizes * (sizes - 1) // 2))
     rows["invit"] = dict(
-        max_abs_err=float(diff.max()), ms=(k1 + k2) / 2,
-        plain_ms=(p1 + p2) / 2, library_ms=None,
+        max_abs_err=float(diff.max()), ms=(k1 + k2) / 2, plain_ms=p1,
+        library_ms=None,
         **_bound(3 * (19 * n * s + 4 * n * pairs),
                  8 * (2 * n + 2 * s + 2 * n * s)))
     return rows
+
+
+def td2_chain_floors(label: str, d, e, e2, scal, lam, piv, X0) -> None:
+    """The dependent-chain floors of the TD2 kernels: every lane runs its
+    own chain, so one lane alone takes the least time the chain allows.
+    ``bisect_sturm`` at one index (80 n dependent Sturm steps) beside all
+    s; one ``invit`` solve launch (2n dependent steps) at one shift beside
+    all s, through the C entry point (no launch counted)."""
+    import torch
+    from repro_torch.device import current_stream
+    from repro_torch.kernels.tridiag_eig import kernel
+
+    n, s = X0.shape
+    ks = torch.arange(s, device=d.device)
+    bis = {k: _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks[:k], scal))[1]
+           for k in (1, s)}
+    lib = kernel._lib()
+    W = torch.empty((n, s, 4), dtype=torch.float64, device=d.device)
+
+    def solve(k):
+        Z = X0[:, :k].contiguous()
+        err = lib.tridiag_invit_solve(d.data_ptr(), e.data_ptr(),
+                                      lam.data_ptr(), piv.data_ptr(),
+                                      Z.data_ptr(), W.data_ptr(), n, k,
+                                      current_stream(d.device))
+        if err != 0:
+            raise RuntimeError(f"tridiag_invit_solve: cudaError {err}")
+
+    solve(s)
+    sol = {k: _time_cuda(lambda: solve(k))[1] for k in (1, s)}
+    print(f"{label} chain floors (one lane against all {s}): bisect_sturm "
+          f"{bis[1]:.3f} against {bis[s]:.3f} ms ({80 * n} dependent steps, "
+          f"{1e6 * bis[1] / (80 * n):.2f} ns a step); invit solve launch "
+          f"{sol[1]:.3f} against {sol[s]:.3f} ms ({2 * n} dependent steps, "
+          f"{1e6 * sol[1] / (2 * n):.2f} ns a step)", flush=True)
 
 
 def gamma_bound(A_h, X_h):
@@ -750,8 +810,8 @@ def _chase_agree(label: str, Wk, Wq, tk, tq, norm: float,
 
 def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
     """The whole TT2 chase of the band Wb pass by pass (``chase_pass``)
-    against its plain version on a CPU copy, kernel and plain in turns
-    (kernel, plain, kernel, plain); then the replay of its tables
+    against its plain version on a CPU copy (kernel, plain, kernel), and
+    through the cooperative path; then the replay of its tables
     (``compare_replay``, plain on the host CPU)."""
     import torch
     from repro_torch.core.band_storage import unpack_band
@@ -767,6 +827,11 @@ def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
         Wp = W0.clone()      # clone keeps the strides
         return Wp, [kernel.chase_pass(Wp, b, w, n) for b in passes]
 
+    def chase_c():           # the cooperative path
+        Wp = W0.clone()
+        return Wp, [kernel.chase_launch(Wp, b, w, n, kernel.COOPERATIVE,
+                                        kernel.FULL) for b in passes]
+
     def chase_p():
         Wp = W0.cpu()
         return Wp, [ref.chase_pass_ref(Wp, b, w, n) for b in passes]
@@ -775,29 +840,34 @@ def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
     (Wk, tk), k1 = _time_cuda(chase_k)
     (Wh, th), p1 = _time_host(chase_p)
     _, k2 = _time_cuda(chase_k)
-    _, p2 = _time_host(chase_p)
+    (Wc, tc), c1 = _time_cuda(chase_c)
     print(f"{label} chase ({len(passes)} passes): kernel {k1:.3f} / "
-          f"{k2:.3f} ms, plain {p1:.0f} / {p2:.0f} ms (plain on the host "
-          f"CPU)", flush=True)
+          f"{k2:.3f} ms (cooperative path {c1:.3f} ms), plain {p1:.0f} ms "
+          f"(plain on the host CPU)", flush=True)
     norm = float(torch.linalg.eigvalsh(unpack_band(Wb.cpu())).abs().max())
     _chase_agree(f"{label} chase", Wk, Wh, tk, th, norm, checks)
+    _chase_agree(f"{label} chase, cooperative path", Wc, Wh, tc, th, norm,
+                 checks)
     compare_replay(label, passes, tk, n, "cpu", checks, dev)
 
 
 def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
                      dev) -> dict:
     """At the main path's shapes: the whole chase of Wb, one
-    ``chase_pass`` per pass, with its first (widest, fewest blocks) and
-    last (most blocks, most steps) pass also run by the plain version on
-    the card on the same input (kernel, plain, kernel, plain; the plain
-    chase is a host loop of one step per time step, too slow on the host
-    CPU at this n); then TT4's replay of all its tables onto an (n, 100)
-    slab, plain on the card. ``norm`` is ||W||_2. Returns the
+    ``chase_pass`` per pass (the wrapper's path: the band in one cluster's
+    distributed shared memory), with its first (widest) and last (most
+    steps) pass also run by the cooperative path and by the plain version
+    on the card on the same input (kernel, plain, kernel, cooperative; the
+    plain chase is a host loop of one step per time step, ~47 s a pass
+    here, so it runs once); then TT4's replay of all its tables onto an
+    (n, 100) slab, plain on the card. ``norm`` is ||W||_2. Returns the
     ``chase_pass`` row (the two compared passes, per launch) and the
     ``replay_pass`` row (all passes, per launch)."""
     from repro_torch.core.sbr import _executed_passes
     from repro_torch.kernels.rot_apply import kernel, ref
-    from repro_torch.kernels.rot_apply.schedule import padded_band
+    from repro_torch.kernels.rot_apply.schedule import (chase_stagger,
+                                                        padded_band,
+                                                        pass_schedule)
 
     n = Wb.shape[1]
     passes = _executed_passes(n, w)
@@ -810,25 +880,33 @@ def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
             tables.append(CS)
             k_ms.append(ms)
             continue
-        Wk1, Wk2, Wq1, Wq2 = (Wp.clone() for _ in range(4))
+        Wk1, Wk2, Wq1, Wc = (Wp.clone() for _ in range(4))
         CS, k1 = _time_cuda(lambda: kernel.chase_pass(Wk1, b, w, n))
         CSq, p1 = _time_cuda(lambda: ref.chase_pass_ref(Wq1, b, w, n))
         _, k2 = _time_cuda(lambda: kernel.chase_pass(Wk2, b, w, n))
-        _, p2 = _time_cuda(lambda: ref.chase_pass_ref(Wq2, b, w, n))
-        print(f"{label} chase pass b={b}: kernel {k1:.3f} / {k2:.3f} ms, "
-              f"plain {p1:.0f} / {p2:.0f} ms (plain on the card)",
-              flush=True)
+        CSc, c1 = _time_cuda(lambda: kernel.chase_launch(
+            Wc, b, w, n, kernel.COOPERATIVE, kernel.FULL))
+        plan = kernel.chase_plan(Wp.shape[1], w, b, kernel.cluster_capacity)
+        print(f"{label} chase pass b={b}: kernel {k1:.3f} / {k2:.3f} ms "
+              f"({plan.path}, {plan.csize} CTAs of {plan.smem} bytes), "
+              f"cooperative path {c1:.3f} ms, plain {p1:.0f} ms (plain on "
+              f"the card)", flush=True)
         errs.append(_chase_agree(f"{label} chase pass b={b}", Wk1, Wq1,
                                  [CS], [CSq], norm, checks))
-        del Wk2, Wq1, Wq2, CSq
+        _chase_agree(f"{label} chase pass b={b}, cooperative path", Wc, Wq1,
+                     [CSc], [CSq], norm, checks)
+        del Wk2, Wq1, Wc, CSq, CSc
         Wp = Wk1
         tables.append(CS)
         k_ms.append(k1)
         k_cmp.append((k1 + k2) / 2)
-        p_cmp.append((p1 + p2) / 2)
+        p_cmp.append(p1)
+    steps = [pass_schedule(n, b, chase_stagger(b))[1] for b in passes]
     print(f"{label} chase, kernel ms per pass (b = {passes[0]}..."
           f"{passes[-1]}): {', '.join(f'{t:.2f}' for t in k_ms)}; total "
-          f"{sum(k_ms):.1f} ms", flush=True)
+          f"{sum(k_ms):.1f} ms over {sum(steps)} steps, "
+          f"{1e3 * sum(k_ms) / sum(steps):.3f} us a step", flush=True)
+    chase_variants(label, Wb, w)
     per = len(compared)
     return {"chase_pass": dict(
                 max_abs_err=max(errs), ms=sum(k_cmp) / per,
@@ -836,6 +914,57 @@ def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
                 **_per_launch(_chase_bound(n, w, compared), per)),
             "replay_pass": compare_replay(label, passes, tables, n, dev,
                                           checks, dev)}
+
+
+def chase_variants(label: str, Wb, w: int) -> None:
+    """The parts of a chase step, timed apart on the first and last pass,
+    in turns, through the kernel's timing variants (called directly: no
+    launch counted; results discarded): the cluster path (the plan's size,
+    and 8 CTAs where the band fits) and the cooperative path, each whole,
+    with its barriers alone, and without them; the cluster path also with
+    its accesses to the previous CTA's columns kept local, with a fixed
+    rotation in place of the Givens arithmetic, and without the block
+    barrier between its phases. us a step = time / steps."""
+    from repro_torch.core.sbr import _executed_passes
+    from repro_torch.kernels.rot_apply import kernel
+    from repro_torch.kernels.rot_apply.schedule import (chase_stagger,
+                                                        padded_band,
+                                                        pass_schedule)
+
+    n = Wb.shape[1]
+    passes = _executed_passes(n, w)
+    W0 = padded_band(Wb, w)
+    npad = W0.shape[1]
+    modes = (("whole", kernel.FULL), ("barriers only", kernel.BARRIER_ONLY),
+             ("no barrier", kernel.NO_BARRIER),
+             ("no remote access", kernel.LOCAL_ONLY),
+             ("no Givens arithmetic", kernel.NO_GIVENS),
+             ("no block barrier", kernel.NO_BLOCK_SYNC))
+    cluster_only = (kernel.LOCAL_ONLY, kernel.NO_GIVENS, kernel.NO_BLOCK_SYNC)
+    for b in (passes[0], passes[-1]):
+        steps = pass_schedule(n, b, chase_stagger(b))[1]
+        plans = {"cluster": kernel.chase_plan(npad, w, b,
+                                              kernel.cluster_capacity),
+                 "cooperative": kernel.COOPERATIVE}
+        cpc8, smem8 = kernel.cluster_share(npad, w, b, 8)
+        if smem8 <= kernel.SMEM_MAX and kernel.cluster_capacity(8, smem8) > 0:
+            plans["cluster of 8"] = kernel.ChasePlan("cluster", 8, cpc8, smem8)
+        times = {}
+        for _ in range(2):
+            for path, plan in plans.items():
+                for mname, mode in modes:
+                    if (path == "cluster of 8" and mode != kernel.FULL) or (
+                            path == "cooperative" and mode in cluster_only):
+                        continue
+                    Wp = W0.clone()
+                    _, ms = _time_cuda(lambda: kernel.chase_launch(
+                        Wp, b, w, n, plan, mode))
+                    times.setdefault(f"{path} {mname}", []).append(ms)
+        print(f"{label} chase pass b={b} by part ({steps} steps; ms, in "
+              f"turns; us a step): " + "; ".join(
+                  f"{k} {v[0]:.3f} / {v[1]:.3f} "
+                  f"({1e3 * min(v) / steps:.3f})" for k, v in times.items()),
+              flush=True)
 
 
 def _gamma(k: int) -> float:
@@ -1189,8 +1318,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
     ap.add_argument("--md-s", type=int, default=100)
-    ap.add_argument("--dft-n", type=int, default=4096)
-    ap.add_argument("--dft-s", type=int, default=64)
+    ap.add_argument("--dft-n", type=int, default=17243)
+    ap.add_argument("--dft-s", type=int, default=448)
     ap.add_argument("--wide-n", type=int, default=17243)
     ap.add_argument("--chase-n", type=int, default=512,
                     help="n of the MD pencil the chase and replay kernels "
@@ -1208,8 +1337,8 @@ def main() -> int:
         from repro_torch.core.cholesky import cholesky_blocked, cholesky_upper
         from repro_torch.core.linalg_utils import wy_syr2k_panel
         from repro_torch.core.sbr import (_chunk_bounds, _executed_passes,
-                                          _n_panels, default_n_chunks,
-                                          reduce_to_band)
+                                          _n_panels, band_chase,
+                                          default_n_chunks, reduce_to_band)
         from repro_torch.core.band_storage import to_band_mv_layout
         from repro_torch.kernels.band_mv import ops as band_mv_ops
         from repro_torch.kernels.gemm import kernel as gemm_kernel
@@ -1217,6 +1346,7 @@ def main() -> int:
         from repro_torch.kernels.house_panel.ops import house_panel
         from repro_torch.kernels.rot_apply import ops as rot_ops
         from repro_torch.kernels.trsm import ops as trsm_ops
+        from repro_torch.kernels.tridiag_eig import kernel as td2_kernel
         from repro_torch.core.standard_form import (to_standard_sygst,
                                                     to_standard_two_trsm)
         from repro_torch.core.tridiag import tridiagonalize
@@ -1275,12 +1405,19 @@ def main() -> int:
                                res.e, args.md_s, checks)
     del res
 
+    # the DFT tridiagonal from TT1 + TT2 (TD1 is a host loop of n columns);
+    # the plain versions on the card (on the host they would take minutes)
+    t0 = time.perf_counter()
     dft = dft_like(args.dft_n, device=dev)
-    res = tridiagonalize(standard_form(dft))
+    chase = band_chase(reduce_to_band(standard_form(dft), w=TT_W).Wb, TT_W)
     del dft
-    compare_td2_kernels(f"DFT n={args.dft_n} s={args.dft_s}", res.d, res.e,
-                        args.dft_s, checks)
-    del res
+    torch.cuda.synchronize()
+    print(f"DFT GS1+GS2+TT1+TT2 for the kernel inputs: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    compare_td2_kernels(f"DFT n={args.dft_n} s={args.dft_s}", chase.d,
+                        chase.e, args.dft_s, checks, plain_dev=dev)
+    del chase
+    torch.cuda.empty_cache()
     phase_done("2 (TD2 kernels)")
 
     # ---- phase 3: the one-triangle product against its plain version -----
@@ -1418,10 +1555,15 @@ def main() -> int:
                                             use_kernel=True))
     tt = run_solve("TT", md, args.md_s, checks, variant="TT",
                    band_width=TT_W).info["kernel_launches"]
+    # the paper's second experiment at its size: TT, then TD
     dft = dft_like(args.dft_n, device=dev)
     tt_dft = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
                        band_width=TT_W).info["kernel_launches"]
+    torch.cuda.empty_cache()
+    td_dft = run_solve("TD DFT", dft, args.dft_s, checks,
+                       variant="TD").info["kernel_launches"]
     del dft
+    torch.cuda.empty_cache()
     # the paper's Table 4: the blocked GS1/GS2/TD1 against the fused ones
     tdb_res = run_solve("TD blocked", md, args.md_s, checks, variant="TD",
                         gs1="blocked", gs2="sygst", td1="blocked")
@@ -1452,6 +1594,7 @@ def main() -> int:
                                  ("KE p=4", ke4, ("symm_block",)),
                                  ("TT", tt, ("bisect_sturm", "invit")),
                                  ("TT DFT", tt_dft, ("bisect_sturm", "invit")),
+                                 ("TD DFT", td_dft, ("bisect_sturm", "invit")),
                                  ("TD blocked", tdb, ("gemm", "trsm_tile",
                                                       "syr2k", "bisect_sturm",
                                                       "invit")),
@@ -1460,6 +1603,13 @@ def main() -> int:
         for name in names:
             checks.check(f"main path {label} launched {name}",
                          counts[name] > 0, f"{counts[name]} launches")
+    # invit: the solve and the Gram-Schmidt a round, three rounds
+    for label, counts in (("TD", td), ("TT", tt), ("TT DFT", tt_dft),
+                          ("TD DFT", td_dft)):
+        want = 3 * td2_kernel.LAUNCHES_PER_ROUND
+        checks.check(f"main path {label} invit launches",
+                     counts["invit"] == want,
+                     f"{counts['invit']} launches (expected {want})")
     for label, counts, n_ in (("TT", tt, args.md_n),
                               ("TT DFT", tt_dft, args.dft_n)):
         n_pass = len(_executed_passes(n_, TT_W))

@@ -32,9 +32,9 @@
 //     G L < 2^31, so the 2 G L entries fit below 2^32); no division.
 //   chase_pass: latency. At the MD band (n = 9997, w = 16) the 15 passes
 //     take 319,612 dependent time steps here (489,403 at the reference's
-//     stagger); their work (~4.7e10 flops) and bytes (the 1.4 MB band
-//     sits in L2) would take ~1.4 ms. Each step costs a block barrier, a
-//     grid barrier and two L2 round trips.
+//     stagger); their work (~4.7e10 flops) and bytes (the 1.4 MB band)
+//     would take ~1.4 ms. A step costs its barrier and its chain of
+//     dependent loads, rotation and stores.
 //   replay_pass: at TT4 (an (n, 100) slab) the rotations' flops,
 //     1.19e8 rotations x 100 columns x 6, about 2 ms at the fp64 rate,
 //     against ~1.1 ms to read the 3.8 GB table once; and the J sweeps of
@@ -50,22 +50,32 @@
 // therefore start g = ceil((b+4)/b) steps apart (the caller's schedule,
 // kernels/rot_apply/schedule.py) instead of the reference's
 // 2 + ceil(5/b): about 2/3 of the reference's steps, with the same
-// rotations in the same order on every entry. The lanes are split over
-// blocks of at most 32 (one cooperative launch, ceil(G/32) blocks, up to
-// 53 at MD), which loop over the pass's time steps. Per step every
-// thread first loads its lanes' row and column pairs (2b+2 per lane, up
-// to four per thread), and one thread per active lane loads the pivot,
-// the target and the 2 x 2 block, all in flight at once; that thread
-// computes the Givens rotation, records (c, s) in the table and in
-// shared memory, and rotates the block. A block barrier; then every
-// thread rotates and stores its pairs (they are disjoint, and none is
-// the block). A grid barrier: a lane's next footprint can overlap its
-// neighbours' last ones. The band is column-major (a column's diagonals
-// contiguous), so a lane's column pairs are contiguous runs. A single
-// block was first: one SM's L2 traffic, ~30k scattered sectors a step,
-// made a step ~12 us. Entries the reference reads as zero (below the w+2
-// stored diagonals) are read as zero and not written. After the last
-// step the blocks zero the annihilated diagonals Wp[b:, :].
+// rotations in the same order on every entry. Per step every thread first
+// loads its lanes' row and column pairs (2b+2 per lane), and one thread
+// per active lane loads the pivot, the target and the 2 x 2 block, all in
+// flight at once; that thread computes the Givens rotation, records (c, s)
+// in the table and in shared memory, and rotates the block. A block
+// barrier; then every thread rotates and stores its pairs (they are
+// disjoint, and none is the block). Then a barrier across all the lanes:
+// a lane's next footprint can overlap its neighbours' last ones. Entries
+// the reference reads as zero (below the w+2 stored diagonals) are read as
+// zero and not written. At the end the annihilated diagonals Wp[b:, :]
+// are zeroed. Two kernels run this step:
+//   chase_cluster_kernel — the band on chip: one thread-block cluster of
+//     up to 16 CTAs (non-portable size) holds the whole padded band in its
+//     distributed shared memory, each CTA a contiguous range of columns
+//     (1.45 MB at MD: 16 x 91 KB; 2.5 MB at n = 17243, w = 16). A CTA
+//     takes the lanes whose plane column it holds, so a footprint is local
+//     but where it straddles two CTAs, and reaches a neighbour's columns
+//     through cluster.map_shared_rank (ld/st.shared::cluster). The barrier
+//     is barrier.cluster.arrive/wait (cluster.sync()), not a global atomic;
+//     the band is read from global memory once at the start and written
+//     back once at the end. The (c, s) table goes to global memory as
+//     before: no lane reads it back within the pass.
+//   chase_pass_kernel — the band in global memory, for a band larger than
+//     a cluster holds: lanes split over up to 53 co-resident blocks of at
+//     most 32 (one cooperative launch), loads through L2 (ld_cg), and a
+//     grid barrier a step (an atomic counter and a spin).
 //
 // Design of replay_pass. A sweep's K0 rotations act on row pairs b >= 2
 // apart, so they are disjoint, and rows never mix columns: blocks of 1024
@@ -73,8 +83,11 @@
 // between sweeps, the sweep's (rotation, column) items spread over the
 // threads, four per thread in flight at once. Slots past a sweep's end
 // hold the identity and are skipped.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -82,6 +95,7 @@ constexpr int kPLeft = 2;            // left margin of the padded band
 constexpr int kChaseThreads = 512;
 constexpr int kMaxLanesPerBlock = 32;   // wavefront lanes of one chase block
 constexpr int kBatch = 4;            // pair rotations in flight per thread
+constexpr int kMaxCluster = 16;      // CTAs of a chase cluster (non-portable)
 constexpr int kReplayThreads = 1024;
 constexpr int kReplayCols = 4;       // one 32-byte sector of a row
 
@@ -129,6 +143,15 @@ __device__ __forceinline__ bool lane_state(int t, int l, int g, int J, int n,
   return *k >= 0 && *k < Kj;
 }
 
+// A load from L2 (past this SM's L1) of data other blocks wrote before the
+// last barrier. Volatile with a memory clobber: __ldcg's asm declares no
+// memory access, so the compiler may move it above the barrier.
+__device__ __forceinline__ double ld_cg(const double* p) {
+  double v;
+  asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
+  return v;
+}
+
 // all blocks of the (cooperative, hence co-resident) grid meet here;
 // ``target`` counts the arrivals every block waits for, the same in all
 __device__ void grid_sync(unsigned int* count, unsigned int& target) {
@@ -146,8 +169,21 @@ __device__ void grid_sync(unsigned int* count, unsigned int& target) {
 
 // The packed band is read through strides (sd between diagonals, sc
 // between columns; the TT2 chase keeps it column-major, so a column's
-// diagonals are contiguous) and with __ldcg: other blocks write it, so
+// diagonals are contiguous) and with ld_cg: other blocks write it, so
 // reads go to L2, past this SM's L1.
+// kMode selects a timing variant (chip_smoke.py times the parts of a step
+// apart): kFull, the pass; kBarrierOnly, only the steps' barriers;
+// kNoBarrier, the steps' loads, rotations and stores with no barrier
+// between steps; and, for the cluster kernel, the pass with every access
+// to the previous CTA's columns sent to this CTA's own (kLocalOnly), with
+// a fixed rotation in place of the Givens square root and divisions
+// (kNoGivens), or without the block barrier between the phases
+// (kNoBlockSync). The variants' results are garbage: timing only, on a
+// scratch copy.
+constexpr int kFull = 0, kBarrierOnly = 1, kNoBarrier = 2, kLocalOnly = 3,
+              kNoGivens = 4, kNoBlockSync = 5;
+
+template <int kMode>
 __global__ void __launch_bounds__(kChaseThreads)
 chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
                   int64_t npad, double* __restrict__ CS, unsigned int* bar,
@@ -163,6 +199,10 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
   const int total = nl * pitems;     // <= kChaseThreads * kBatch (host)
   unsigned int target = 0;
   for (int t = 0; t < T_pass; ++t) {
+    if (kMode == kBarrierOnly) {
+      grid_sync(bar, target);
+      continue;
+    }
     // ---- loads: this thread's pairs (phase B) and, for one lane, the
     // pivot, target and 2 x 2 block (phase A), all in flight at once -----
     double* q0[kBatch];
@@ -199,11 +239,11 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
       // entries below the w+2 stored diagonals read as zero, unwritten
       if (d0 <= w + 1) {
         q0[m] = Wp + d0 * sd + col0 * sc;
-        x0[m] = __ldcg(q0[m]);
+        x0[m] = ld_cg(q0[m]);
       }
       if (d1 <= w + 1) {
         q1[m] = Wp + d1 * sd + col1 * sc;
-        x1[m] = __ldcg(q1[m]);
+        x1[m] = ld_cg(q1[m]);
       }
     }
     // ---- phase A: per active lane, the Givens rotation from the pivot and
@@ -219,12 +259,12 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
         // W[r, r-1] = W[r-1, r], W[r, r]
         const int64_t col = (r - b - sk + kPLeft) * sc;
         const int64_t cb = (r - 1 + kPLeft) * sc;
-        const double a = __ldcg(Wp + (b - 1 + sk) * sd + col);
-        const double bb = __ldcg(Wp + (b + sk) * sd + col);
+        const double a = ld_cg(Wp + (b - 1 + sk) * sd + col);
+        const double bb = ld_cg(Wp + (b + sk) * sd + col);
         double* p11 = Wp + cb;
         double* p21 = Wp + sd + cb;
         double* p22 = Wp + cb + sc;
-        const double a11 = __ldcg(p11), a21 = __ldcg(p21), a22 = __ldcg(p22);
+        const double a11 = ld_cg(p11), a21 = ld_cg(p21), a22 = ld_cg(p22);
         const double rr = sqrt(a * a + bb * bb);
         const bool safe = rr > 0.0;
         const double den = safe ? rr : 1.0;
@@ -259,13 +299,206 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
     }
     // the next step's lanes read what neighbouring lanes, in other
     // blocks, wrote in this one
-    grid_sync(bar, target);
+    if (kMode == kFull) grid_sync(bar, target);
+    else __syncthreads();
   }
   // the annihilated diagonals carry O(eps) residue: zero them
   for (int64_t idx = (int64_t)blk * kChaseThreads + tid;
        idx < (int64_t)(w + 2 - b) * npad;
        idx += (int64_t)nb * kChaseThreads) {
     Wp[(b + idx / npad) * sd + (idx % npad) * sc] = 0.0;
+  }
+}
+
+__device__ __forceinline__ int floor_div(int a, int d) {
+  return a >= 0 ? a / d : -((-a + d - 1) / d);
+}
+
+// The cluster barrier in two halves: arrive (release: this thread's
+// shared-memory writes, local and remote, before it) and wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The band in the distributed shared memory of one thread-block cluster:
+// CTA ``rank`` holds packed columns [C0, C0 + cpc), column-major with w+2
+// diagonals a column. A lane's footprint reaches at most b+2 columns left
+// of its plane column, and cpc >= w+3 (the wrapper's plan), so an entry
+// lies in this CTA's columns or in the previous CTA's, which it reaches
+// over the SM-to-SM network through cluster.map_shared_rank.
+struct ClusterBand {
+  double* own;    // this CTA's columns
+  double* prev;   // the previous CTA's (rank - 1)
+  int C0, cpc, ldb;
+  __device__ __forceinline__ double* at(int d, int col) const {
+    return col >= C0 ? own + (col - C0) * ldb + d
+                     : prev + (col - C0 + cpc) * ldb + d;
+  }
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kChaseThreads)
+chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
+                     int64_t npad, double* __restrict__ CS, int n, int b,
+                     int w, int g, int T_pass, int J, int K0, int cpc) {
+  extern __shared__ double band[];  // cpc x (w+2), then the lanes' (c, s)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int ldb = w + 2;
+  const int C0 = rank * cpc;
+  const int C1 = C0 + cpc < npad ? C0 + cpc : (int)npad;
+  double* s_cs = band + cpc * ldb;
+  const ClusterBand B{band,
+                      rank > 0 && kMode != kLocalOnly
+                          ? cluster.map_shared_rank(band, rank - 1) : band,
+                      C0, cpc, ldb};
+  constexpr bool kBarrier = kMode != kNoBarrier;
+  for (int idx = tid; idx < (C1 - C0) * ldb; idx += blockDim.x) {
+    const int lc = idx / ldb, d = idx % ldb;
+    band[idx] = Wp[d * sd + (C0 + lc) * sc];
+  }
+  // every CTA's columns are in place before any lane reads a neighbour's
+  cluster.sync();
+  const int D = g * b - 1;          // columns between consecutive lanes
+  const int pitems = 2 * b + 2;     // row pairs and column pairs per lane
+  // this thread's (lane, item) slots: the same every step of the pass
+  int sl[kBatch], sit[kBatch];
+#pragma unroll
+  for (int m = 0; m < kBatch; ++m) {
+    sl[m] = (tid + m * kChaseThreads) / pitems;
+    sit[m] = (tid + m * kChaseThreads) % pitems;
+  }
+  for (int t = 0; t < T_pass; ++t) {
+    if (kMode == kBarrierOnly) {
+      cluster_arrive();
+      cluster_wait();
+      continue;
+    }
+    // this CTA's lanes: those whose plane column r + kPLeft it holds, with
+    // r = (t+1) b - j D for the lane on column j (core/sbr.py _chase_pass);
+    // a lane is live while r <= n-1 (k < K_j)
+    const int A = (t + 1) * b + kPLeft;
+    const int jhi = min(floor_div(A - C0, D), min(t / g, J - 1));
+    const int jlo = max(floor_div(A - C1, D) + 1, 0);
+    const int nl = max(0, jhi - jlo + 1);
+    // ---- addresses of this thread's pairs (phase B), before the wait ----
+    double* q0[kBatch];
+    double* q1[kBatch];
+    int lane_of[kBatch];
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m) {
+      q0[m] = q1[m] = nullptr;
+      lane_of[m] = -1;
+      const int j = jhi - sl[m];
+      const int r = (t + 1) * b - j * D;
+      if (sl[m] >= nl || r > n - 1) continue;
+      lane_of[m] = sl[m];
+      const int it = sit[m];
+      const int c0 = r - b - 2 + kPLeft;
+      const bool row = it <= b;
+      // rows r-1, r at window column it: packed (b+1-it), (b+2-it); or
+      // columns r-1, r at window row it+2: packed (it+1-b, b+1), (it-b, b+2)
+      const int d0 = row ? b + 1 - it : it + 1 - b;
+      const int d1 = row ? b + 2 - it : it - b;
+      // entries below the w+2 stored diagonals read as zero, unwritten
+      if (d0 <= w + 1) q0[m] = B.at(d0, row ? c0 + it : c0 + b + 1);
+      if (d1 <= w + 1) q1[m] = B.at(d1, row ? c0 + it : c0 + b + 2);
+    }
+    // the previous step's writes, in every CTA, are visible past here
+    if (kBarrier && t > 0) cluster_wait();
+    double x0[kBatch], x1[kBatch];
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m) {
+      x0[m] = q0[m] ? *q0[m] : 0.0;
+      x1[m] = q1[m] ? *q1[m] : 0.0;
+    }
+    // ---- phase A: per lane, the Givens rotation and the 2 x 2 block ------
+    for (int li = tid; li < nl; li += kChaseThreads) {
+      const int j = jhi - li;
+      const int r = (t + 1) * b - j * D;
+      if (r > n - 1) continue;
+      const int k = t - g * j;
+      const int sk = k > 0 ? 1 : 0;
+      const int col = r - b - sk + kPLeft;
+      const int cb = r - 1 + kPLeft;
+      const double a = *B.at(b - 1 + sk, col);
+      const double bb = *B.at(b + sk, col);
+      double* p11 = B.at(0, cb);
+      double* p21 = B.at(1, cb);
+      double* p22 = B.at(0, cb + 1);
+      const double a11 = *p11, a21 = *p21, a22 = *p22;
+      double c, s;
+      if (kMode == kNoGivens) {
+        c = 0.6 + 0.0 * a;
+        s = 0.8 + 0.0 * bb;
+      } else {
+        const double rr = sqrt(a * a + bb * bb);
+        const bool safe = rr > 0.0;
+        const double den = safe ? rr : 1.0;
+        c = safe ? a / den : 1.0;
+        s = safe ? bb / den : 0.0;
+      }
+      double* slot = CS + ((int64_t)j * (K0 + 1) + k) * 2;
+      slot[0] = c;
+      slot[1] = s;
+      s_cs[2 * li] = c;
+      s_cs[2 * li + 1] = s;
+      double r11, r21, r12, r22, n11, n12, n21, n22;
+      rotate(c, s, a11, a21, &r11, &r21);
+      rotate(c, s, a21, a22, &r12, &r22);
+      rotate(c, s, r11, r12, &n11, &n12);
+      rotate(c, s, r21, r22, &n21, &n22);
+      *p11 = n11;
+      *p21 = n21;
+      *p22 = n22;
+    }
+    if (kMode != kNoBlockSync) __syncthreads();
+    // ---- phase B: rotate and store the pairs loaded above, then any past
+    // kBatch a thread (loaded, rotated and stored one at a time) ---------
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m) {
+      if (lane_of[m] < 0) continue;
+      double y0, y1;
+      rotate(s_cs[2 * lane_of[m]], s_cs[2 * lane_of[m] + 1], x0[m], x1[m],
+             &y0, &y1);
+      if (q0[m]) *q0[m] = y0;
+      if (q1[m]) *q1[m] = y1;
+    }
+    for (int idx = tid + kBatch * kChaseThreads; idx < nl * pitems;
+         idx += kChaseThreads) {
+      const int li = idx / pitems, it = idx % pitems;
+      const int r = (t + 1) * b - (jhi - li) * D;
+      if (r > n - 1) continue;
+      const int c0 = r - b - 2 + kPLeft;
+      const bool row = it <= b;
+      const int d0 = row ? b + 1 - it : it + 1 - b;
+      const int d1 = row ? b + 2 - it : it - b;
+      double* p0 = d0 <= w + 1 ? B.at(d0, row ? c0 + it : c0 + b + 1) : nullptr;
+      double* p1 = d1 <= w + 1 ? B.at(d1, row ? c0 + it : c0 + b + 2) : nullptr;
+      double y0, y1;
+      rotate(s_cs[2 * li], s_cs[2 * li + 1], p0 ? *p0 : 0.0, p1 ? *p1 : 0.0,
+             &y0, &y1);
+      if (p0) *p0 = y0;
+      if (p1) *p1 = y1;
+    }
+    // the next step's lanes read what lanes of other CTAs wrote in this
+    // one: arrive now, wait once the next step's addresses are computed
+    if (kBarrier) cluster_arrive();
+    else __syncthreads();
+  }
+  if (kBarrier && T_pass > 0) cluster_wait();
+  // no CTA touches another's columns past this point
+  cluster.sync();
+  // write the columns back; the annihilated diagonals carry O(eps)
+  // residue: zero them
+  for (int idx = tid; idx < (C1 - C0) * ldb; idx += blockDim.x) {
+    const int lc = idx / ldb, d = idx % ldb;
+    Wp[d * sd + (C0 + lc) * sc] = d < b ? band[idx] : 0.0;
   }
 }
 
@@ -313,6 +546,46 @@ replay_pass_kernel(double* __restrict__ X, int64_t ldx, int ncols,
   }
 }
 
+template <int kMode>
+cudaError_t cluster_config(int csize, int smem, cudaStream_t stream,
+                                  cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chase_cluster_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(chase_cluster_kernel<kMode>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(csize);
+  cfg->blockDim = dim3(kChaseThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int kMode>
+int launch_cluster(double* Wp, int64_t sd, int64_t sc, int64_t npad,
+                          double* CS, int n, int b, int w, int g, int T_pass,
+                          int J, int K0, int cpc, int csize, int smem,
+                          cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<kMode>(csize, smem, stream, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, chase_cluster_kernel<kMode>, Wp, sd, sc,
+                           npad, CS, n, b, w, g, T_pass, J, K0, cpc);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -333,11 +606,12 @@ int rot_apply_fp64(const double* X, const double* CS, double* Y, int G,
 // columns, strides sd and sc), in place; CS (J+1, K0+1, 2) contiguous,
 // filled with the identity by the caller, receives the pass's rotations;
 // bar is one zeroed counter. One cooperative launch, so that all blocks
-// are resident while they wait at the grid barrier.
-int chase_pass_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
-                    double* CS, unsigned int* bar, int n, int b, int w,
-                    int g, int T_pass, int G, int J, int K0,
-                    cudaStream_t stream) {
+// are resident while they wait at the grid barrier. ``mode`` is kFull, or
+// a timing variant (kBarrierOnly, kNoBarrier).
+int chase_pass_coop_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
+                         double* CS, unsigned int* bar, int n, int b, int w,
+                         int g, int T_pass, int G, int J, int K0, int mode,
+                         cudaStream_t stream) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -353,11 +627,60 @@ int chase_pass_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
                   (void*)&CS, (void*)&bar, (void*)&n, (void*)&b, (void*)&w,
                   (void*)&g, (void*)&T_pass, (void*)&G, (void*)&J,
                   (void*)&K0, (void*)&lpb};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)chase_pass_kernel, dim3(nb), dim3(kChaseThreads), args, 0,
-      stream);
+  const void* fn = mode == kBarrierOnly ? (const void*)chase_pass_kernel<kBarrierOnly>
+                 : mode == kNoBarrier ? (const void*)chase_pass_kernel<kNoBarrier>
+                                      : (const void*)chase_pass_kernel<kFull>;
+  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(nb),
+                                                dim3(kChaseThreads), args, 0,
+                                                stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of csize CTAs with smem bytes of dynamic shared memory
+// each the card can hold at once (0: none; < 0: a CUDA error, negated).
+int chase_cluster_capacity(int csize, int smem) {
+  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<kFull>(csize, smem, 0, &cfg, &attr);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, chase_cluster_kernel<kFull>,
+                                       &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return count;
+}
+
+// The same pass with the whole band in the distributed shared memory of
+// one cluster of csize CTAs, each holding cpc columns (the wrapper's plan:
+// csize cpc >= npad) and smem bytes (cpc (w+2) doubles and the (c, s) of
+// its lanes). ``mode`` as above.
+int chase_pass_cluster_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
+                            double* CS, int n, int b, int w, int g,
+                            int T_pass, int J, int K0, int csize, int cpc,
+                            int smem, int mode, cudaStream_t stream) {
+  if (csize < 1 || csize > kMaxCluster || (int64_t)csize * cpc < npad ||
+      cpc < w + 3)
+    return (int)cudaErrorInvalidValue;
+  if (mode == kBarrierOnly)
+    return launch_cluster<kBarrierOnly>(Wp, sd, sc, npad, CS, n, b, w, g,
+                                        T_pass, J, K0, cpc, csize, smem, stream);
+  if (mode == kNoBarrier)
+    return launch_cluster<kNoBarrier>(Wp, sd, sc, npad, CS, n, b, w, g,
+                                      T_pass, J, K0, cpc, csize, smem, stream);
+  if (mode == kLocalOnly)
+    return launch_cluster<kLocalOnly>(Wp, sd, sc, npad, CS, n, b, w, g,
+                                      T_pass, J, K0, cpc, csize, smem, stream);
+  if (mode == kNoGivens)
+    return launch_cluster<kNoGivens>(Wp, sd, sc, npad, CS, n, b, w, g,
+                                     T_pass, J, K0, cpc, csize, smem, stream);
+  if (mode == kNoBlockSync)
+    return launch_cluster<kNoBlockSync>(Wp, sd, sc, npad, CS, n, b, w, g,
+                                        T_pass, J, K0, cpc, csize, smem,
+                                        stream);
+  return launch_cluster<kFull>(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J,
+                               K0, cpc, csize, smem, stream);
 }
 
 // One pass of CS (J+1, K0+1, 2) applied in place to the rows of X

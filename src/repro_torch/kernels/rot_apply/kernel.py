@@ -7,9 +7,15 @@ per-sweep calls of it into one launch per bandwidth pass. The source note
 in the ``.cu`` file says what bounds each and what the design does about
 it. Each wrapper checks device, dtype, shapes and strides, allocates with
 ``torch.empty`` (the rotation table: filled with the identity first; the
-chase's grid-barrier counter: zeroed),
+cooperative chase's grid-barrier counter: zeroed),
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
 and adds one to its ``launches`` count per launch.
+
+``chase_pass`` has two hand-written paths, chosen by ``chase_plan`` (pure
+Python, reached by the CPU tests): the band in the distributed shared
+memory of one thread-block cluster where it fits, else the cooperative
+kernel with the band in global memory and a grid barrier a step. Both
+are bitwise equal to the plain version.
 
 ``rot_apply`` is a few microseconds of device work at the chase's shapes,
 so its host cost is the call's cost: the library handle is cached, the
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,8 +41,11 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
     "rot_apply_fp64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "chase_pass_fp64": [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+    "chase_pass_coop_fp64": [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
+    "chase_pass_cluster_fp64": [_P, _L, _L, _L, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P],
+    "chase_cluster_capacity": [_I, _I],
     "replay_pass_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -43,6 +53,61 @@ _SIGS = {
 #: threads of a ``rot_apply`` block, and the most column chunks of its grid
 ROT_THREADS = 256
 MAX_GRID_Y = 65535
+
+#: the chase's cluster sizes, tried in order (16 is non-portable), and the
+#: largest dynamic shared memory of a CTA on the card
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+SMEM_MAX = 232448
+#: ``mode`` of the chase entry points: the pass, or a timing variant (the
+#: last three for the cluster kernel only)
+FULL, BARRIER_ONLY, NO_BARRIER, LOCAL_ONLY, NO_GIVENS, NO_BLOCK_SYNC = range(6)
+
+
+class ChasePlan(NamedTuple):
+    path: str      # "cluster" (band in distributed shared memory) or
+    #                "cooperative" (band in global memory, grid barrier)
+    csize: int     # CTAs of the cluster (0 on the cooperative path)
+    cpc: int       # packed columns a CTA holds
+    smem: int      # bytes of dynamic shared memory a CTA
+
+
+def cluster_share(npad: int, w: int, b: int, csize: int) -> tuple:
+    """(columns, bytes) a CTA holds when ``csize`` CTAs share a padded band
+    of npad columns and w+2 diagonals at pass b: its columns, and the (c,
+    s) of the lanes whose planes lie in them (consecutive lanes sit g b - 1
+    columns apart)."""
+    cpc = -(-npad // csize)
+    lanes = cpc // (chase_stagger(b) * b - 1) + 2
+    return cpc, 8 * (cpc * (w + 2) + 2 * lanes)
+
+
+def chase_plan(npad: int, w: int, b: int, capacity=None) -> ChasePlan:
+    """The cluster path when the band fits the distributed shared memory of
+    one cluster the card can run (``capacity(csize, smem)``, the clusters
+    it holds at once; None counts every fitting size as runnable), else
+    the cooperative path. A CTA holds at least w+3 columns, so a lane's
+    footprint reaches no further than the previous CTA's."""
+    for csize in CLUSTER_SIZES:
+        cpc, smem = cluster_share(npad, w, b, csize)
+        if smem <= SMEM_MAX and cpc >= w + 3 and (
+                capacity is None or capacity(csize, smem) > 0):
+            return ChasePlan("cluster", csize, cpc, smem)
+    return COOPERATIVE
+
+
+#: the cooperative kernel's plan
+COOPERATIVE = ChasePlan("cooperative", 0, 0, 0)
+
+
+@functools.cache
+def cluster_capacity(csize: int, smem: int) -> int:
+    """Clusters of ``csize`` CTAs with ``smem`` bytes each that the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    got = _lib().chase_cluster_capacity(csize, smem)
+    if got < 0:
+        raise RuntimeError(f"chase_cluster_capacity failed with cudaError "
+                           f"{-got}")
+    return got
 
 
 @functools.cache
@@ -117,9 +182,9 @@ rot_apply.launches = 0
 
 def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
     """One bandwidth-b pass over the padded band ``Wp`` (w+2, npad) in
-    place, in one (cooperative) launch; returns the (J+1, K0+1, 2) rotation
-    table. Wp may have any positive strides: the chase keeps it
-    column-major."""
+    place, in one launch of the path ``chase_plan`` picks; returns the
+    (J+1, K0+1, 2) rotation table. Wp may have any positive strides: the
+    chase keeps it column-major."""
     _check("Wp", Wp)
     if Wp.dim() != 2 or min(Wp.stride()) < 1:
         raise ValueError(f"Wp must be 2-D with positive strides, got shape "
@@ -129,15 +194,34 @@ def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
         raise ValueError(f"chase_pass needs Wp (w+2, >= n+2) and "
                          f"2 <= b <= w < n; got Wp {tuple(Wp.shape)}, "
                          f"b={b}, w={w}, n={n}")
+    CS = chase_launch(Wp, b, w, n, chase_plan(Wp.shape[1], w, b,
+                                              cluster_capacity), FULL)
+    chase_pass.launches += 1
+    return CS
+
+
+def chase_launch(Wp: torch.Tensor, b: int, w: int, n: int, plan: ChasePlan,
+                 mode: int) -> torch.Tensor:
+    """One launch of the chase kernel of ``plan`` (``COOPERATIVE`` forces
+    that path) in ``mode`` (a timing variant unless FULL); raises on a
+    CUDA error. Counts nothing: ``chase_pass`` counts the main path's
+    launches, and comparisons and timings call this directly."""
     g, T_pass, G, J, K0 = pass_schedule(n, b, chase_stagger(b))
     CS = identity_table(J, K0, Wp)
+    stream = current_stream(Wp.device)
+    if plan.path == "cluster":
+        err = _lib().chase_pass_cluster_fp64(
+            Wp.data_ptr(), Wp.stride(0), Wp.stride(1), Wp.shape[1],
+            CS.data_ptr(), n, b, w, g, T_pass, J, K0, plan.csize, plan.cpc,
+            plan.smem, mode, stream)
+        _raise_on(err, "chase_pass_cluster_fp64")
+        return CS
     bar = torch.zeros((1,), dtype=torch.int32, device=Wp.device)
-    err = _lib().chase_pass_fp64(Wp.data_ptr(), Wp.stride(0), Wp.stride(1),
-                                 Wp.shape[1], CS.data_ptr(), bar.data_ptr(),
-                                 n, b, w, g, T_pass, G, J, K0,
-                                 current_stream(Wp.device))
-    chase_pass.launches += 1
-    _raise_on(err, "chase_pass_fp64")
+    err = _lib().chase_pass_coop_fp64(Wp.data_ptr(), Wp.stride(0),
+                                      Wp.stride(1), Wp.shape[1],
+                                      CS.data_ptr(), bar.data_ptr(), n, b, w,
+                                      g, T_pass, G, J, K0, mode, stream)
+    _raise_on(err, "chase_pass_coop_fp64")
     return CS
 
 

@@ -54,6 +54,19 @@ def chase_stagger(b: int) -> int:
     return -(-(b + 4) // b)
 
 
+def cta_lanes(t: int, c0: int, c1: int, b: int, g: int, J: int) -> range:
+    """The columns j of the lanes that a chase CTA holding packed columns
+    [c0, c1) takes at step t (``chase_cluster_kernel``'s jlo..jhi): those
+    with k = t - g j >= 0 whose plane column r + P_LEFT, r = (t+1) b -
+    j (g b - 1), it holds. A lane whose sweep has ended (k >= K_j, that
+    is r > n-1) is in the range too; the kernel skips it."""
+    D = g * b - 1
+    A = (t + 1) * b + P_LEFT
+    jhi = min((A - c0) // D, t // g, J - 1)
+    jlo = max((A - c1) // D + 1, 0)
+    return range(jlo, jhi + 1)
+
+
 def identity_table(J: int, K0: int, like: torch.Tensor) -> torch.Tensor:
     """The (J+1, K0+1, 2) rotation table with every slot at (1, 0)."""
     CS = like.new_zeros((J + 1, K0 + 1, 2))

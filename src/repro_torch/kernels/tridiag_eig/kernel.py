@@ -11,6 +11,7 @@ to its ``launches`` count for every kernel it launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,11 +19,42 @@ from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGS = {
     "tridiag_bisect_sturm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "tridiag_invit_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "tridiag_invit_orth": [_P, _P, _I, _I, _P],
+    "tridiag_invit_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tridiag_invit_orth": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P],
 }
+
+#: columns of a Gram-Schmidt panel (``kPanel`` in the source); the
+#: largest dynamic shared memory of a block on the card
+PANEL = 32
+SMEM_MAX = 232448
+#: launches of ``invit`` a round: the solve, then the Gram-Schmidt
+LAUNCHES_PER_ROUND = 2
+
+
+class OrthPlan(NamedTuple):
+    blocks: int    # one cooperative launch of this many blocks
+    rows: int      # rows of Z a block owns
+    smem: int      # bytes of dynamic shared memory a block (its panel rows)
+    scratch: int   # doubles of global scratch
+
+
+def orth_plan(n: int, s: int, sms: int) -> OrthPlan:
+    """The Gram-Schmidt launch for Z (n, s) on a card of ``sms`` SMs: a
+    block per SM (fewer for small n, at least 32 rows a block), each
+    owning a contiguous range of rows and holding its rows of a panel in
+    shared memory. The scratch size is ``tridiag_invit_orth_scratch``."""
+    blocks = max(1, min(sms, -(-n // 32)))
+    rows = -(-n // blocks)
+    smem = rows * PANEL * 8
+    if smem > SMEM_MAX:
+        raise ValueError(f"invit takes n up to {SMEM_MAX // (PANEL * 8) * sms} "
+                         f"on this card ({rows} rows a block need {smem} "
+                         f"bytes of shared memory), got n={n}")
+    scratch = blocks * s * (1 + PANEL) + s * (2 + PANEL) + blocks * (PANEL + 2)
+    return OrthPlan(blocks, rows, smem, scratch)
 
 
 def _lib() -> ctypes.CDLL:
@@ -84,7 +116,9 @@ def invit(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
           iters: int = 3) -> torch.Tensor:
     """Z (n, s) for SORTED shifts ``lam`` from the column-normalized start
     block ``X0``; ``cid`` int32 cluster ids, ``pivmin`` a 0-d tensor.
-    Two launches per round (solve, then norms + cluster Gram-Schmidt)."""
+    Two launches per round: the solve, then the norms and the cluster
+    Gram-Schmidt as one cooperative launch across the card
+    (``orth_plan``)."""
     n, s = X0.shape
     f64 = torch.float64
     _check("d", d, f64, (n,))
@@ -97,20 +131,24 @@ def invit(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
     Z = X0.clone()
     if s == 0 or n == 0:
         return Z
+    plan = orth_plan(n, s, torch.cuda.get_device_properties(
+        d.device).multi_processor_count)
     # e is read only when n > 1; a 1-element stand-in keeps the pointer valid
     e_ptr = e if n > 1 else torch.zeros((1,), dtype=f64, device=d.device)
-    D, DU, DU2, Y = (torch.empty((n, s), dtype=f64, device=d.device)
-                     for _ in range(4))
+    W = torch.empty((n, s, 4), dtype=f64, device=d.device)
+    scr = torch.empty((plan.scratch,), dtype=f64, device=d.device)
+    bars = torch.zeros((iters,), dtype=torch.int32, device=d.device)
     lib = _lib()
     stream = _stream(d)
-    for _ in range(iters):
+    for r in range(iters):
         err = lib.tridiag_invit_solve(
             d.data_ptr(), e_ptr.data_ptr(), lam.data_ptr(), pivmin.data_ptr(),
-            Z.data_ptr(), D.data_ptr(), DU.data_ptr(), DU2.data_ptr(),
-            Y.data_ptr(), n, s, stream)
+            Z.data_ptr(), W.data_ptr(), n, s, stream)
         invit.launches += 1
         _raise_on(err, "tridiag_invit_solve")
-        err = lib.tridiag_invit_orth(Z.data_ptr(), cid.data_ptr(), n, s, stream)
+        err = lib.tridiag_invit_orth(
+            Z.data_ptr(), cid.data_ptr(), scr.data_ptr(), plan.scratch,
+            bars[r:].data_ptr(), n, s, plan.blocks, plan.rows, stream)
         invit.launches += 1
         _raise_on(err, "tridiag_invit_orth")
     return Z

@@ -90,6 +90,75 @@ def test_invit_vs_plain(cuda, n, s):
     assert torch.abs(Z.cpu() - Zp * sign)[:, single].max() <= 1e-10
 
 
+def _cluster_layout(name, lam):
+    """Cluster ids for the Gram-Schmidt of ``invit``: contiguous ranges of
+    columns, as the sorted shifts give them."""
+    s = lam.shape[0]
+    if name == "natural":
+        return None
+    if name == "one":
+        return torch.zeros(s, dtype=torch.int32)
+    if name == "straddle":       # clusters across the 32-column panels
+        edges = [0, 20, 53, 90, s]
+    else:                        # singletons between clusters
+        edges = [0, 1, 2, 40, 41, 75, 76, 77, s - 1, s]
+    cid = torch.zeros(s, dtype=torch.int32)
+    for c, (a, b) in enumerate(zip(edges[:-1], edges[1:])):
+        cid[a:b] = c
+    return cid
+
+
+@pytest.mark.parametrize("layout,n,s", [
+    ("natural", 3000, 130), ("one", 3000, 130), ("straddle", 3000, 130),
+    ("singletons", 3000, 130), ("one", 256, 8), ("one", 200, 33)])
+def test_invit_cluster_layouts_vs_plain_on_the_card(cuda, layout, n, s):
+    """The Gram-Schmidt across the card (panels of 32 columns) against the
+    plain version on the card: residual, orthogonality, subspace angle per
+    cluster, singletons elementwise; two runs bitwise equal."""
+    d, e = _tridiag(n, 11, cuda)
+    e2, scal = bisect_inputs(d, e)
+    lam = kernel.bisect_sturm(d, e2, torch.arange(s, device=cuda), scal)
+    cid = _cluster_layout(layout, lam)
+    cid = _cluster_ids(lam, _scale(d, e)) if cid is None else cid.to(cuda)
+    X0 = normalize_columns(start_block(n, s, None, cuda))
+    args = (d, e, lam, cid, _pivmin(d, e), X0)
+    Z = kernel.invit(*args)
+    assert torch.equal(kernel.invit(*args), Z)
+    Zp = ref.invit_ref(*args)
+    ea = torch.abs(e)
+    zero = ea.new_zeros(1)
+    tnorm = float(torch.max(torch.abs(d) + torch.cat([zero, ea])
+                            + torch.cat([ea, zero])))
+    TZ = d[:, None] * Z
+    TZ[:-1] += e[:, None] * Z[1:]
+    TZ[1:] += e[:, None] * Z[:-1]
+    R = TZ - Z * lam[None, :]
+    assert float(torch.linalg.vector_norm(R, dim=0).max()) / tnorm <= 1e-12
+    eye = torch.eye(s, dtype=Z.dtype, device=cuda)
+    assert float(torch.abs(Z.mT @ Z - eye).max()) <= 1e-12
+    sign = torch.where(torch.sum(Z * Zp, 0) < 0, -1.0, 1.0)
+    cidl = cid.long()
+    sizes = torch.bincount(cidl)
+    single = sizes[cidl] == 1
+    if bool(single.any()):
+        assert float(torch.abs(Z - Zp * sign)[:, single].max()) <= 1e-10
+    for c in torch.nonzero(sizes > 1).flatten().tolist():
+        A, B = Z[:, cidl == c], Zp[:, cidl == c]
+        assert float(torch.linalg.matrix_norm(A - B @ (B.mT @ A),
+                                              ord=2)) <= 1e-8
+
+
+def test_invit_launches_two_kernels_a_round(cuda):
+    d, e = _tridiag(200, 3, cuda)
+    e2, scal = bisect_inputs(d, e)
+    lam = kernel.bisect_sturm(d, e2, torch.arange(40, device=cuda), scal)
+    cid = torch.zeros(40, dtype=torch.int32, device=cuda)
+    X0 = normalize_columns(start_block(200, 40, None, cuda))
+    kernel.reset_launches()
+    kernel.invit(d, e, lam, cid, _pivmin(d, e), X0, iters=2)
+    assert kernel.launch_counts()["invit"] == 2 * kernel.LAUNCHES_PER_ROUND
+
+
 def test_td_solve_on_the_card_launches_both_kernels(cuda):
     p = dft_like(256, device=cuda)
     kernel.reset_launches()
@@ -338,6 +407,54 @@ def test_chase_and_replay_passes_vs_plain(cuda, n, w, column_major):
     for b, CS in zip(sbr._executed_passes(n, w), tables):
         assert torch.equal(rot_kernel.chase_pass(Wp2, b, w, n), CS)
     assert torch.equal(Wp2, Wp)
+
+
+def _chase_pass_both_paths(Wb, w, n, bs):
+    """The passes ``bs`` of the band Wb through the cluster path, the
+    cooperative path and the plain version (on the card), each bitwise
+    against the plain version."""
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    base = torch.zeros((npad, w + 2), dtype=torch.float64,
+                       device=Wb.device).mT
+    base[: w + 1, 2: 2 + n] = Wb
+    paths = {p: base.clone() for p in ("cluster", "cooperative", "plain")}
+    for b in bs:
+        tables = {"plain": rot_ref.chase_pass_ref(paths["plain"], b, w, n),
+                  "cluster": rot_kernel.chase_pass(paths["cluster"], b, w, n),
+                  "cooperative": rot_kernel.chase_launch(
+                      paths["cooperative"], b, w, n, rot_kernel.COOPERATIVE,
+                      rot_kernel.FULL)}
+        for p in ("cluster", "cooperative"):
+            assert torch.equal(tables[p], tables["plain"]), (p, b)
+            assert torch.equal(paths[p], paths["plain"]), (p, b)
+
+
+def test_chase_pass_every_width_both_paths_bitwise(cuda):
+    """Every b from 16 to 2 at n = 1001, whose 1066 padded columns do not
+    divide evenly over the cluster's CTAs."""
+    n, w = 1001, 16
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    plan = rot_kernel.chase_plan(npad, w, w, rot_kernel.cluster_capacity)
+    assert plan.path == "cluster" and npad % plan.csize != 0
+    _chase_pass_both_paths(_band(n, w, 5, cuda), w, n, range(w, 1, -1))
+
+
+def test_chase_pass_band_beyond_the_cluster_takes_the_cooperative_path(cuda):
+    """w = 100 at n = 4500: 3.9 MB of band, more than 16 CTAs hold."""
+    n, w, b = 4500, 100, 2
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    assert rot_kernel.chase_plan(npad, w, b).path == "cooperative"
+    # a band of bandwidth b stored in w + 2 diagonals
+    Wb = torch.zeros((w + 1, n), dtype=torch.float64, device=cuda)
+    Wb[: b + 1] = _randn((b + 1, n), 17, cuda)
+    Wp = torch.zeros((npad, w + 2), dtype=torch.float64, device=cuda).mT
+    Wp[: w + 1, 2: 2 + n] = Wb
+    Wq = Wp.clone()
+    rot_kernel.reset_launches()
+    CS = rot_kernel.chase_pass(Wp, b, w, n)
+    assert rot_kernel.launch_counts()["chase_pass"] == 1
+    CSq = rot_ref.chase_pass_ref(Wq, b, w, n)
+    assert torch.equal(CS, CSq) and torch.equal(Wp, Wq)
 
 
 def test_tt_solve_on_the_card_launches_its_kernels(cuda):

@@ -17,7 +17,7 @@ from repro.core import tridiag_eig as jte
 from repro.kernels.tridiag_eig.ops import bisect_sturm as j_bisect_sturm
 from repro_torch.core import tridiag_eig as tte
 from repro_torch.kernels import _build
-from repro_torch.kernels.tridiag_eig import kernel, ops
+from repro_torch.kernels.tridiag_eig import kernel, ops, ref
 
 KEY = jax.random.PRNGKey(9)
 
@@ -205,6 +205,153 @@ def test_default_start_block_is_seeded():
     a = tte.eigh_tridiag_selected(_t(d), _t(e), torch.arange(4))
     b = tte.eigh_tridiag_selected(_t(d), _t(e), torch.arange(4))
     assert torch.equal(a.Z, b.Z)
+
+
+# ------------------------- the Gram-Schmidt of the CUDA invit, in its order --
+
+def _orth_panels(Z, cid, nb=kernel.PANEL):
+    """One Gram-Schmidt round of ``csrc/tridiag_eig.cu``'s ``invit_orth``,
+    in its order of work: every column's rescaled norm; again for the
+    singleton columns past the first; then each cluster of two or more
+    columns in panels of ``nb``: the panel projected against the cluster's
+    earlier columns (C = Z_prev^T Z_panel, Z_panel -= Z_prev C), then its
+    columns one at a time (classical: the coefficients from the column
+    after that projection), each renormalized but the first column of Z."""
+    tiny = torch.finfo(Z.dtype).tiny
+    Z = tte.normalize_columns(Z)
+    c = cid.tolist()
+    s = len(c)
+    single = [i for i in range(1, s)
+              if c[i] != c[i - 1] and (i + 1 == s or c[i + 1] != c[i])]
+    if single:
+        Z[:, single] = tte.normalize_columns(Z[:, single])
+    c0 = p0 = 0
+    while p0 < s:
+        if p0 > 0 and c[p0] != c[p0 - 1]:
+            c0 = p0
+        c1 = p0 + 1
+        while c1 < s and c[c1] == c[c0]:
+            c1 += 1
+        p1 = min(c1, p0 + nb)
+        if c1 - c0 > 1:
+            P = Z[:, p0:p1].clone()
+            if p0 > c0:
+                prev = Z[:, c0:p0]
+                P -= prev @ (prev.mT @ P)
+            for ii in range(p1 - p0):
+                if ii > 0:
+                    P[:, ii] -= P[:, :ii] @ (P[:, :ii].mT @ P[:, ii])
+                if p0 + ii > 0:
+                    P[:, ii] /= torch.clamp_min(tte.rescaled_norm(P[:, ii], 0),
+                                                tiny)
+            Z[:, p0:p1] = P
+        p0 = p1
+    return Z
+
+
+def _invit_panels(d, e, lam, cid, pivmin, X0, iters=3):
+    """The CUDA ``invit``'s rounds in plain PyTorch: the pivoted solve, then
+    ``_orth_panels`` (a second plain form beside ``invit_ref``)."""
+    Z = X0
+    for _ in range(iters):
+        Z = _orth_panels(tte._gttrf_gtts2(d, e, lam, Z, float(pivmin)), cid)
+    return Z
+
+
+def _grouped(sizes, wanted, seed):
+    """A tridiagonal whose eigenvalues come in groups: group g of sizes[g]
+    near g + 1 (spread ~1e-6, coupling 1e-7 across groups), so clusters
+    of 1e-3 ||T|| hold the groups; the ``wanted`` smallest are taken."""
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([g + 1.0 + 1e-6 * rng.standard_normal(m)
+                        for g, m in enumerate(sizes)])
+    e = 1e-6 * rng.standard_normal(d.shape[0] - 1)
+    for edge in np.cumsum(sizes)[:-1]:
+        e[edge - 1] = 1e-7
+    return d, e, np.arange(wanted)
+
+
+#: cluster layouts (group sizes, wanted): one cluster of 40 over two
+#: panels; clusters of 20, 33, 37 across the 32-column panel edges (s=90);
+#: singletons between clusters (s=40); a separated random spectrum
+INVIT_LAYOUTS = {
+    "one_cluster": ((80,), 40),
+    "straddle_panels": ((20, 33, 37, 10), 90),
+    "singletons": ((1, 1, 6, 1, 3, 1, 1, 25, 1, 8), 40),
+}
+
+
+def _layout(name):
+    if name == "separated":
+        (d, e), _ = _fixture("random128")
+        return d, e, np.arange(40)
+    sizes, wanted = INVIT_LAYOUTS[name]
+    return _grouped(sizes, wanted, len(name))
+
+
+@pytest.mark.parametrize("name", [*INVIT_LAYOUTS, "separated"])
+def test_panel_gram_schmidt_vs_reference(name):
+    """The kernel's order of work against the JAX ``inverse_iteration`` on
+    the same start block: residual and orthogonality within 1e-12, each
+    cluster's subspace within 1e-8, singleton columns within 1e-10."""
+    d, e, ks = _layout(name)
+    n, s = d.shape[0], ks.shape[0]
+    lam = np.asarray(jte.bisect_eigenvalues(jnp.asarray(d), jnp.asarray(e),
+                                            jnp.asarray(ks)))
+    Z_ref = np.asarray(jte.inverse_iteration(jnp.asarray(d), jnp.asarray(e),
+                                             jnp.asarray(lam), KEY))
+    dt, et, lt = _t(d), _t(e), _t(lam)
+    cid = tte._cluster_ids(lt, tte._scale(dt, et))
+    X0 = tte.normalize_columns(_t(_jax_x0(KEY, n, s)))
+    Z = _invit_panels(dt, et, lt, cid, tte._pivmin(dt, et), X0).numpy()
+    _check_pairs(d, e, lam, Z)
+    cidn = cid.numpy()
+    sizes = np.bincount(cidn)
+    if name != "separated":
+        assert sizes.max() > 1
+    single = sizes[cidn] == 1
+    if single.any():
+        assert np.abs(_sign_fixed(Z, Z_ref) - Z_ref)[:, single].max() <= 1e-10
+    for c in np.flatnonzero(sizes > 1):
+        A, B = Z[:, cidn == c], Z_ref[:, cidn == c]
+        assert np.linalg.norm(A - B @ (B.T @ A), 2) <= 1e-8
+
+
+def test_panel_gram_schmidt_at_the_pivmin_scale_vs_invit_ref():
+    """Shifts on exact eigenvalues of a diagonal T: a clamped zero pivot
+    sends the solve's columns to ~1/pivmin, where the reference's naive
+    norm overflows (ROADMAP.md §3), so the oracle is ``invit_ref``."""
+    d = np.array([1.0, 1.0 + 1e-9, 1.0 + 2e-9, 2.0, 3.0, 3.0 + 1e-9, 5.0,
+                  7.0])
+    e = np.zeros(7)
+    dt, et = _t(d), _t(e)
+    lam = tte.bisect_eigenvalues(dt, et, torch.arange(6))
+    cid = tte._cluster_ids(lam, tte._scale(dt, et))
+    piv = tte._pivmin(dt, et)
+    X0 = tte.normalize_columns(_t(_jax_x0(KEY, 8, 6)))
+    first = tte._gttrf_gtts2(dt, et, lam, X0, float(piv))
+    assert float(first.abs().max()) > 1e250          # the 1/pivmin scale
+    Z = _invit_panels(dt, et, lam, cid, piv, X0)
+    Zp = ref.invit_ref(dt, et, lam, cid, piv, X0)
+    assert torch.isfinite(Z).all()
+    _check_pairs(d, e, lam.numpy(), Z.numpy())
+    cidl = cid.long()
+    for c in torch.unique(cidl).tolist():
+        A, B = Z[:, cidl == c], Zp[:, cidl == c]
+        assert float(torch.linalg.matrix_norm(A - B @ (B.mT @ A), 2)) <= 1e-8
+
+
+def test_orth_plan_spans_the_card():
+    """The Gram-Schmidt runs a block per SM at the paper's sizes, each with
+    its rows of a 32-column panel in shared memory."""
+    md = kernel.orth_plan(9997, 100, 132)
+    dft = kernel.orth_plan(17243, 448, 132)
+    assert (md.blocks, md.rows, dft.blocks, dft.rows) == (132, 76, 132, 131)
+    assert dft.smem == 131 * kernel.PANEL * 8 <= kernel.SMEM_MAX
+    assert kernel.orth_plan(12, 3, 132).blocks == 1
+    with pytest.raises(ValueError, match="n up to"):
+        kernel.orth_plan(10 ** 6, 4, 132)
+    assert kernel.LAUNCHES_PER_ROUND == 2
 
 
 # -------------------------------------------------- norms, wrappers, build --

@@ -349,6 +349,63 @@ def test_chase_stagger_keeps_lane_footprints_disjoint(n):
                 assert hi < lo, (n, b, t, spans)
 
 
+@pytest.mark.parametrize("n,w", [(9, 7), (97, 16), (200, 5), (1001, 16)])
+def test_cluster_ctas_take_every_active_lane_once(n, w):
+    """At every step of every pass, the lanes that the cluster chase's CTAs
+    take (``cta_lanes``, the kernel's decode) cover each active lane of the
+    wavefront schedule exactly once, in the CTA that holds its plane, and
+    each lane's footprint lies in that CTA's columns or the previous
+    CTA's."""
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    for b in range(w, 1, -1):
+        g = rot_sched.chase_stagger(b)
+        _, T_pass, G, J, K0 = rot_sched.pass_schedule(n, b, g)
+        plan = rot_kernel.chase_plan(npad, w, b)
+        csize, cpc = plan.csize, plan.cpc
+        assert plan.path == "cluster"
+        assert csize * cpc >= npad and cpc >= w + 3
+        for t in range(T_pass):
+            jtop = min(t // g, J - 1)
+            want = {j for j in range(max(jtop - G + 1, 0), jtop + 1)
+                    if t - g * j < (n - 1 - j - b) // b + 1}
+            got = []
+            for rank in range(csize):
+                c0 = rank * cpc
+                for j in rot_sched.cta_lanes(t, c0, min(npad, c0 + cpc), b,
+                                             g, J):
+                    r = j + (t - g * j + 1) * b
+                    if r <= n - 1:          # the kernel's k < K_j
+                        assert c0 <= r + rot_sched.P_LEFT < c0 + cpc
+                        # the footprint: this CTA's columns or the last's
+                        assert r - b - 2 + rot_sched.P_LEFT >= c0 - cpc
+                        got.append(j)
+            assert sorted(got) == sorted(want)
+
+
+@pytest.mark.parametrize("n,w,path,csize", [
+    (9997, 16, "cluster", 16), (17243, 16, "cluster", 16),
+    (17243, 32, "cooperative", 0), (4500, 100, "cooperative", 0),
+    (512, 16, "cluster", 16), (9, 7, "cluster", 4)])
+def test_chase_plan_by_band_size(n, w, path, csize):
+    """The band in one cluster's distributed shared memory where a CTA's
+    share (its columns and its lanes' (c, s)) fits and holds w+3 columns
+    or more, else the cooperative kernel; a cluster size the card cannot
+    run is skipped."""
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    for b in (w, 2):
+        plan = rot_kernel.chase_plan(npad, w, b)
+        assert (plan.path, plan.csize) == (path, csize)
+        if path == "cluster":
+            assert plan.smem <= rot_kernel.SMEM_MAX
+            assert plan.csize * plan.cpc >= npad
+    if path == "cluster":     # a card that runs clusters of 8 only
+        eight = rot_kernel.chase_plan(npad, w, w, lambda c, smem: c == 8)
+        cpc, smem = rot_kernel.cluster_share(npad, w, w, 8)
+        fits = smem <= rot_kernel.SMEM_MAX and cpc >= w + 3
+        assert (eight.path, eight.csize) == (
+            ("cluster", 8) if fits else ("cooperative", 0))
+
+
 def test_pass_schedule_matches_the_reference():
     for n in (3, 9, 40, 97, 9997):
         for b in range(2, 17):
