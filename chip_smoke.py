@@ -34,9 +34,16 @@ Phases, each printed as it runs; any failed check exits nonzero:
    rounding error of ``symm_block`` and ``torch.matmul`` against an
    extended-precision reference;
 3b. the TT kernels against their plain versions on CPU copies:
-   ``house_panel`` on the first panel of the MD standard-form C
-   (``C[:, :16]``, row_start 16) and on a mid-ladder panel (V and T
-   entrywise, I - V T V^T orthogonal); ``syr2k`` on the first window
+   ``house_panel`` through both its paths (the plan's: the active rows in
+   one cluster's distributed shared memory; the cooperative kernel) on
+   the first panel of the MD standard-form C (``C[:, :16]``, row_start
+   16), on the first DFT panel and on a mid-ladder MD panel (V and T
+   entrywise, I - V T V^T orthogonal, bitwise on repeat), the paths in
+   turns, and on the first MD panel by part: the wrapper's time a call and
+   its host enqueue, each path's device time (``torch.profiler``) and
+   timing variants (barriers alone, no cross-CTA sums, the cooperative
+   kernel without barriers) in turns, and ``torch.geqrf`` on the same
+   rows; ``syr2k`` on the first window
    (n=9997, k=16) within gamma_{2k+1} (|C| + |V||W|^T + |W||V|^T), beside
    ``torch.addmm`` of the concatenated panels; ``rot_apply`` bitwise at
    the chase's wavefront shapes and a replay shape, beside ``torch.matmul``
@@ -44,14 +51,22 @@ Phases, each printed as it runs; any failed check exits nonzero:
    events) and as device time (``torch.profiler``); the whole TT2 chase
    (``chase_pass``, both paths: the band in one cluster's distributed
    shared memory, and the cooperative kernel) and the TT4 replay
-   (``replay_pass``) of the MD band at n=512, w=16 against the plain
+   (``replay_pass``, both paths: the slab's columns in shared memory, and
+   the sweep kernel) of the MD band at n=512, w=16 against the plain
    versions on the host CPU; then, at the main path's n=9997, w=16, the
    whole chase, its first and last pass also through the cooperative path
    and the plain version on the card (on the same input), each pass timed,
    and the parts of a step timed apart on those two passes (each path
    whole, its barriers alone, without them; the kernel's timing variants)
-   and the replay of all the MD tables onto an (n, 100) slab; the band
-   within 1e-12 ||W||_2, the slab within 1e-12, and band, tables and slab
+   and the replay of all the MD tables onto an (n, 100) slab through both
+   paths against the plain version on the card, each pass timed, and by
+   part (no table, no chunk barrier, lane 0 alone), and forward onto
+   (n, 528), (n, 1056) and (n, n), ``accumulate_q2``'s shape, through
+   both paths,
+   bitwise against each other; the DFT replay (all the DFT tables from
+   phase 2 onto (17243, 448)) through both paths, bitwise against each
+   other; the band within
+   1e-12 ||W||_2, the slab within 1e-12, and band, tables and slab
    bitwise;
 3c. the BLAS kernels at the MD shapes, with U = cholesky_upper(B):
    ``gemm`` at (n, n)(n, 100) and (n, n)(n, n) within gamma_k |A||B| of
@@ -83,7 +98,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    and one KE solve under ``torch.profiler``: wall, host enqueue and
    device time by kernel); ``solve(A, B, 100, variant="TT",
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
-   ``chase_pass`` and ``replay_pass``, 6 of ``invit``) and TT and TD on
+   ``chase_pass`` and ``replay_pass``, 6 of ``invit``; the plans the
+   ``replay_pass`` and ``house_panel`` launches took) and TT and TD on
    the DFT pencil at the paper's size (n=17243, s=448); each held to the
    Table-3 bars (1e-12) and to the
    generator's exact spectrum; the blocked stages (the paper's Table 4):
@@ -544,38 +560,120 @@ def _wide_matrix(n: int, seed: int, device):
     return A
 
 
-def compare_house_panel(label: str, E, row_start: int, checks: Checks):
-    """``house_panel`` on the panel E[row_start:, :] against its plain
-    version (CPU copy): V and T entrywise, and I - V T V^T orthogonal."""
+def _house_run(E, row_start: int, plan, mode: int):
+    """One launch of ``house_panel``'s kernel on ``plan``'s path in
+    ``mode`` (no launch counted); returns (V, T)."""
+    import torch
+    from repro_torch.kernels.house_panel import kernel
+    rows, b = E.shape
+    V = torch.empty((rows, b), dtype=torch.float64, device=E.device)
+    T = torch.empty((b, b), dtype=torch.float64, device=E.device)
+    kernel.house_launch(E, row_start, V, T, plan, mode)
+    return V, T
+
+
+def compare_house_panel(label: str, E, row_start: int, checks: Checks,
+                        by_part: bool = False):
+    """``house_panel`` on the panel E[row_start:, :] through the wrapper
+    (its plan's path, the cluster where the rows fit) and the cooperative
+    kernel forced, against its plain version (CPU copy): V and T
+    entrywise, I - V T V^T orthogonal, bitwise on repeat; wrapper,
+    cooperative kernel and plain in turns. With ``by_part``: the
+    wrapper's host enqueue a call, each path's device time
+    (``torch.profiler``), the timing variants of the plan's path and the
+    cooperative kernel in turns (barriers alone, no cross-CTA sums; the
+    cooperative kernel also with no barrier), and ``torch.geqrf`` on the
+    same active rows (V and tau, no T: the closest one call). Returns the
+    wrapper's row and its checked (V, T)."""
     import torch
     from repro_torch.kernels.house_panel import kernel, ref
 
     rows, b = E.shape
     E_h = E.cpu()
-    kernel.house_panel(E, row_start)                  # warm-up
-    (V, T), k1 = _time_cuda(lambda: kernel.house_panel(E, row_start))
+    plan = kernel.house_plan(max(rows - row_start, 0), b,
+                             kernel.cluster_capacity)
+    run = {"wrapper": lambda: kernel.house_panel(E, row_start),
+           "cooperative": lambda: _house_run(E, row_start,
+                                             kernel.COOPERATIVE, kernel.FULL)}
+    for fn in run.values():
+        fn()                                          # warm-up
+    out, ms = {}, {k: [] for k in run}
     (Vp, Tp), p1 = _time_host(lambda: ref.house_panel_ref(E_h, row_start))
-    _, k2 = _time_cuda(lambda: kernel.house_panel(E, row_start))
-    _, p2 = _time_host(lambda: ref.house_panel_ref(E_h, row_start))
-    err = max(float((V.cpu() - Vp).abs().max()),
-              float((T.cpu() - Tp).abs().max()))
-    Q = torch.eye(rows, dtype=torch.float64, device=E.device)
-    Q.addmm_(V @ T, V.mT, alpha=-1.0)
-    orth = float((Q.mT @ Q - torch.eye(rows, dtype=torch.float64,
-                                       device=E.device)).abs().max())
-    del Q
+    for _ in range(2):
+        for k, fn in run.items():
+            o, t = _time_cuda(fn, TIMING_REPS)
+            out.setdefault(k, []).append(o)
+            ms[k].append(t)
+    eye = torch.eye(rows, dtype=torch.float64, device=E.device)
+    err = 0.0
+    for k, ((V, T), (V2, T2)) in out.items():
+        e = max(float((V.cpu() - Vp).abs().max()),
+                float((T.cpu() - Tp).abs().max()))
+        Q = eye.clone()
+        Q.addmm_(V @ T, V.mT, alpha=-1.0)
+        orth = float((Q.mT @ Q - eye).abs().max())
+        del Q
+        where = f"{label} house_panel, {k} path"
+        checks.check(f"{where} V, T vs plain", e <= HOUSE_TOL,
+                     f"max |kernel - plain| = {e!r} (bar {HOUSE_TOL}, "
+                     f"|v| <= 1)")
+        checks.check(f"{where} Q orthogonal", orth <= HOUSE_ORTH * rows,
+                     f"max |Q^T Q - I| = {orth!r} (bar {HOUSE_ORTH} * "
+                     f"{rows})")
+        checks.check(f"{where} repeats bitwise",
+                     bool(torch.equal(V, V2) and torch.equal(T, T2)),
+                     f"max |run 1 - run 2| = {float((V - V2).abs().max())!r}")
+        if k == "wrapper":
+            err = e
+    checked = out["wrapper"][0]
+    del eye, out
     print(f"{label} house_panel ({rows} x {b}, row_start {row_start}): "
-          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.1f} / {p2:.1f} ms "
-          f"(plain on the host CPU)", flush=True)
-    checks.check(f"{label} house_panel V, T vs plain", err <= HOUSE_TOL,
-                 f"max |kernel - plain| = {err!r} (bar {HOUSE_TOL}, |v| <= 1)")
-    checks.check(f"{label} house_panel Q orthogonal",
-                 orth <= HOUSE_ORTH * rows,
-                 f"max |Q^T Q - I| = {orth!r} (bar {HOUSE_ORTH} * {rows})")
+          f"wrapper, plan {plan.path} ({plan.csize} CTAs of {plan.rpc} "
+          f"rows, {plan.smem} bytes) {ms['wrapper'][0]:.4f} / "
+          f"{ms['wrapper'][1]:.4f} ms, cooperative {ms['cooperative'][0]:.4f}"
+          f" / {ms['cooperative'][1]:.4f} ms a call ({TIMING_REPS} in a "
+          f"window), plain {p1:.1f} ms (plain on the host CPU)", flush=True)
+    library = None
+    if by_part:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMING_REPS):
+            run["wrapper"]()
+        host = 1e3 * (time.perf_counter() - t0) / TIMING_REPS
+        torch.cuda.synchronize()
+        parts = {f"{k} device (torch.profiler)": _device_ms(fn)
+                 for k, fn in run.items()}
+        paths = {"plan": plan, "cooperative": kernel.COOPERATIVE}
+        variants = [(k, name, mode) for k in paths
+                    for name, mode in (("barriers only", kernel.BARRIER_ONLY),
+                                       ("no barrier", kernel.NO_BARRIER),
+                                       ("no cross-CTA sums", kernel.NO_SUMS))
+                    if not (k == "plan" and plan.path == "cluster"
+                            and mode == kernel.NO_BARRIER)]
+        times = {}
+        for _ in range(2):
+            for k, name, mode in variants:
+                _, t = _time_cuda(lambda: _house_run(E, row_start, paths[k],
+                                                     mode), TIMING_REPS)
+                times.setdefault(f"{k} {name}", []).append(t)
+        # geqrf on the active rows: V and tau of the same reflectors
+        A = E[row_start:].clone()
+        geqrf = lambda: torch.geqrf(A)  # noqa: E731
+        geqrf()
+        g = [_time_cuda(geqrf, TIMING_REPS)[1] for _ in range(2)]
+        library = sum(g) / 2
+        print(f"{label} house_panel by part (ms a launch, in turns): wrapper "
+              f"host enqueue a call {host:.4f}; " + "; ".join(
+                  f"{k} {_ms(v)}" for k, v in parts.items()) + "; " +
+              "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
+                        for k, v in times.items()) +
+              f"; torch.geqrf of the {rows - row_start} x {b} active rows "
+              f"{g[0]:.4f} / {g[1]:.4f} (V and tau, no T)", flush=True)
     # E in, V and T out; ~4 rows b^2 flops over the b reflectors
-    return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                library_ms=None,
-                **_bound(4.0 * rows * b * b, 8 * (2 * rows * b + b * b)))
+    return dict(max_abs_err=err, ms=sum(ms["wrapper"]) / 2, plain_ms=p1,
+                library_ms=library,
+                **_bound(4.0 * rows * b * b, 8 * (2 * rows * b + b * b))), \
+        checked
 
 
 def compare_syr2k(label: str, C, V, W, checks: Checks) -> dict:
@@ -742,50 +840,143 @@ def _per_launch(bound: dict, launches: int) -> dict:
 
 
 def compare_replay(label: str, passes, tables, n: int, plain_dev,
-                   checks: Checks, dev, seed: int = 6) -> dict:
-    """TT4's replay of the chase tables onto an (n, 100) slab in reverse
-    (``replay_pass``, one launch per pass) against its plain version on
-    ``plain_dev`` copies; kernel and plain in turns. Bitwise: the same
-    rotations in the same order, no FMA. Returns the row, per launch."""
+                   checks: Checks, dev, cols: int = 100, seed: int = 6,
+                   by_part: bool = False) -> dict:
+    """TT4's replay of the chase tables onto an (n, cols) slab in reverse,
+    one launch per pass, through the wrapper ``replay_pass`` (its plan's
+    path, the slab in shared memory where a column fits) and the sweep
+    kernel forced, against the plain version on ``plain_dev`` copies
+    (None: against the sweep kernel, where the plain version would take
+    minutes), in turns; bitwise: the same rotations in the same order, no
+    FMA. Then the wrapper pass by pass; with ``by_part``, the plan's
+    timing variants over all passes in turns (no table, no barrier between
+    chunks, lane 0 alone). Returns the wrapper's row, per launch."""
     import torch
     from repro_torch.kernels.rot_apply import kernel, ref
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    Z = torch.randn((n, 100), generator=gen, dtype=torch.float64, device=dev)
-    tables_p = [t.to(plain_dev) for t in tables]
+    Z = torch.randn((n, cols), generator=gen, dtype=torch.float64,
+                    device=dev)
+    plan = kernel.replay_plan(n, cols)
+    order = list(zip(reversed(passes), reversed(tables)))
 
-    def replay_k():
+    def wrapper():
         Y = Z.clone()
-        for b, CS in zip(reversed(passes), reversed(tables)):
-            kernel.replay_pass(Y, CS, b, n, reverse=True)
+        for b, CS in order:
+            kernel.replay_pass(Y, CS, b, n, True)
         return Y
+
+    def replay(p, mode=kernel.REPLAY_FULL):
+        def go():
+            Y = Z.clone()
+            for b, CS in order:
+                kernel.replay_launch(Y, CS, b, n, True, p, mode)
+            return Y
+        return go
 
     def replay_p():
         Y = Z.to(plain_dev, copy=True)
-        for b, CS in zip(reversed(passes), reversed(tables_p)):
-            ref.replay_pass_ref(Y, CS, b, n, reverse=True)
+        for b, CS in order:
+            ref.replay_pass_ref(Y, CS.to(plain_dev), b, n, reverse=True)
         return Y
 
-    replay_k()                                        # warm-up
-    Yk, k1 = _time_cuda(replay_k)
-    Yp, p1 = _time_cuda(replay_p)
-    _, k2 = _time_cuda(replay_k)
-    _, p2 = _time_cuda(replay_p)
-    Yk, Yp = Yk.cpu(), Yp.cpu()
-    err = float((Yk - Yp).abs().max())
+    old = replay(kernel.SWEEP)
+    wrapper()                                         # warm-up
+    Yk, k1 = _time_cuda(wrapper)
+    Ys, s1 = _time_cuda(old)
+    if plain_dev is not None:
+        Yp, p1 = _time_cuda(replay_p)
+    _, k2 = _time_cuda(wrapper)
+    _, s2 = _time_cuda(old)
     per = len(passes)
-    where = "the card" if torch.device(plain_dev).type == "cuda" else \
-        "the host CPU"
-    print(f"{label} replay ({per} passes onto ({n}, 100)): kernel "
-          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.0f} / {p2:.0f} ms (plain on "
-          f"{where})", flush=True)
-    checks.check(f"{label} replay vs plain", err <= REPLAY_TOL,
-                 f"max |kernel - plain| = {err!r} (bar {REPLAY_TOL})")
-    checks.check(f"{label} replay bitwise vs plain", torch.equal(Yk, Yp),
-                 f"max |kernel - plain| = {err!r}")
+    Yk, Ys = Yk.cpu(), Ys.cpu()
+    if plain_dev is None:
+        Yp, p1, where = Ys, None, "not run (the sweep kernel is the yardstick)"
+    else:
+        Yp = Yp.cpu()
+        where = "on the card" if torch.device(plain_dev).type == "cuda" \
+            else "on the host CPU"
+        where = f"{p1:.0f} ms ({where})"
+    err = float((Yk - Yp).abs().max())
+    print(f"{label} replay ({per} passes onto ({n}, {cols})): wrapper, plan "
+          f"{plan.path} ({plan.ctas} CTAs, 2 table slices of {plan.stage} "
+          f"bytes) {k1:.3f} / {k2:.3f} ms, sweep kernel {s1:.3f} / "
+          f"{s2:.3f} ms, plain {where}", flush=True)
+    for name, Y in (("wrapper", Yk), ("sweep path", Ys)):
+        if Y is Yp:
+            continue
+        checks.check(f"{label} replay {name} bitwise vs "
+                     f"{'plain' if plain_dev is not None else 'sweep path'}",
+                     bool(torch.equal(Y, Yp)),
+                     f"max |kernel - plain| = {float((Y - Yp).abs().max())!r}")
+    del Ys
+    Y = Z.clone()
+    each = []
+    for b, CS in order:
+        _, t = _time_cuda(lambda: kernel.replay_pass(Y, CS, b, n, True))
+        each.append((b, t))
+    print(f"{label} replay, wrapper ms per pass (b = 2..{passes[0]}): "
+          + ", ".join(f"{t:.3f}" for _, t in each), flush=True)
+    if by_part:
+        variants = {
+            "whole": replay(plan),
+            "no table (a fixed rotation)": replay(plan, kernel.NO_TABLE),
+            "no chunk barrier": replay(plan, kernel.REPLAY_NO_BARRIER),
+            "lane 0 alone": replay(plan, kernel.ONE_LANE)}
+        times = {}
+        for _ in range(2):
+            for k, fn in variants.items():
+                times.setdefault(k, []).append(_time_cuda(fn)[1])
+        chunks = sum(-(-(n - b) // (b - 1)) for b in passes)
+        print(f"{label} replay by part ({per} passes, {chunks} chunks; ms, "
+              f"in turns; us a chunk): " + "; ".join(
+                  f"{k} {v[0]:.3f} / {v[1]:.3f} "
+                  f"({1e3 * min(v) / chunks:.3f})" for k, v in times.items()),
+              flush=True)
     return dict(max_abs_err=err, ms=(k1 + k2) / 2 / per,
-                plain_ms=(p1 + p2) / 2 / per, library_ms=None,
-                **_per_launch(_replay_bound(n, 100, passes), per))
+                plain_ms=None if p1 is None else p1 / per, library_ms=None,
+                **_per_launch(_replay_bound(n, cols, passes), per))
+
+
+def replay_widths(label: str, passes, tables, n: int, widths, checks: Checks,
+                  dev, seed: int = 16) -> None:
+    """``accumulate_q2``'s replay (all passes forward onto an (n, cols)
+    slab) at slabs wider than the card: the wrapper (one CTA a column, in
+    waves) against the sweep kernel forced, in turns, bitwise."""
+    import torch
+    from repro_torch.kernels.rot_apply import kernel
+
+    for cols in widths:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        Z = torch.randn((n, cols), generator=gen, dtype=torch.float64,
+                        device=dev)
+
+        def wrapper():
+            Y = Z.clone()
+            for b, CS in zip(passes, tables):
+                kernel.replay_pass(Y, CS, b, n, False)
+            return Y
+
+        def sweep():
+            Y = Z.clone()
+            for b, CS in zip(passes, tables):
+                kernel.replay_launch(Y, CS, b, n, False, kernel.SWEEP,
+                                     kernel.REPLAY_FULL)
+            return Y
+
+        Yk, k1 = _time_cuda(wrapper)
+        Ys, s1 = _time_cuda(sweep)
+        checks.check(f"{label} forward replay onto ({n}, {cols}), wrapper "
+                     f"bitwise vs sweep path", bool(torch.equal(Yk, Ys)),
+                     f"max |wrapper - sweep| = "
+                     f"{float((Yk - Ys).abs().max())!r}")
+        del Yk, Ys, Z
+        torch.cuda.empty_cache()
+        plan = kernel.replay_plan(n, cols)
+        print(f"{label} forward replay ({len(passes)} passes onto ({n}, "
+              f"{cols}), accumulate_q2's shape): wrapper, plan {plan.path} "
+              f"({plan.ctas} CTAs) {k1:.3f} ms, sweep kernel {s1:.3f} ms",
+              flush=True)
 
 
 def _chase_agree(label: str, Wk, Wq, tk, tq, norm: float,
@@ -908,12 +1099,16 @@ def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
           f"{1e3 * sum(k_ms) / sum(steps):.3f} us a step", flush=True)
     chase_variants(label, Wb, w)
     per = len(compared)
+    replay = compare_replay(label, passes, tables, n, dev, checks, dev,
+                            by_part=True)
+    # off the main path: Q2 accumulated onto an n-column slab, and slabs of
+    # 4 and 8 waves of the card's 132 SMs
+    replay_widths(label, passes, tables, n, (528, 1056, n), checks, dev)
     return {"chase_pass": dict(
                 max_abs_err=max(errs), ms=sum(k_cmp) / per,
                 plain_ms=sum(p_cmp) / per, library_ms=None,
                 **_per_launch(_chase_bound(n, w, compared), per)),
-            "replay_pass": compare_replay(label, passes, tables, n, dev,
-                                          checks, dev)}
+            "replay_pass": replay}
 
 
 def chase_variants(label: str, Wb, w: int) -> None:
@@ -1256,6 +1451,29 @@ def profile_stage(label: str, fn) -> None:
           flush=True)
 
 
+def print_plans(label: str, n: int, s: int, w: int) -> None:
+    """The paths a TT solve at (n, s, w) takes: ``replay_plan`` of TT4's
+    (n, s) slab, and ``house_plan`` of each TT1 panel (panel p has n -
+    (p+1) w active rows), counted by path and cluster size."""
+    from collections import Counter
+
+    from repro_torch.core.sbr import _n_panels
+    from repro_torch.kernels.house_panel import kernel as hp
+    from repro_torch.kernels.rot_apply import kernel as rk
+
+    rp = rk.replay_plan(n, s)
+    panels = Counter()
+    for p in range(_n_panels(n, w)):
+        plan = hp.house_plan(max(n - (p + 1) * w, 0), w, hp.cluster_capacity)
+        panels[f"{plan.path} of {plan.csize}" if plan.csize else plan.path] \
+            += 1
+    print(f"main path {label} plans: replay_pass {rp.path} ({rp.ctas} CTAs, "
+          f"2 table slices of {rp.stage} bytes, {rp.smem} bytes); "
+          f"house_panel over "
+          f"{sum(panels.values())} panels: " + ", ".join(
+              f"{k} x{v}" for k, v in sorted(panels.items())), flush=True)
+
+
 def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     """One main-path solve with every launch count set to 0 just before and
     read just after; returns the result (its ``info["kernel_launches"]``
@@ -1343,7 +1561,6 @@ def main() -> int:
         from repro_torch.kernels.band_mv import ops as band_mv_ops
         from repro_torch.kernels.gemm import kernel as gemm_kernel
         from repro_torch.kernels.gemm import ops as gemm_ops
-        from repro_torch.kernels.house_panel.ops import house_panel
         from repro_torch.kernels.rot_apply import ops as rot_ops
         from repro_torch.kernels.trsm import ops as trsm_ops
         from repro_torch.kernels.tridiag_eig import kernel as td2_kernel
@@ -1409,13 +1626,16 @@ def main() -> int:
     # the plain versions on the card (on the host they would take minutes)
     t0 = time.perf_counter()
     dft = dft_like(args.dft_n, device=dev)
-    chase = band_chase(reduce_to_band(standard_form(dft), w=TT_W).Wb, TT_W)
-    del dft
+    C_dft = standard_form(dft)
+    dft_panel = C_dft[:, :TT_W].clone()     # its first TT1 panel (phase 3b)
+    chase = band_chase(reduce_to_band(C_dft, w=TT_W).Wb, TT_W)
+    del dft, C_dft
     torch.cuda.synchronize()
     print(f"DFT GS1+GS2+TT1+TT2 for the kernel inputs: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     compare_td2_kernels(f"DFT n={args.dft_n} s={args.dft_s}", chase.d,
                         chase.e, args.dft_s, checks, plain_dev=dev)
+    dft_tables = chase.cs                   # TT4's replay there (phase 3b)
     del chase
     torch.cuda.empty_cache()
     phase_done("2 (TD2 kernels)")
@@ -1434,8 +1654,11 @@ def main() -> int:
 
     # ---- phase 3b: the TT kernels against their plain versions -----------
     n = args.md_n
-    rows["house_panel"] = compare_house_panel(
-        f"MD C n={n} first panel", C[:, :TT_W], TT_W, checks)
+    rows["house_panel"], (V, T) = compare_house_panel(
+        f"MD C n={n} first panel", C[:, :TT_W], TT_W, checks, by_part=True)
+    compare_house_panel(f"DFT C n={args.dft_n} first panel", dft_panel, TT_W,
+                        checks)
+    del dft_panel
     # a mid-ladder panel: the middle panel of the middle window, on C
     ladder = _chunk_bounds(_n_panels(n, TT_W), default_n_chunks(n, TT_W))
     p0, p1 = ladder[len(ladder) // 2]
@@ -1443,7 +1666,6 @@ def main() -> int:
     c0 = p * TT_W - o
     compare_house_panel(f"MD C n={n} window {o} panel {p}",
                         C[o:, o + c0: o + c0 + TT_W], c0 + TT_W, checks)
-    V, T = house_panel(C[:, :TT_W], TT_W)
     rows["syr2k"] = compare_syr2k(f"MD C n={n} first window", C, V,
                                   wy_syr2k_panel(C, V, T), checks)
     del V, T
@@ -1459,6 +1681,12 @@ def main() -> int:
     rows.update(compare_chase_md(
         f"MD band n={n} w={TT_W}", band.Wb, TT_W,
         float(md.exact_evals.abs().max()), checks, dev))
+    # the DFT paper size: TT4's replay onto (n, s) against the sweep kernel
+    compare_replay(f"DFT n={args.dft_n} w={TT_W}",
+                   _executed_passes(args.dft_n, TT_W), dft_tables, args.dft_n,
+                   None, checks, dev, cols=args.dft_s)
+    del dft_tables
+    torch.cuda.empty_cache()
     phase_done("3b (TT kernels)")
     rows["band_mv"] = compare_band_mv(f"MD band n={n} w={TT_W}", band.Wb, TT_W,
                                       checks, seed=9)
@@ -1555,10 +1783,12 @@ def main() -> int:
                                             use_kernel=True))
     tt = run_solve("TT", md, args.md_s, checks, variant="TT",
                    band_width=TT_W).info["kernel_launches"]
+    print_plans("TT", args.md_n, args.md_s, TT_W)
     # the paper's second experiment at its size: TT, then TD
     dft = dft_like(args.dft_n, device=dev)
     tt_dft = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
                        band_width=TT_W).info["kernel_launches"]
+    print_plans("TT DFT", args.dft_n, args.dft_s, TT_W)
     torch.cuda.empty_cache()
     td_dft = run_solve("TD DFT", dft, args.dft_s, checks,
                        variant="TD").info["kernel_launches"]

@@ -16,28 +16,38 @@
 // What bounds it: latency. At the TT1 panel of the MD pencil (9997 x 16,
 // fp64) the bytes are E in and V out, 2.6 MB, about 0.77 us at 3.35 TB/s,
 // and the work is ~1e7 flops. But the b reflectors are dependent, and
-// each needs two reductions over the whole panel (the tail norm, then the
-// b projections v^T R): 2 b global round trips.
+// each needs reductions over the whole panel (the tail norm and the b
+// projections v^T R): 2 b grid round trips in the cooperative kernel, b
+// cluster round trips in the cluster kernel.
 //
 // Design. The TPU kernel keeps the whole panel in VMEM; a 1.3 MB panel
 // does not fit one block's 227 KB of shared memory, so the panel is split
-// by rows over up to one block per SM, each holding its rows in shared
-// memory for the whole factorization, and the blocks meet at a grid
-// barrier twice per reflector. The launch is cooperative, so all blocks
-// are resident and the barrier (a counter in global memory) cannot
-// deadlock. Per reflector: every block publishes the partial tail norm of
-// its rows (and the pivot's owner publishes alpha); barrier; every block
-// sums the partials in block order, so all blocks compute the same tau;
-// each block writes v into column j of its rows — column j holds R[:, j]
-// until then, columns < j hold V and columns > j hold R — and publishes
-// its partial v^T buf over all columns, which gives both the panel
-// projections (columns > j) and z = V^T v for the T recurrence (columns
-// < j); barrier; every block sums those in block order, updates its rows,
-// and block 0 extends T. Partials go to per-reflector slots, so no slot
-// is reused within a launch. Every sum runs in a fixed order, so a result
-// repeats bitwise.
+// by rows, each block holding its rows in shared memory for the whole
+// factorization. Two kernels:
+//   house_cluster_kernel — the active rows E[row_start:] in the
+//     distributed shared memory of one thread-block cluster of up to 16
+//     CTAs (non-portable size; 16 x 80 KB at 9997 x 16), one cluster
+//     barrier (barrier.cluster.arrive/wait) a reflector, partials read
+//     from the peers through map_shared_rank (its note below).
+//   house_panel_kernel — up to one block per SM, one cooperative launch,
+//     for panels larger than a cluster holds: the blocks meet at a grid
+//     barrier (a counter in global memory) twice per reflector. Per
+//     reflector: every block publishes the partial tail norm of its rows
+//     (and the pivot's owner publishes alpha); barrier; every block sums
+//     the partials in block order, so all blocks compute the same tau;
+//     each block writes v into column j of its rows — column j holds
+//     R[:, j] until then, columns < j hold V and columns > j hold R — and
+//     publishes its partial v^T buf over all columns, which gives both the
+//     panel projections (columns > j) and z = V^T v for the T recurrence
+//     (columns < j); barrier; every block sums those in block order,
+//     updates its rows, and block 0 extends T. Partials go to
+//     per-reflector slots, so no slot is reused within a launch.
+// Every sum runs in a fixed order, so a result repeats bitwise.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -46,6 +56,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;     // projection columns per pass over the rows
 constexpr int kMaxB = 128;
 constexpr int kMaxSmem = 200 * 1024;
+constexpr int kMaxClusterSmem = 232448;   // a CTA's dynamic shared memory
 
 // sum over the block, in a fixed order; every thread gets the total
 __device__ double block_sum(double v, double* red) {
@@ -94,6 +105,15 @@ __device__ void grid_sync(unsigned int* count, unsigned int& target) {
   __syncthreads();
 }
 
+// kMode of both kernels: kFull, the factorization; the timing variants
+// (their results are garbage: timing only) kBarrierOnly, only the
+// barriers; kNoBarrier, everything but the barriers (the cooperative
+// kernel only: its sums read L2, where a cluster's would read a CTA that
+// may have left); kNoSums, every cross-block (cross-CTA) sum replaced by
+// this block's own partial
+constexpr int kFull = 0, kBarrierOnly = 1, kNoBarrier = 2, kNoSums = 3;
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 house_panel_kernel(const double* __restrict__ E, int64_t lde,
                    double* __restrict__ V, double* __restrict__ T,
@@ -115,6 +135,16 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
   double* part_pr = part + (int64_t)b * nb;        // [b][nb][b]
   double* alphas = part_pr + (int64_t)b * nb * b;  // [b]
   unsigned int target = 0;
+  if (kMode == kBarrierOnly) {
+    for (int j = 0; j < 2 * b; ++j) grid_sync(bar, target);
+    return;
+  }
+  // the sums over blocks: in block order, or this block's own partial
+  auto sum_partials = [&](const double* vals, int64_t stride) {
+    return kMode == kNoSums
+               ? (lane == 0 ? __ldcg(vals + blk * stride) : 0.0)
+               : warp_sum_partials(vals, stride, nb);
+  };
 
   for (int idx = tid; idx < nr * b; idx += kThreads) {
     const int64_t i = r0 + idx / b;
@@ -138,10 +168,9 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     }
     sq = block_sum(sq, red);
     if (tid == 0) part_sq[(int64_t)j * nb + blk] = sq;
-    grid_sync(bar, target);
+    if (kMode != kNoBarrier) grid_sync(bar, target);
     if (warp == 0) {
-      const double total = warp_sum_partials(part_sq + (int64_t)j * nb, 1,
-                                             nb);
+      const double total = sum_partials(part_sq + (int64_t)j * nb, 1);
       if (lane == 0) {
         scal[0] = total;
         scal[1] = pivot < rows ? __ldcg(alphas + j) : 0.0;
@@ -197,10 +226,9 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
       }
       __syncthreads();
     }
-    grid_sync(bar, target);
+    if (kMode != kNoBarrier) grid_sync(bar, target);
     for (int c = warp; c < b; c += kWarps) {
-      const double t = warp_sum_partials(
-          part_pr + (int64_t)j * nb * b + c, b, nb);
+      const double t = sum_partials(part_pr + (int64_t)j * nb * b + c, b);
       if (lane == 0) proj[c] = t;
     }
     __syncthreads();
@@ -226,27 +254,246 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     V[(int64_t)r0 * b + idx] = P[idx];
 }
 
-}  // namespace
+// ---- the panel in one cluster's distributed shared memory -----------------
 
-extern "C" {
+constexpr int kClusterThreads = 512;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kMaxCluster = 16;        // CTAs of a cluster (non-portable)
 
-// doubles of the scratch the launch needs: the per-reflector partials of
-// every block, and the alphas
-int64_t house_panel_scratch_doubles(int rows, int b) {
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int nb = max(1, min(sms, (rows + 31) / 32));
-  return (int64_t)b * nb + (int64_t)b * nb * b + b;
+// The cluster barrier in two halves: arrive (release) and wait (acquire).
+// Both need the warp converged, which the compiler does not know of an asm
+// statement: __syncwarp() first.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
 
-// V (rows, b) row-major and T (b, b) row-major of E[row_start:, :]; E is
-// read through its row stride lde (unit column stride); part holds
-// house_panel_scratch_doubles(rows, b) doubles; bar is one zeroed counter.
-int house_panel_fp64(const double* E, int64_t lde, double* V, double* T,
-                     double* part, unsigned int* bar, int rows, int b,
-                     int row_start, cudaStream_t stream) {
-  if (b < 1 || b > kMaxB || rows < 1) return (int)cudaErrorInvalidValue;
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// sum of v over the first 16 lanes of a warp (lanes past them give 0), by
+// a fixed butterfly: every lane gets the same bits
+__device__ __forceinline__ double tree16(double v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Doubles of the cluster kernel's shared memory besides the rows: T, two
+// slots of published partials and of the pivot row, the block reduction,
+// and the cluster's sums, pivot row and projections.
+__host__ __device__ __forceinline__ int cluster_extra_doubles(int b) {
+  int cw = 1;
+  while (cw < b) cw <<= 1;
+  return b * b + 4 * b + kClusterWarps * cw + 3 * b;
+}
+
+// (V, T) of E[rs:, :] with the active rows rs..rows-1 split over the
+// cluster's CTAs, rpc a CTA, each holding its rows in shared memory for the
+// whole factorization. Reflector j pivots at active row j. Per reflector:
+// every CTA publishes, in its own shared memory, D[c] = sum of x_i P[i][c]
+// over its rows below the pivot (x = column j) and, if it holds the pivot,
+// the pivot row; one cluster barrier; every CTA reads all of them through
+// map_shared_rank, sums in rank order by a fixed butterfly (so every CTA
+// holds the same bits), and takes the Householder scalars of the present
+// formulas (alpha, sigma = max(sum x^2 - alpha^2, 0), safe, tau). Since
+// v = x / denom below the pivot and 1 at it, v^T P[:, c] = D[c] / denom +
+// P[pivot][c], which gives the update's projections (c > j) and z = V^T v
+// of the T recurrence (c < j) from the same sums: one barrier a reflector,
+// not two. Then v into column j, the update R -= tau v (v^T R), and the next
+// reflector's partials, all on local rows. Rank 0 keeps each z and tau and
+// runs the T recurrence once at the end, a thread a row of T. Two slots alternate: a CTA
+// overwrites slot j&1 only after the barrier of reflector j+1, which every
+// CTA passes after reading slot j&1.
+template <int kMode>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+house_cluster_kernel(const double* __restrict__ E, int64_t lde,
+                     double* __restrict__ V, double* __restrict__ T, int rows,
+                     int b, int rs, int rpc) {
+  extern __shared__ double sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int active = max(rows - rs, 0);
+  const int a0 = rank * rpc;                    // this CTA's first active row
+  const int nr = max(0, min(active, a0 + rpc) - a0);
+  int cw = 1;
+  while (cw < b) cw <<= 1;
+  const int G = kClusterThreads / cw;           // row groups
+  const int gc = tid & (cw - 1);                // this thread's column
+  const int gg = tid / cw;                      // and row group
+  double* P = sm;                               // (nr, b), this CTA's rows
+  double* Ts = P + (size_t)rpc * b;             // (b, b)
+  double* part = Ts + b * b;                    // [2][b] published partials
+  double* pivr = part + 2 * b;                  // [2][b] published pivot row
+  double* red = pivr + 2 * b;                   // block reduction
+  double* sums = red + kClusterWarps * cw;      // [b] D over the cluster
+  double* prow = sums + b;                      // [b] the pivot row
+  double* proj = prow + b;                      // [b] v^T P
+
+  if (kMode == kBarrierOnly) {
+    for (int j = 0; j <= b; ++j) {
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+  for (int idx = tid; idx < nr * b; idx += kClusterThreads)
+    P[idx] = E[(int64_t)(rs + a0 + idx / b) * lde + idx % b];
+  for (int idx = tid; idx < b * b; idx += kClusterThreads) Ts[idx] = 0.0;
+  __syncthreads();
+
+  // D[c] over this CTA's rows below pivot j, into slot j&1, in a fixed
+  // order; and the pivot row, by its owner
+  auto publish = [&](int j) {
+    double acc = 0.0;
+    if (gc < b)
+      for (int i = max(0, j + 1 - a0) + gg; i < nr; i += G)
+        acc += P[i * b + j] * P[i * b + gc];
+    int groups = G;                             // rows of red
+    if (cw < 32) {                              // the warp's groups first
+      for (int o = 16; o >= cw; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane < cw) red[warp * cw + gc] = acc;
+      groups = kClusterWarps;
+    } else {
+      red[gg * cw + gc] = acc;
+    }
+    const int pl = j - a0;
+    if (pl >= 0 && pl < nr && tid < b) pivr[(j & 1) * b + tid] = P[pl * b + tid];
+    __syncthreads();
+    for (int c = warp; c < b; c += kClusterWarps) {
+      const double t = tree16(lane < groups ? red[lane * cw + c] : 0.0);
+      if (lane == 0) part[(j & 1) * b + c] = t;
+    }
+  };
+
+  publish(0);
+  cluster_arrive();
+  for (int j = 0; j < b; ++j) {
+    const int slot = (j & 1) * b;
+    // every CTA's partials of reflector j are published past here
+    cluster_wait();
+    for (int c = warp; c < b; c += kClusterWarps) {
+      double v = 0.0;
+      if (lane < csize && (kMode != kNoSums || lane == rank))
+        v = cluster.map_shared_rank(part, lane)[slot + c];
+      v = tree16(v);
+      if (lane == 0) sums[c] = v;
+    }
+    const int owner = j < active ? j / rpc : -1;
+    if (tid < b)
+      prow[tid] = owner < 0 ? 0.0
+                  : cluster.map_shared_rank(pivr, kMode == kNoSums ? rank
+                                                                   : owner)
+                        [slot + tid];
+    __syncthreads();
+    const double alpha = prow[j];
+    double sigma = (alpha * alpha + sums[j]) - alpha * alpha;
+    sigma = sigma < 0.0 ? 0.0 : sigma;   // max(., 0), NaN passes through
+    const bool safe = sigma > 0.0;
+    const double norm_x = sqrt(alpha * alpha + sigma);
+    const double sgn = alpha >= 0.0 ? 1.0 : -1.0;
+    const double beta = safe ? -sgn * norm_x : alpha;
+    const double denom = safe ? alpha - beta : 1.0;
+    const double tau = safe ? (beta - alpha) / beta : 0.0;
+    if (tid < b) proj[tid] = safe ? sums[tid] / denom + prow[tid] : prow[tid];
+    // v into column j: 0 above the pivot, 1 at it, x / denom below
+    for (int i = tid; i < nr; i += kClusterThreads) {
+      const int a = a0 + i;
+      P[i * b + j] = a < j ? 0.0 : a == j ? 1.0
+                     : safe ? P[i * b + j] / denom : 0.0;
+    }
+    __syncthreads();
+    // T's recurrence waits for the end: keep z = proj[:j] in row j below
+    // the diagonal, and tau on it
+    if (rank == 0 && tid <= j) Ts[j * b + tid] = tid < j ? proj[tid] : tau;
+    // the update below the pivot (the pivot row is done)
+    if (gc > j && gc < b)
+      for (int i = max(0, j + 1 - a0) + gg; i < nr; i += G)
+        P[i * b + gc] -= tau * (P[i * b + j] * proj[gc]);
+    __syncthreads();
+    if (j + 1 < b) publish(j + 1);
+    // this CTA's partials of j+1 are published, and its reads of slot j&1
+    // done, before the arrival
+    cluster_arrive();
+  }
+  for (int idx = tid; idx < nr * b; idx += kClusterThreads)
+    V[(int64_t)(rs + a0) * b + idx] = P[idx];
+  for (int64_t idx = (int64_t)rank * kClusterThreads + tid;
+       idx < (int64_t)rs * b; idx += (int64_t)csize * kClusterThreads)
+    V[idx] = 0.0;
+  if (rank == 0) {
+    // T[r][j] = -tau_j sum_k T[r][k] z_j[k], k < j: row r needs only its
+    // own earlier entries, so a thread a row, columns in order
+    if (tid < b)
+      for (int j = tid + 1; j < b; ++j) {
+        double t = 0.0;
+        for (int k = tid; k < j; ++k) t += Ts[tid * b + k] * Ts[j * b + k];
+        Ts[tid * b + j] = -Ts[j * b + j] * t;
+      }
+    __syncthreads();
+    for (int idx = tid; idx < b * b; idx += kClusterThreads)
+      T[idx] = idx % b >= idx / b ? Ts[idx] : 0.0;
+  }
+  // no CTA leaves while another may still read its partials
+  cluster_wait();
+}
+
+template <int kMode>
+cudaError_t cluster_launch_config(int csize, int smem, cudaStream_t stream,
+                                  cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
+  static bool set = false;   // once a kernel instance: the largest size
+  if (!set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        house_cluster_kernel<kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxClusterSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        house_cluster_kernel<kMode>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    set = true;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(csize);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int kMode>
+int launch_cluster(const double* E, int64_t lde, double* V, double* T,
+                   int rows, int b, int rs, int csize, int rpc, int smem,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_launch_config<kMode>(csize, smem, stream, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, house_cluster_kernel<kMode>, E, lde, V, T,
+                           rows, b, rs, rpc);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch_coop(const double* E, int64_t lde, double* V, double* T,
+                double* part, unsigned int* bar, int rows, int b,
+                int row_start, cudaStream_t stream) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -258,7 +505,7 @@ int house_panel_fp64(const double* E, int64_t lde, double* V, double* T,
   static bool smem_set = false;
   cudaError_t err;
   if (!smem_set) {
-    err = cudaFuncSetAttribute(house_panel_kernel,
+    err = cudaFuncSetAttribute(house_panel_kernel<kMode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return (int)err;
@@ -267,13 +514,91 @@ int house_panel_fp64(const double* E, int64_t lde, double* V, double* T,
   void* args[] = {(void*)&E, (void*)&lde, (void*)&V, (void*)&T,
                   (void*)&part, (void*)&bar, (void*)&rows, (void*)&b,
                   (void*)&row_start, (void*)&rpb};
-  err = cudaLaunchCooperativeKernel((const void*)house_panel_kernel,
+  err = cudaLaunchCooperativeKernel((const void*)house_panel_kernel<kMode>,
                                     dim3(nb), dim3(kThreads), args, smem,
                                     stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-int house_panel_max_b() { return kMaxB; }
+}  // namespace
+
+extern "C" {
+
+// doubles of the scratch the cooperative launch needs at most: the
+// per-reflector partials of every block (one per SM at most), and the
+// alphas
+int64_t house_panel_scratch_doubles(int b) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int64_t)b * sms + (int64_t)b * sms * b + b;
+}
+
+// V (rows, b) row-major and T (b, b) row-major of E[row_start:, :]; E is
+// read through its row stride lde (unit column stride); part holds
+// house_panel_scratch_doubles(b) doubles; bar is one zeroed counter. One
+// cooperative launch; ``mode`` is kFull or a timing variant.
+int house_panel_fp64(const double* E, int64_t lde, double* V, double* T,
+                     double* part, unsigned int* bar, int rows, int b,
+                     int row_start, int mode, cudaStream_t stream) {
+  if (b < 1 || b > kMaxB || rows < 1) return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case kBarrierOnly:
+      return launch_coop<kBarrierOnly>(E, lde, V, T, part, bar, rows, b,
+                                       row_start, stream);
+    case kNoBarrier:
+      return launch_coop<kNoBarrier>(E, lde, V, T, part, bar, rows, b,
+                                     row_start, stream);
+    case kNoSums:
+      return launch_coop<kNoSums>(E, lde, V, T, part, bar, rows, b,
+                                  row_start, stream);
+    default:
+      return launch_coop<kFull>(E, lde, V, T, part, bar, rows, b, row_start,
+                                stream);
+  }
+}
+
+// The same with the panel in the distributed shared memory of one cluster
+// of csize CTAs (the wrapper's plan), rpc active rows a CTA (csize rpc >=
+// rows - row_start), smem bytes of dynamic shared memory: rpc b doubles
+// and cluster_extra_doubles(b). ``mode``: kFull, kBarrierOnly or
+// kNoSums.
+int house_cluster_fp64(const double* E, int64_t lde, double* V, double* T,
+                       int rows, int b, int row_start, int csize, int rpc,
+                       int smem, int mode, cudaStream_t stream) {
+  const int64_t active = rows > row_start ? rows - row_start : 0;
+  if (b < 1 || b > kMaxB || rows < 1 || row_start < 0 || csize < 1 ||
+      csize > kMaxCluster || rpc < 1 || (int64_t)csize * rpc < active ||
+      smem > kMaxClusterSmem ||
+      (int64_t)smem < 8 * ((int64_t)rpc * b + cluster_extra_doubles(b)))
+    return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case kBarrierOnly:
+      return launch_cluster<kBarrierOnly>(E, lde, V, T, rows, b, row_start,
+                                          csize, rpc, smem, stream);
+    case kNoSums:
+      return launch_cluster<kNoSums>(E, lde, V, T, rows, b, row_start, csize,
+                                     rpc, smem, stream);
+    default:
+      return launch_cluster<kFull>(E, lde, V, T, rows, b, row_start, csize,
+                                   rpc, smem, stream);
+  }
+}
+
+// How many clusters of csize CTAs with smem bytes each the card holds at
+// once (0: none; < 0: a CUDA error, negated).
+int house_cluster_capacity(int csize, int smem) {
+  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_launch_config<kFull>(csize, smem, 0, &cfg, &attr);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, house_cluster_kernel<kFull>,
+                                       &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return count;
+}
 
 }  // extern "C"

@@ -38,7 +38,9 @@
 //   replay_pass: at TT4 (an (n, 100) slab) the rotations' flops,
 //     1.19e8 rotations x 100 columns x 6, about 2 ms at the fp64 rate,
 //     against ~1.1 ms to read the 3.8 GB table once; and the J sweeps of
-//     a pass are dependent, one barrier each.
+//     a pass are dependent. Every column needs the whole table, so the
+//     table's bytes per SM, not the slab's, set the pace once the slab is
+//     on chip.
 //
 // Design of chase_pass. The reference gathers a dense (2b+4)^2 window per
 // wavefront lane, rotates rows and columns, and scatters the window back;
@@ -77,12 +79,35 @@
 //     most 32 (one cooperative launch), loads through L2 (ld_cg), and a
 //     grid barrier a step (an atomic counter and a spin).
 //
-// Design of replay_pass. A sweep's K0 rotations act on row pairs b >= 2
-// apart, so they are disjoint, and rows never mix columns: blocks of 1024
-// threads take 4-column chunks and loop over the J sweeps with a barrier
-// between sweeps, the sweep's (rotation, column) items spread over the
-// threads, four per thread in flight at once. Slots past a sweep's end
-// hold the identity and are skipped.
+// Design of replay_pass. Rotation (j, k) of a pass acts on rows r-1, r
+// with r = j + (k+1) b, and rows never mix columns. Two kernels:
+//   replay_slab_kernel — the slab's columns on chip. A CTA holds one
+//     column, all n rows, in shared memory for the whole pass (78 KB at
+//     n = 9997, 135 KB at n = 17243), read and written back once; a slab
+//     wider than the card runs in waves. The pass runs in chunks of
+//     m = b-1 sweeps: within a chunk the rotations of lane k touch only
+//     the b rows [j0 + (k+1) b - 1, j0 + (k+2) b - 1), disjoint across
+//     lanes, so a thread takes a lane and streams its rotations in sweep
+//     order (forward; backward with (c, -s) in reverse) through one
+//     carried row, and one barrier of the consumer threads serves b-1
+//     sweeps. Every row sees the same rotations in the same order as the
+//     sweep-by-sweep replay: the result is the same bits. The (c, s)
+//     table, 12-100x the slab's bytes a pass, is what every CTA needs
+//     whole: a producer warp stages it in slices (a range of lanes by a
+//     range of the chunk's sweeps) through two buffers with
+//     cp.async.bulk, behind mbarriers, running ahead of the consumers.
+//     (Sharing each slice across a cluster by .multicast::cluster, so L2
+//     serves it once a cluster, measured slower at the MD and DFT shapes;
+//     PERF.md keeps the numbers.) Rows are kept in shared memory with an
+//     XOR swizzle for even b, so that the lanes of a warp (b rows apart)
+//     fall on distinct banks.
+//   replay_pass_kernel — the slab in global memory, for what the slab
+//     kernel cannot take (kernels/rot_apply/kernel.py replay_plan):
+//     blocks of 1024 threads take 4-column chunks and loop over the J
+//     sweeps with a barrier between sweeps, the sweep's (rotation,
+//     column) items spread over the threads, four per thread in flight at
+//     once.
+// Slots past a sweep's end hold the identity and are skipped.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -546,6 +571,250 @@ replay_pass_kernel(double* __restrict__ X, int64_t ldx, int ncols,
   }
 }
 
+// ---- the slab replay: shared-memory slab, staged table, chunked sweeps ----
+
+constexpr int kSlabConsumers = 512;                 // threads on the lanes
+constexpr int kSlabThreads = kSlabConsumers + 32;   // and one producer warp
+// table slices in flight: two large slices measured faster than four or
+// eight smaller ones (fewer hand-offs a chunk)
+constexpr int kSlabSlots = 2;
+// kMode of replay_slab_kernel: kFull, the pass; the timing variants (their
+// results are garbage: timing only, on a scratch copy) kSlabNoTable, a
+// fixed rotation and no table at all; kNoBarrier, no barrier between
+// chunks; kSlabOneLane, only lane 0 rotates (the chain of b-1 dependent
+// rotations a chunk, with the staging and barriers as in the pass)
+constexpr int kSlabNoTable = 1, kSlabOneLane = 3;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// this thread's arrival, announcing ``bytes`` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the phase of parity ``parity`` to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\tbra LAB_WAIT;\n"
+      "DONE:\n\t}"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into this CTA's shared memory, completion counted on ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the consumer threads (not the producer warp) meet here. bar.sync, like
+// the cluster barrier, needs the warp converged, which the compiler does
+// not know of an asm statement: __syncwarp() first
+__device__ __forceinline__ void consumers_sync() {
+  __syncwarp();
+  asm volatile("bar.sync 1, %0;" :: "n"(kSlabConsumers) : "memory");
+}
+
+// slot of row r of a slab column: for even b, lanes b rows apart would
+// share banks, so the row's low four bits are XORed with the next four
+__device__ __forceinline__ int slab_pos(int r, int swz) {
+  return r ^ ((r >> 4) & swz);
+}
+
+// The table staging of a pass, the same in the producer and the consumers:
+// chunks of m = b-1 sweeps; a chunk's slices are lane ranges of L lanes
+// (a multiple of the consumers, or all lanes) by sweep ranges of h sweeps
+struct SlabGeom {
+  int m, L, h, nchunks;
+};
+
+__device__ __forceinline__ SlabGeom slab_geom(int n, int b, int J,
+                                              int stage_bytes) {
+  SlabGeom g;
+  g.m = b - 1;
+  const int kmax = (n - 1) / b;               // lanes of the first chunk
+  const int L = stage_bytes / 16 / kSlabConsumers * kSlabConsumers;
+  g.L = L < kmax ? L : kmax;
+  const int hmax = max(1, min(g.m, stage_bytes / (16 * g.L)));
+  const int parts = (g.m + hmax - 1) / hmax;
+  g.h = (g.m + parts - 1) / parts;
+  g.nchunks = (J + g.m - 1) / g.m;
+  return g;
+}
+
+// The rotations of the sweeps [i0, i0 + cnt) (chunk-local) of one lane on
+// the slab column: rows base .. base + cnt (base counts from the lane's
+// window start plus i0), the rotation of sweep i0 + u at cs(u); forward in
+// sweep order, or backward with (c, -s), one carried row at a time. (Rows
+// held in a register array, 15 sweeps unrolled and predicated, spilled at
+// 96 registers a thread and ran 10x slower on the card.)
+template <typename CsOf>
+__device__ __forceinline__ void slab_lane(double* col, int base, int cnt,
+                                          int swz, bool reverse, CsOf cs) {
+  // an explicit trip count, not unrolled: nvcc (CUDA 12.8, -O3) ran the
+  // form `for (i = i0; i < ie; ++i)` of this loop past ie. (Loading the
+  // next step's row and rotation a step ahead measured no faster.)
+  if (!reverse) {
+    double carry = col[slab_pos(base, swz)];
+#pragma unroll 1
+    for (int u = 0; u < cnt; ++u) {
+      const double2 r = cs(u);
+      const double x1 = col[slab_pos(base + u + 1, swz)];
+      double y0, y1;
+      rotate(r.x, r.y, carry, x1, &y0, &y1);
+      col[slab_pos(base + u, swz)] = y0;
+      carry = y1;
+    }
+    col[slab_pos(base + cnt, swz)] = carry;
+  } else {
+    double carry = col[slab_pos(base + cnt, swz)];
+#pragma unroll 1
+    for (int t = 0; t < cnt; ++t) {
+      const int u = cnt - 1 - t;
+      const double2 r = cs(u);
+      const double x0 = col[slab_pos(base + u, swz)];
+      double y0, y1;
+      rotate(r.x, r.y * -1.0, x0, carry, &y0, &y1);
+      col[slab_pos(base + u + 1, swz)] = y1;
+      carry = y0;
+    }
+    col[slab_pos(base, swz)] = carry;
+  }
+}
+
+// One pass of CS (J+1, K0+1, 2) onto column blockIdx.x of X (n rows used,
+// row stride ldx). Dynamic shared memory: kSlabSlots table slices of
+// stage_bytes, the slab column (n rounded up to 16), the barriers.
+template <int kMode>
+__global__ void __launch_bounds__(kSlabThreads, 1)
+replay_slab_kernel(double* __restrict__ X, int64_t ldx,
+                   const double* __restrict__ CS, int n, int b, int J, int K0,
+                   int reverse, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int lds = (n + 15) & ~15;
+  double2* stages = reinterpret_cast<double2*>(smem_raw);
+  const int stage_len = stage_bytes / 16;
+  double* slab = reinterpret_cast<double*>(smem_raw +
+                                           (size_t)kSlabSlots * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(slab + lds);
+  uint64_t* empty = full + kSlabSlots;   // the consumers are done
+  double* Xc = X + blockIdx.x;
+  const int swz = (b & 1) ? 0 : 15;
+  const bool rev = reverse != 0;
+
+  for (int r = tid; r < n; r += kSlabThreads)
+    slab[slab_pos(r, swz)] = Xc[(int64_t)r * ldx];
+  if (tid == 0) {
+    for (int s = 0; s < kSlabSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kSlabConsumers / 32);
+    }
+    // the barriers' initialization is visible to the async proxy
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const SlabGeom g = slab_geom(n, b, J, stage_bytes);
+  if (tid >= kSlabConsumers) {
+    // ---- the producer: one thread stages the table, slice by slice ------
+    if (kMode != kSlabNoTable && tid == kSlabConsumers) {
+      unsigned s = 0;
+      for (int ci = 0; ci < g.nchunks; ++ci) {
+        const int j0 = (rev ? g.nchunks - 1 - ci : ci) * g.m;
+        const int mc = min(g.m, J - j0);
+        const int Kc = (n - 1 - j0) / b;
+        const int nsb = (mc + g.h - 1) / g.h;
+        for (int k0 = 0; k0 < Kc; k0 += g.L) {
+          const int Lc = min(g.L, Kc - k0);
+          for (int si = 0; si < nsb; ++si, ++s) {
+            const int i0 = (rev ? nsb - 1 - si : si) * g.h;
+            const int hh = min(g.h, mc - i0);
+            const int slot = s % kSlabSlots;
+            const unsigned round = s / kSlabSlots;
+            if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+            mbar_expect_tx(&full[slot], (unsigned)(hh * Lc * 16));
+            double2* dst = stages + (size_t)slot * stage_len;
+            for (int i = 0; i < hh; ++i)
+              bulk_load(dst + (size_t)i * g.L,
+                        CS + ((int64_t)(j0 + i0 + i) * (K0 + 1) + k0) * 2,
+                        (unsigned)(Lc * 16), &full[slot]);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumers: lanes of a chunk, b-1 sweeps a barrier -----------
+    const int lane = tid & 31;
+    unsigned s = 0;
+    for (int ci = 0; ci < g.nchunks; ++ci) {
+      const int j0 = (rev ? g.nchunks - 1 - ci : ci) * g.m;
+      const int mc = min(g.m, J - j0);
+      const int Kc = (n - 1 - j0) / b;
+      const int nsb = (mc + g.h - 1) / g.h;
+      for (int k0 = 0; k0 < Kc; k0 += g.L) {
+        const int Lc = min(g.L, Kc - k0);
+        for (int si = 0; si < nsb; ++si, ++s) {
+          const int i0 = (rev ? nsb - 1 - si : si) * g.h;
+          const int hh = min(g.h, mc - i0);
+          const int slot = s % kSlabSlots;
+          if (kMode != kSlabNoTable) {
+            mbar_wait(&full[slot], (s / kSlabSlots) & 1);
+            __syncwarp();   // the threads left the wait's loop apart
+          }
+          const double2* st = stages + (size_t)slot * stage_len;
+          for (int kk = tid; kk < Lc; kk += kSlabConsumers) {
+            const int k = k0 + kk;
+            if (kMode == kSlabOneLane && k != 0) break;
+            // lane k's window starts at row j0 + (k+1) b - 1; its rotation
+            // at local sweep i is live while j0 + i + (k+1) b <= n-1
+            const int base = j0 + (k + 1) * b - 1;
+            const int cnt = min(i0 + hh, min(mc, n - j0 - (k + 1) * b)) - i0;
+            if (cnt <= 0) continue;
+            slab_lane(slab, base + i0, cnt, swz, rev, [&](int u) {
+              return kMode == kSlabNoTable ? make_double2(0.6, 0.8)
+                                           : st[u * g.L + kk];
+            });
+          }
+          if (kMode != kSlabNoTable) {
+            // this thread's reads of the slice (generic proxy) are ordered
+            // before the next cp.async.bulk into it (async proxy)
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[slot]);
+          }
+        }
+      }
+      // the next chunk's windows take rows this chunk's neighbours wrote
+      if (kMode != kNoBarrier) consumers_sync();
+    }
+    consumers_sync();
+    for (int r = tid; r < n; r += kSlabConsumers)
+      Xc[(int64_t)r * ldx] = slab[slab_pos(r, swz)];
+  }
+}
+
 template <int kMode>
 cudaError_t cluster_config(int csize, int smem, cudaStream_t stream,
                                   cudaLaunchConfig_t* cfg,
@@ -569,6 +838,19 @@ cudaError_t cluster_config(int csize, int smem, cudaStream_t stream,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaSuccess;
+}
+
+template <int kMode>
+int launch_slab(double* X, int64_t ldx, int ncols, const double* CS, int n,
+                int b, int J, int K0, int reverse, int stage_bytes, int smem,
+                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_slab_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  replay_slab_kernel<kMode><<<ncols, kSlabThreads, smem, stream>>>(
+      X, ldx, CS, n, b, J, K0, reverse, stage_bytes);
+  return (int)cudaGetLastError();
 }
 
 template <int kMode>
@@ -694,6 +976,38 @@ int replay_pass_fp64(double* X, int64_t ldx, int ncols, const double* CS,
   replay_pass_kernel<<<blocks, kReplayThreads, 0, stream>>>(
       X, ldx, ncols, CS, n, b, J, K0, reverse);
   return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory of the slab replay: two table slices of
+// stage_bytes, a slab column of n rows (rounded up to 16), two mbarriers
+// a slice.
+int64_t replay_slab_smem(int n, int stage_bytes) {
+  return (int64_t)kSlabSlots * stage_bytes + 8 * (int64_t)((n + 15) & ~15) +
+         8 * 2 * kSlabSlots;
+}
+
+// The same pass with the slab's columns in shared memory: one CTA a
+// column, two table slices of stage_bytes (a multiple of 16, at least
+// 16 x 512) in flight; CS must be 16-byte aligned. ``mode`` is kFull or a
+// timing variant (kSlabNoTable, kNoBarrier, kSlabOneLane).
+int replay_slab_fp64(double* X, int64_t ldx, int ncols, const double* CS,
+                     int n, int b, int J, int K0, int reverse,
+                     int stage_bytes, int mode, cudaStream_t stream) {
+  if (ncols <= 0 || J <= 0) return 0;
+  const int64_t smem = replay_slab_smem(n, stage_bytes);
+  if (stage_bytes % 16 != 0 || stage_bytes < 16 * kSlabConsumers ||
+      smem > 232448 || b < 2 || ((uintptr_t)CS & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+#define REPLAY_SLAB(M)                                                     \
+  launch_slab<M>(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,     \
+                 (int)smem, stream)
+  switch (mode) {
+    case kSlabNoTable: return REPLAY_SLAB(kSlabNoTable);
+    case kNoBarrier: return REPLAY_SLAB(kNoBarrier);
+    case kSlabOneLane: return REPLAY_SLAB(kSlabOneLane);
+    default: return REPLAY_SLAB(kFull);
+  }
+#undef REPLAY_SLAB
 }
 
 }  // extern "C"

@@ -1,33 +1,98 @@
-"""ctypes launch wrapper for ``csrc/house_panel.cu`` (the TT1 panel QR).
+"""ctypes launch wrappers for ``csrc/house_panel.cu`` (the TT1 panel QR).
 
 ``house_panel`` replaces ``house_panel_pallas``
 (``repro/kernels/house_panel/kernel.py``); the source note in the ``.cu``
-file says what bounds the kernel and what its design does about it. The
-wrapper checks device, dtype, shape and strides, allocates V, T, the
-blocks' partial sums and the zeroed grid-barrier counter with torch, makes
-one cooperative launch on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count per launch. E is
-read through its row stride: a column slice of the TT1 window goes in as
-it is.
+file says what bounds the kernels and what their design does about it.
+``house_plan`` (pure Python, reached by the CPU tests) picks the path by
+size: the active rows E[row_start:] in the distributed shared memory of
+one thread-block cluster where they fit, else the cooperative kernel
+(blocks across the card, a grid barrier twice a reflector). The wrapper
+checks device, dtype, shape and strides, allocates V and T with torch
+(the cooperative path's partials and barrier counter are cached per
+device, width and stream; the counter is zeroed before each cooperative
+launch), makes one launch on the current stream, raises if the launch
+reports an error, and adds one to its ``launches`` count per launch. E is read through its row
+stride: a column slice of the TT1 window goes in as it is.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import current_stream
 from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
-    "house_panel_fp64": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "house_panel_scratch_doubles": ([_I, _I], _L),
-    "house_panel_max_b": ([], _I),
+    "house_panel_fp64": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "house_cluster_fp64": ([_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I),
+    "house_panel_scratch_doubles": ([_I], _L),
+    "house_cluster_capacity": ([_I, _I], _I),
 }
 
+#: the widest panel (the kernels' kMaxB), the cluster kernel's threads and
+#: warps, its cluster
+#: sizes (16 is non-portable), the active rows a CTA should hold at most
+#: where a smaller cluster allows, and the largest dynamic shared memory
+#: of a CTA on the card
+MAX_B = 128
+CLUSTER_THREADS = 512
+CLUSTER_WARPS = CLUSTER_THREADS // 32
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+ROWS_PER_CTA = 640
+SMEM_MAX = 232448
+#: ``mode`` of ``house_launch``: the factorization, or a timing variant
+#: (its barriers alone; no barrier, the cooperative kernel only; every
+#: cross-block sum replaced by the block's own partial)
+FULL, BARRIER_ONLY, NO_BARRIER, NO_SUMS = range(4)
 
+
+class HousePlan(NamedTuple):
+    path: str     # "cluster" (rows in distributed shared memory) or
+    #               "cooperative" (blocks across the card, grid barriers)
+    csize: int    # CTAs of the cluster (0 on the cooperative path)
+    rpc: int      # active rows a CTA holds
+    smem: int     # bytes of dynamic shared memory a CTA
+
+
+#: the cooperative kernel's plan
+COOPERATIVE = HousePlan("cooperative", 0, 0, 0)
+
+
+def cluster_extra_doubles(b: int) -> int:
+    """Doubles of a cluster CTA's shared memory besides its rows (the
+    kernel's ``cluster_extra_doubles``): T, two slots of partials and of
+    the pivot row, the block reduction, the sums, pivot row and
+    projections."""
+    cw = 1 << max(b - 1, 0).bit_length()
+    return b * b + 4 * b + CLUSTER_WARPS * cw + 3 * b
+
+
+@functools.cache
+def house_plan(active: int, b: int, capacity=None) -> HousePlan:
+    """The cluster path for ``active`` = rows - row_start rows of width b
+    where they fit 16 CTAs' shared memory: the fewest CTAs (1, 2, 4, 8, 16)
+    that hold at most ``ROWS_PER_CTA`` rows each, or 16, among the sizes
+    the card runs (``capacity(csize)``, the clusters of that size with the
+    most shared memory it holds at once; None counts every size); else the
+    cooperative path."""
+    for csize in CLUSTER_SIZES:
+        rpc = max(1, -(-active // csize))
+        if rpc > ROWS_PER_CTA and csize < CLUSTER_SIZES[-1]:
+            continue
+        smem = 8 * (rpc * b + cluster_extra_doubles(b))
+        if smem <= SMEM_MAX and (capacity is None or capacity(csize) > 0):
+            return HousePlan("cluster", csize, rpc, smem)
+    return COOPERATIVE
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("house_panel")
     for fn, (argtypes, restype) in _SIGS.items():
@@ -37,36 +102,80 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def house_panel(E: torch.Tensor, row_start: int):
-    """(V (rows, b), T (b, b)) of E[row_start:, :] in one launch."""
+@functools.cache
+def cluster_capacity(csize: int) -> int:
+    """Clusters of ``csize`` CTAs with the most shared memory that the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    got = _lib().house_cluster_capacity(csize, SMEM_MAX)
+    if got < 0:
+        raise RuntimeError(f"house_cluster_capacity failed with cudaError "
+                           f"{-got}")
+    return got
+
+
+@functools.cache
+def _scratch(device: torch.device, b: int, stream: int):
+    """The cooperative path's partials and grid-barrier counter, one pair
+    per device, width and stream: launches on one stream run in order, so
+    they can share it; launches on two streams could race on one pair."""
+    part = torch.empty((_lib().house_panel_scratch_doubles(b),),
+                       dtype=torch.float64, device=device)
+    return part, torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def _check(E: torch.Tensor) -> torch.Tensor:
     if E.device.type != "cuda":
         raise ValueError(f"E must be a CUDA tensor, got {E.device}")
     if E.dtype != torch.float64:
         raise ValueError(f"E must be torch.float64, got {E.dtype}")
     if E.dim() != 2:
         raise ValueError(f"E must be (rows, b), got shape {tuple(E.shape)}")
+    if not 1 <= E.shape[1] <= MAX_B:
+        raise ValueError(f"the panel width must be in [1, {MAX_B}], got "
+                         f"{E.shape[1]}")
+    return E.contiguous() if E.shape[1] > 1 and E.stride(1) != 1 else E
+
+
+def house_panel(E: torch.Tensor, row_start: int):
+    """(V (rows, b), T (b, b)) of E[row_start:, :] in one launch of the
+    path ``house_plan`` picks."""
+    E = _check(E)
     rows, b = E.shape
-    lib = _lib()
-    if not 1 <= b <= lib.house_panel_max_b():
-        raise ValueError(f"the panel width must be in [1, "
-                         f"{lib.house_panel_max_b()}], got {b}")
-    if b > 1 and E.stride(1) != 1:
-        E = E.contiguous()
     V = torch.empty((rows, b), dtype=torch.float64, device=E.device)
     T = torch.empty((b, b), dtype=torch.float64, device=E.device)
     if rows == 0:
         return V, T.zero_()
-    part = torch.empty((lib.house_panel_scratch_doubles(rows, b),),
-                       dtype=torch.float64, device=E.device)
-    bar = torch.zeros((1,), dtype=torch.int32, device=E.device)
-    err = lib.house_panel_fp64(
-        E.data_ptr(), E.stride(0) if rows > 1 else b, V.data_ptr(),
-        T.data_ptr(), part.data_ptr(), bar.data_ptr(), rows, b,
-        int(row_start), torch.cuda.current_stream(E.device).cuda_stream)
+    plan = house_plan(max(rows - int(row_start), 0), b, cluster_capacity)
+    house_launch(E, int(row_start), V, T, plan, FULL)
     house_panel.launches += 1
+    return V, T
+
+
+def house_launch(E: torch.Tensor, row_start: int, V: torch.Tensor,
+                 T: torch.Tensor, plan: HousePlan, mode: int) -> None:
+    """One launch of the kernel of ``plan`` (``COOPERATIVE`` forces that
+    path) in ``mode`` into V and T; raises on a CUDA error. Counts nothing:
+    ``house_panel`` counts the main path's launches, and comparisons and
+    timings call this directly."""
+    rows, b = E.shape
+    lde = E.stride(0) if rows > 1 else b
+    stream = current_stream(E.device)
+    if plan.path == "cluster":
+        err = _lib().house_cluster_fp64(
+            E.data_ptr(), lde, V.data_ptr(), T.data_ptr(), rows, b,
+            row_start, plan.csize, plan.rpc, plan.smem, mode, stream)
+        if err != 0:
+            raise RuntimeError(f"house_cluster_fp64 failed with cudaError "
+                               f"{err}")
+        return
+    part, bar = _scratch(E.device, b, stream)
+    bar.zero_()
+    err = _lib().house_panel_fp64(E.data_ptr(), lde, V.data_ptr(),
+                                  T.data_ptr(), part.data_ptr(),
+                                  bar.data_ptr(), rows, b, row_start, mode,
+                                  stream)
     if err != 0:
         raise RuntimeError(f"house_panel_fp64 failed with cudaError {err}")
-    return V, T
 
 
 house_panel.launches = 0

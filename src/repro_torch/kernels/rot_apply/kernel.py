@@ -11,11 +11,15 @@ cooperative chase's grid-barrier counter: zeroed),
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
 and adds one to its ``launches`` count per launch.
 
-``chase_pass`` has two hand-written paths, chosen by ``chase_plan`` (pure
-Python, reached by the CPU tests): the band in the distributed shared
-memory of one thread-block cluster where it fits, else the cooperative
-kernel with the band in global memory and a grid barrier a step. Both
-are bitwise equal to the plain version.
+``chase_pass`` and ``replay_pass`` each have two hand-written paths, chosen
+by size by ``chase_plan`` and ``replay_plan`` (pure Python, reached by the
+CPU tests); all four are bitwise equal to the plain versions. The chase:
+the band in the distributed shared memory of one thread-block cluster
+where it fits, else the cooperative kernel with the band in global memory
+and a grid barrier a step. The replay: the slab's columns in shared
+memory, one a CTA, b-1 sweeps a barrier, the rotation table staged in
+slices through shared memory, where a column fits; else the sweep kernel,
+the slab in global memory and a barrier a sweep.
 
 ``rot_apply`` is a few microseconds of device work at the chase's shapes,
 so its host cost is the call's cost: the library handle is cached, the
@@ -47,6 +51,7 @@ _SIGS = {
                                 _I, _I, _I, _I, _I, _P],
     "chase_cluster_capacity": [_I, _I],
     "replay_pass_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
+    "replay_slab_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -97,6 +102,45 @@ def chase_plan(npad: int, w: int, b: int, capacity=None) -> ChasePlan:
 
 #: the cooperative kernel's plan
 COOPERATIVE = ChasePlan("cooperative", 0, 0, 0)
+
+#: the slab replay's consumer threads (a table slice holds a multiple of
+#: them in lanes) and its table slices in flight (the kernel's kSlabSlots)
+REPLAY_CONSUMERS = 512
+REPLAY_SLOTS = 2
+#: ``mode`` of ``replay_launch``: the pass, or a timing variant of the slab
+#: kernel (no table, a fixed rotation; no barrier between chunks; lane 0
+#: alone)
+REPLAY_FULL, NO_TABLE, REPLAY_NO_BARRIER, ONE_LANE = range(4)
+
+
+class ReplayPlan(NamedTuple):
+    path: str      # "slab" (columns in shared memory, b-1 sweeps a
+    #                barrier) or "sweep" (slab in global memory)
+    ctas: int      # CTAs of the launch, one a column
+    stage: int     # bytes of one table slice
+    smem: int      # bytes of dynamic shared memory a CTA
+
+
+#: the sweep kernel's plan
+SWEEP = ReplayPlan("sweep", 0, 0, 0)
+
+
+def replay_smem(n: int, stage: int) -> int:
+    """Dynamic shared memory of the slab replay (``replay_slab_smem``): the
+    table slices, a column of n rows rounded up to 16, the barriers."""
+    return REPLAY_SLOTS * stage + 8 * (-(-n // 16) * 16) + 16 * REPLAY_SLOTS
+
+
+def replay_plan(n: int, ncols: int, aligned: bool = True) -> ReplayPlan:
+    """The slab path, one CTA a column (a slab wider than the card runs in
+    waves), where a column of n rows fits a CTA's shared memory beside two
+    table slices of at least a sweep of 512 lanes each, as large as the
+    rest allows; else the sweep path, which also takes a table that is not
+    16-byte aligned (``aligned`` False: cp.async.bulk needs it)."""
+    stage = (SMEM_MAX - replay_smem(n, 0)) // REPLAY_SLOTS // 16 * 16
+    if not aligned or stage < 16 * REPLAY_CONSUMERS:
+        return SWEEP
+    return ReplayPlan("slab", ncols, stage, replay_smem(n, stage))
 
 
 @functools.cache
@@ -231,7 +275,8 @@ chase_pass.launches = 0
 def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
                 reverse: bool) -> torch.Tensor:
     """One pass of the table ``CS`` applied in place to the first n rows
-    of ``Xp`` (rows past n are left alone), in one launch."""
+    of ``Xp`` (rows past n are left alone), in one launch of the path
+    ``replay_plan`` picks."""
     _check("Xp", Xp)
     _row_major("Xp", Xp)
     _check("CS", CS)
@@ -242,12 +287,30 @@ def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     if Xp.shape[0] < n or (J, K0) != pass_schedule(n, b)[3:]:
         raise ValueError(f"the table {tuple(CS.shape)} and rows "
                          f"{Xp.shape[0]} do not fit n={n}, b={b}")
+    plan = replay_plan(n, Xp.shape[1], CS.data_ptr() % 16 == 0)
+    replay_launch(Xp, CS, b, n, reverse, plan, REPLAY_FULL)
+    replay_pass.launches += 1
+    return Xp
+
+
+def replay_launch(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
+                  reverse: bool, plan: ReplayPlan, mode: int) -> None:
+    """One launch of the replay kernel of ``plan`` (``SWEEP`` forces that
+    path) in ``mode`` (a timing variant of the slab kernel unless
+    REPLAY_FULL); raises on a CUDA error. Counts nothing, as
+    ``chase_launch``."""
+    J, K0 = CS.shape[0] - 1, CS.shape[1] - 1
+    stream = current_stream(Xp.device)
+    if plan.path == "slab":
+        err = _lib().replay_slab_fp64(
+            Xp.data_ptr(), Xp.stride(0), Xp.shape[1], CS.data_ptr(), n, b, J,
+            K0, int(reverse), plan.stage, mode, stream)
+        _raise_on(err, "replay_slab_fp64")
+        return
     err = _lib().replay_pass_fp64(Xp.data_ptr(), Xp.stride(0), Xp.shape[1],
                                   CS.data_ptr(), n, b, J, K0, int(reverse),
-                                  current_stream(Xp.device))
-    replay_pass.launches += 1
+                                  stream)
     _raise_on(err, "replay_pass_fp64")
-    return Xp
 
 
 replay_pass.launches = 0

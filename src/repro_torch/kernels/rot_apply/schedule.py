@@ -72,3 +72,50 @@ def identity_table(J: int, K0: int, like: torch.Tensor) -> torch.Tensor:
     CS = like.new_zeros((J + 1, K0 + 1, 2))
     CS[..., 0] = 1.0
     return CS
+
+
+def chunk_lanes(n: int, b: int, j0: int, mc: int):
+    """The lanes of the replay chunk of sweeps [j0, j0 + mc) (mc <= b-1),
+    as ``replay_slab_kernel`` takes them: (k, w, cnt) per lane k < K_{j0},
+    whose rotation at chunk-local sweep i < cnt acts on rows w + i, w + i + 1
+    (w = j0 + (k+1) b - 1), so that lane k touches only its b-row window
+    [w, w + b), disjoint from every other lane's."""
+    return [(k, j0 + (k + 1) * b - 1, min(mc, n - j0 - (k + 1) * b))
+            for k in range((n - 1 - j0) // b)]
+
+
+def replay_chunked(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
+                   reverse: bool, lane_order=None) -> torch.Tensor:
+    """Plain emulation of ``replay_slab_kernel``'s order, IN PLACE: chunks
+    of b-1 sweeps (the last may be shorter; in reverse the chunks run
+    backward), and in each chunk every lane's rotations in sweep order
+    (backward with (c, -s) in reverse), one lane after another, carrying
+    one row as the kernel's thread does. ``lane_order(lanes)`` may permute
+    a chunk's lanes (the kernel runs them in no fixed order). The
+    arithmetic is ``rotate``'s, so the result is the sequential replay's
+    bits. For tests: the main path never calls it."""
+    J = CS.shape[0] - 1
+    m = b - 1
+    nchunks = -(-J // m)
+    for ci in range(nchunks):
+        j0 = (nchunks - 1 - ci if reverse else ci) * m
+        lanes = chunk_lanes(n, b, j0, min(m, J - j0))
+        for k, w, cnt in (lane_order(lanes) if lane_order else lanes):
+            if not reverse:
+                carry = Xp[w].clone()
+                for i in range(cnt):
+                    c, s = CS[j0 + i, k]
+                    x1 = Xp[w + i + 1]
+                    Xp[w + i] = c * carry + s * x1
+                    carry = -s * carry + c * x1
+                Xp[w + cnt] = carry
+            else:
+                carry = Xp[w + cnt].clone()
+                for i in range(cnt - 1, -1, -1):
+                    c, s = CS[j0 + i, k]
+                    s = s * -1.0
+                    x0 = Xp[w + i]
+                    Xp[w + i + 1] = -s * x0 + c * carry
+                    carry = c * x0 + s * carry
+                Xp[w] = carry
+    return Xp

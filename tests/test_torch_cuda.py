@@ -457,6 +457,115 @@ def test_chase_pass_band_beyond_the_cluster_takes_the_cooperative_path(cuda):
     assert torch.equal(CS, CSq) and torch.equal(Wp, Wq)
 
 
+def _random_tables(n, bs, device, seed):
+    """A (J+1, K0+1, 2) table per pass b: random rotations (c, s) in the
+    live slots (k < K_j), so that rows stay bounded over many passes; the
+    identity past each sweep's end."""
+    g = torch.Generator().manual_seed(seed)
+    tables = []
+    for b in bs:
+        _, _, _, J, K0 = rot_sched.pass_schedule(n, b)
+        CS = rot_sched.identity_table(J, K0, torch.zeros(1,
+                                                         dtype=torch.float64))
+        j = torch.arange(J)[:, None]
+        live = torch.arange(K0 + 1)[None, :] < (n - 1 - j - b) // b + 1
+        theta = 6.3 * torch.rand(int(live.sum()), generator=g,
+                                 dtype=torch.float64)
+        CS[:J][live] = torch.stack([theta.cos(), theta.sin()], 1)
+        tables.append(CS.to(device))
+    return tables
+
+
+def _misaligned(CS):
+    """A copy of the table 8 bytes past a 16-byte boundary."""
+    flat = torch.empty(CS.numel() + 1, dtype=CS.dtype, device=CS.device)
+    out = flat[1:].view(CS.shape)
+    out.copy_(CS)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("n,w,ncols", [(40, 4, 2), (97, 16, 13),
+                                       (1001, 16, 1), (3000, 16, 301)])
+def test_replay_pass_every_path_bitwise_vs_plain(cuda, n, w, ncols):
+    """Every pass b = w..2, forward and reverse, through the wrapper (its
+    plan: the slab path), the wrapper on a table that is not 16-byte
+    aligned (its plan: the sweep path), the sweep kernel forced and the
+    slab kernel with the smallest table slices (512 lanes by a few
+    sweeps), against the plain version on the host: the same bits, and
+    rows past n untouched. 301 columns (odd, more than the card's SMs)
+    run in waves."""
+    bs = list(range(w, 1, -1))
+    tables = _random_tables(n, bs, cuda, n + ncols)
+    X = _randn((n + 3, ncols), n, cuda)
+    assert rot_kernel.replay_plan(n, ncols).path == "slab"
+    assert rot_kernel.replay_plan(n, ncols, False) == rot_kernel.SWEEP
+    small = 16 * rot_kernel.REPLAY_CONSUMERS
+    plans = {"sweep": rot_kernel.SWEEP,
+             "slab, small slices": rot_kernel.ReplayPlan(
+                 "slab", ncols, small, rot_kernel.replay_smem(n, small))}
+    names = ["wrapper", "wrapper, unaligned table", *plans]
+    for reverse in (False, True):
+        want = X.cpu()
+        got = {name: X.clone() for name in names}
+        for b, CS in zip(bs, tables):
+            rot_ref.replay_pass_ref(want, CS.cpu(), b, n, reverse)
+            rot_kernel.replay_pass(got["wrapper"], CS, b, n, reverse)
+            rot_kernel.replay_pass(got["wrapper, unaligned table"],
+                                   _misaligned(CS), b, n, reverse)
+            for name, plan in plans.items():
+                rot_kernel.replay_launch(got[name], CS, b, n, reverse, plan,
+                                         rot_kernel.REPLAY_FULL)
+            for name in names:
+                assert torch.equal(got[name].cpu(), want), (name, b, reverse)
+
+
+def test_replay_pass_counts_one_launch_a_pass(cuda):
+    n, b = 500, 5
+    (CS,) = _random_tables(n, [b], cuda, 3)
+    X = _randn((n, 100), 4, cuda)
+    Y = X.cpu()
+    rot_kernel.reset_launches()
+    rot_kernel.replay_pass(X, CS, b, n, reverse=True)
+    assert rot_kernel.launch_counts()["replay_pass"] == 1
+    rot_ref.replay_pass_ref(Y, CS.cpu(), b, n, reverse=True)
+    assert torch.equal(X.cpu(), Y)
+
+
+@pytest.mark.parametrize("rows,b,row_start,csize", [
+    (9997, 16, 16, 16), (5000, 16, 2000, 8), (700, 16, 100, 1),
+    (37, 5, 10, 1), (12, 8, 8, 1), (33, 4, 32, 1), (21, 16, 9, 1),
+    (4000, 40, 7, 8)])
+def test_house_panel_both_paths_vs_plain(cuda, rows, b, row_start, csize):
+    """The cluster path (16 CTAs at the first MD panel, 8 at 3000 active
+    rows, one CTA at 600 and below, pivots past the end; b not a power of
+    two) and the cooperative path, each within 1e-12 of the plain version
+    and bitwise on repeat; the wrapper takes the cluster path."""
+    M = _randn((rows, b + 3), rows + b, cuda)
+    E = M[:, 1: 1 + b]
+    plan = hp_kernel.house_plan(max(rows - row_start, 0), b,
+                                hp_kernel.cluster_capacity)
+    assert (plan.path, plan.csize) == ("cluster", csize)
+    Vp, Tp = hp_ref.house_panel_ref(E.cpu(), row_start)
+    first = {}
+    for p in (plan, hp_kernel.COOPERATIVE):
+        for _ in range(2):
+            V = torch.full((rows, b), float("nan"), dtype=torch.float64,
+                           device=cuda)
+            T = torch.full((b, b), float("nan"), dtype=torch.float64,
+                           device=cuda)
+            hp_kernel.house_launch(E, row_start, V, T, p, hp_kernel.FULL)
+            assert torch.abs(V.cpu() - Vp).max() <= 1e-12, p
+            assert torch.abs(T.cpu() - Tp).max() <= 1e-12, p
+            V0, T0 = first.setdefault(p.path, (V, T))
+            assert torch.equal(V, V0) and torch.equal(T, T0), p
+    hp_kernel.reset_launches()
+    V, T = hp_kernel.house_panel(E, row_start)
+    assert hp_kernel.launch_counts()["house_panel"] == 1
+    assert torch.equal(V, first["cluster"][0])
+    assert torch.equal(T, first["cluster"][1])
+
+
 def test_tt_solve_on_the_card_launches_its_kernels(cuda):
     n, s, w = 300, 6, 16
     p = md_like(n, device=cuda)

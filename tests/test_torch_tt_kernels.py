@@ -28,6 +28,7 @@ from repro_torch.kernels.house_panel import kernel as hp_kernel
 from repro_torch.kernels.house_panel import ops as hp_ops
 from repro_torch.kernels.rot_apply import kernel as rot_kernel
 from repro_torch.kernels.rot_apply import ops as rot_ops
+from repro_torch.kernels.rot_apply import ref as rot_ref
 from repro_torch.kernels.rot_apply import schedule as rot_sched
 from repro_torch.kernels.syr2k import kernel as syr2k_kernel
 from repro_torch.kernels.syr2k import ops as syr2k_ops
@@ -270,6 +271,155 @@ def test_chase_pass_plain_keeps_the_reference_table_layout():
                                                       dtype=torch.float64))
     # the pass leaves bandwidth w-1: the annihilated diagonals are zero
     assert torch.equal(Wp[w:], torch.zeros_like(Wp[w:]))
+
+
+# ------------------------------------------------- the slab replay's order --
+
+def _random_table(n, b, seed):
+    """A (J+1, K0+1, 2) table: random rotations (c, s) in the live slots
+    (k < K_j), the identity past each sweep's end."""
+    _, _, _, J, K0 = rot_sched.pass_schedule(n, b)
+    CS = rot_sched.identity_table(J, K0, torch.zeros(1, dtype=torch.float64))
+    rng = np.random.default_rng(seed)
+    for j in range(J):
+        Kj = (n - 1 - j - b) // b + 1
+        theta = rng.uniform(0.0, 6.3, Kj)
+        CS[j, :Kj] = _t(np.stack([np.cos(theta), np.sin(theta)], 1))
+    return CS
+
+
+def _shuffled(seed):
+    rng = np.random.default_rng(seed)
+    return lambda lanes: [lanes[i] for i in rng.permutation(len(lanes))]
+
+
+@pytest.mark.parametrize("n", [20, 37, 101])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_replay_chunk_order_bitwise_vs_plain(n, reverse):
+    """The slab kernel's order (chunks of b-1 sweeps, each lane's rotations
+    in sweep order through one carried row, the lanes in any order) gives
+    the sequential replay's bits, b = 2..16: n=20 is below 2b for b > 10,
+    and no n here is a multiple of most b. Rows past n stay untouched."""
+    for b in range(2, 17):
+        if n - b <= 0:
+            continue
+        CS = _random_table(n, b, n * 17 + b)
+        X = _t(np.random.default_rng(b).standard_normal((n + 3, 4)))
+        want = rot_ref.replay_pass_ref(X.clone(), CS, b, n, reverse)
+        got = rot_sched.replay_chunked(X.clone(), CS, b, n, reverse,
+                                       lane_order=_shuffled(n + b))
+        assert torch.equal(got, want), (n, b, reverse)
+        assert torch.equal(got[n:], X[n:])
+
+
+@pytest.mark.parametrize("n,w", [(40, 4), (37, 7), (20, 16)])
+def test_replay_chunk_order_vs_reference(n, w):
+    # the reference's own chase tables through all passes, both directions:
+    # the chunk order is bitwise the port's plain replay, and within 1e-13
+    # of the reference's _replay_pass, whose XLA build rounds each rotation
+    # its own way (as test_replay_pass_plain_vs_reference)
+    C = _sym(n, n + w)
+    band = j_sbr.reduce_to_band(jnp.asarray(C), w=w)
+    chase = j_sbr.band_chase(band.Wb, w)
+    X = np.random.default_rng(1).standard_normal((n + 2, 5))
+    X[-2:] = 0.0
+    passes = j_sbr._executed_passes(n, w)
+    for reverse in (False, True):
+        got, plain, want = _t(X), _t(X), jnp.asarray(X)
+        order = list(zip(passes, chase.cs))
+        for b, CS in (order[::-1] if reverse else order):
+            rot_sched.replay_chunked(got, _t(CS), b, n, reverse,
+                                     lane_order=_shuffled(b))
+            rot_ref.replay_pass_ref(plain, _t(CS), b, n, reverse)
+            want = j_sbr._replay_pass(want, CS, b, n, reverse)
+        assert torch.equal(got, plain)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-13)
+
+
+@pytest.mark.parametrize("n", [9, 20, 37, 64, 101])
+def test_replay_chunk_windows_disjoint_and_cover_each_touched_row_once(n):
+    """In every chunk of b-1 sweeps, the lanes' b-row windows are disjoint;
+    each rotation of the chunk's sweeps lies in its own lane's window and
+    in no other, and is counted by that lane; so each touched row is in
+    exactly one window."""
+    for b in range(2, 17):
+        if n - b <= 0:
+            continue
+        J = n - b
+        for j0 in range(0, J, b - 1):
+            mc = min(b - 1, J - j0)
+            lanes = rot_sched.chunk_lanes(n, b, j0, mc)
+            windows = [set(range(w, w + b)) for _, w, _ in lanes]
+            assert sum(map(len, windows)) == len(set().union(*windows))
+            assert [k for k, _, _ in lanes] == list(range(len(lanes)))
+            rotations = 0
+            for j in range(j0, j0 + mc):
+                for k in range((n - 1 - j - b) // b + 1):
+                    r = j + (k + 1) * b
+                    owners = [i for i, win in enumerate(windows)
+                              if {r - 1, r} <= win]
+                    assert owners == [k], (n, b, j, k)
+                    assert r - 1 - lanes[k][1] == j - j0 < lanes[k][2]
+                    rotations += 1
+            assert rotations == sum(cnt for _, _, cnt in lanes)
+
+
+@pytest.mark.parametrize("n,ncols,aligned,path,ctas", [
+    (9997, 100, True, "slab", 100),       # MD TT4: (9997, 100)
+    (17243, 448, True, "slab", 448),      # DFT TT4: in waves
+    (9997, 9997, True, "slab", 9997),     # accumulate_q2
+    (9997, 132, True, "slab", 132),       # as many columns as SMs
+    (9997, 133, True, "slab", 133),       # one more
+    (300, 13, True, "slab", 13),
+    (97, 1, True, "slab", 1),
+    (26992, 100, True, "slab", 100),      # the longest column that fits
+    (26993, 100, True, "sweep", 0),       # and one row more
+    (30000, 100, True, "sweep", 0),
+    (9997, 100, False, "sweep", 0)])      # a table not 16-byte aligned
+def test_replay_plan_by_size(n, ncols, aligned, path, ctas):
+    """The slab path, one CTA a column, where a column (rows rounded up to
+    16) fits a CTA's shared memory beside two table slices of at least 512
+    lanes each; else the sweep path, which also takes a table that
+    cp.async.bulk cannot read (not 16-byte aligned)."""
+    plan = rot_kernel.replay_plan(n, ncols, aligned)
+    assert (plan.path, plan.ctas) == (path, ctas)
+    if path == "slab":
+        assert plan.stage % 16 == 0
+        assert plan.stage >= 16 * rot_kernel.REPLAY_CONSUMERS
+        assert plan.smem == rot_kernel.replay_smem(n, plan.stage)
+        assert plan.smem <= rot_kernel.SMEM_MAX
+        # the slices take what the column leaves, to within 16 bytes each
+        assert rot_kernel.SMEM_MAX - plan.smem < 16 * rot_kernel.REPLAY_SLOTS
+    else:
+        assert plan == rot_kernel.SWEEP
+
+
+@pytest.mark.parametrize("active,b,path,csize,rpc", [
+    (9981, 16, "cluster", 16, 624),       # the first MD panel
+    (17227, 16, "cluster", 16, 1077),     # the first DFT panel
+    (17211, 32, "cooperative", 0, 0),     # w=32 at DFT: 4.4 MB
+    (9997, 128, "cooperative", 0, 0),     # b=128
+    (640, 16, "cluster", 1, 640),         # the edge of one CTA
+    (641, 16, "cluster", 2, 321),
+    (16, 16, "cluster", 1, 16),           # the last, short panels
+    (0, 16, "cluster", 1, 1),
+    (200, 64, "cluster", 1, 200),
+    (28432, 16, "cluster", 16, 1777),     # the largest that 16 CTAs hold
+    (28433, 16, "cooperative", 0, 0)])
+def test_house_plan_by_panel_size(active, b, path, csize, rpc):
+    """The cluster path where the active rows fit 16 CTAs' shared memory
+    (rows and T, partial slots and sums): the fewest CTAs holding at most
+    640 rows each, else 16; the cooperative kernel past that."""
+    plan = hp_kernel.house_plan(active, b)
+    assert (plan.path, plan.csize, plan.rpc) == (path, csize, rpc)
+    if path == "cluster":
+        assert plan.csize * plan.rpc >= active
+        assert plan.smem == 8 * (rpc * b + hp_kernel.cluster_extra_doubles(b))
+        assert plan.smem <= hp_kernel.SMEM_MAX
+        # a card that runs no cluster of 16
+        small = hp_kernel.house_plan(active, b, lambda c: c < 16)
+        assert small.path == ("cluster" if csize < 16 else "cooperative")
 
 
 # ------------------------------------------------------------- dispatch --
