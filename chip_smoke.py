@@ -16,10 +16,16 @@ Phases, each printed as it runs; any failed check exits nonzero:
    ``bisect_sturm`` bitwise, ``invit`` by residual, orthogonality,
    per-cluster subspace angle and elementwise on singleton clusters, and
    bitwise on repeat; kernel and plain timed in turns (kernel, plain,
-   kernel); one ``invit``
-   call's device time by kernel (the solve and the Gram-Schmidt); the
-   dependent-chain floors (one lane of ``bisect_sturm`` and of the
-   ``invit`` solve against all s);
+   kernel); ``bisect by levels``: the bisection at every m (levels a
+   Sturm sweep) a block holds, with the early stop and without it, in
+   turns, each bitwise against the plain version, with the kernel's own
+   step time at each lane count; the sweep at which the indices stopped
+   (min, median, max); the bisection's chain floors (one lane at m=1, and
+   the plan's sweeps x n x that one-lane step) and the wrapper against
+   m=1 without the stop at the first design's 128 threads a block, in
+   turns (checked at most a quarter of it); one ``invit`` call's device
+   time by kernel (the solve and the Gram-Schmidt); the ``invit`` solve's
+   chain floor (one shift against all s);
 3. the one-triangle product (``symm_block`` at p=1 and p=4, ``symv``)
    against its plain version on CPU copies, componentwise within
    gamma_n (|sym(triu A)| |X|), on the MD standard-form C and on a random
@@ -89,7 +95,10 @@ Phases, each printed as it runs; any failed check exits nonzero:
    > 0, "not measured" without cuobjdump);
    ``band_mv`` on the MD band (TT1 at w=16, ``to_band_mv_layout``) against
    its plain version and ``unpack_band(Wb) @ x``, within gamma_(2w+1)
-   |A||x|;
+   |A||x|; in both layouts (contiguous, and the transposed view) bitwise
+   on repeat, against the direct kernel and across layouts, with the
+   wrapper's time a call, host enqueue and device time, beside an empty
+   kernel's on the same grid (the floor of one launch);
 4. the main paths, each with every launch count set to 0 just before and
    read just after: ``solve(A, B, 100, variant="TD")`` on the MD pencil;
    ``solve(A, B, 100, variant="KE"|"KI", invert=True, use_kernel=True)``
@@ -122,6 +131,7 @@ matrices for a quick rehearsal; the defaults are the sizes above.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -277,10 +287,13 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     checks.check(f"{label} bisect_sturm bitwise",
                  torch.equal(lam_k.cpu(), lam_p),
                  f"max |kernel - plain| = {bis_err!r}")
-    # Sturm recurrence: sub, div, sub per row, lane and sweep
+    levels_needed = bisect_levels(label, d, e2, ks, scal, lam_p,
+                                  (k1 + k2) / 2, checks)
+    # Sturm recurrence: sub, div, sub per row and level, for the levels
+    # each index takes to its fixed point in this run
     rows = {"bisect_sturm": dict(
         max_abs_err=bis_err, ms=(k1 + k2) / 2, plain_ms=p1, library_ms=None,
-        **_bound(80 * n * s * 3, 8 * (2 * n + 3 + 2 * s)))}
+        **_bound(levels_needed * n * 3, 8 * (2 * n + 3 + 2 * s)))}
 
     lam = lam_k
     cid = _cluster_ids(lam, _scale(d, e))
@@ -300,7 +313,7 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     checks.check(f"{label} invit repeats bitwise",
                  bool(torch.equal(kernel.invit(*args), Z_k)),
                  "two runs of the kernel")
-    td2_chain_floors(label, d, e, e2, scal, lam, piv, X0)
+    td2_chain_floors(label, d, e, lam, piv, X0)
 
     ea = torch.abs(e)
     zero = ea.new_zeros(1)
@@ -347,20 +360,105 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     return rows
 
 
-def td2_chain_floors(label: str, d, e, e2, scal, lam, piv, X0) -> None:
-    """The dependent-chain floors of the TD2 kernels: every lane runs its
-    own chain, so one lane alone takes the least time the chain allows.
-    ``bisect_sturm`` at one index (80 n dependent Sturm steps) beside all
-    s; one ``invit`` solve launch (2n dependent steps) at one shift beside
-    all s, through the C entry point (no launch counted)."""
+def bisect_levels(label: str, d, e2, ks, scal, lam_p, wrapper_ms: float,
+                  checks: Checks) -> int:
+    """``bisect_sturm`` at each m (bisection levels a Sturm sweep) that a
+    block holds at the plan's indices a block, with the early stop and
+    without, in turns (AB BA), through ``bisect_launch`` (no launch
+    counted); every variant bitwise against the plain version. Without the
+    stop each variant runs ceil(80/m) sweeps of n steps, so its time gives
+    the kernel's own step time at the threads an SM runs (teams x 2^m).
+    Then the sweep at which the indices stopped under the plan, and the
+    bisection's chain floors: one lane alone at m=1 (80 n dependent Sturm
+    steps) against all s, and the plan's sweeps x n x that one-lane step.
+    The wrapper is timed in turns against m=1 without the stop at 64
+    indices a block (the first design's 128 threads a block) and checked
+    at most a quarter of it. Returns the levels the indices took to their
+    fixed points (the m=1 sweeps, summed)."""
+    import torch
+    from repro_torch.kernels.tridiag_eig import kernel
+
+    n, s = d.shape[0], ks.shape[0]
+    sms = kernel.sm_count(d.device.index)
+    plan = kernel.bisect_plan(n, s, sms)
+    flags = {"stop": kernel.STOP, "no stop": 0}
+    times, sweeps, bad = {}, {}, []
+    for m in range(1, kernel.MAX_LEVELS + 1):
+        p = kernel.bisect_plan(n, s, sms, levels=m)
+        if p.per_block << m > kernel.MAX_THREADS or -(-s // sms) != \
+                p.per_block:
+            continue
+        ms = {v: [] for v in flags}
+        for v in (*flags, *reversed(flags)):
+            (lam, sw), t = _time_cuda(lambda: kernel.bisect_launch(
+                d, e2, ks, scal, 80, m, p.per_block, flags[v]))
+            ms[v].append(t)
+            if not torch.equal(lam.cpu(), lam_p):
+                bad.append(f"m={m} {v}")
+            if v == "stop":
+                sweeps[m] = sw.cpu()
+        times[m] = {v: sum(t) / len(t) for v, t in ms.items()}
+    threads = {m: -(-s // sms) << m for m in times}
+    step_ns = {m: 1e6 * times[m]["no stop"] / (-(-80 // m) * n)
+               for m in times}
+    print(f"{label} bisect by levels (ms: stop / no stop; the kernel's own "
+          f"step ns at threads an SM): " +
+          "; ".join(f"m={m} {t['stop']:.3f} / {t['no stop']:.3f} "
+                    f"({step_ns[m]:.1f} ns at {threads[m]})"
+                    for m, t in times.items()), flush=True)
+    checks.check(f"{label} bisect by levels bitwise", not bad,
+                 f"{len(flags) * len(times)} variants against the plain "
+                 f"version"
+                 + (f"; differ: {', '.join(bad)}" if bad else ""))
+    sw = sweeps[plan.levels].double()
+    print(f"{label} bisect sweeps to the fixed point at the plan's m="
+          f"{plan.levels} ({plan.per_block} indices a block, {plan.blocks} "
+          f"blocks): min {int(sw.min())}, median {float(sw.median()):.0f}, "
+          f"max {int(sw.max())} of {-(-80 // plan.levels)}; levels (m=1): "
+          f"min {int(sweeps[1].min())}, median "
+          f"{float(sweeps[1].double().median()):.0f}, max "
+          f"{int(sweeps[1].max())}", flush=True)
+    # m=1 without the stop at the first design's 128 threads a block: one
+    # index alone (the chain floor), all s in turns with the wrapper
+    first = functools.partial(kernel.bisect_launch, d, e2,
+                              scal=scal, max_iters=80, levels=1,
+                              per_block=64, flags=0)
+    one = _time_cuda(lambda: first(ks=ks[:1]))[1]
+    one_ns = 1e6 * one / (80 * n)
+    calls = {"wrapper": lambda: kernel.bisect_sturm(d, e2, ks, scal),
+             "m=1": lambda: first(ks=ks)}
+    turns = {v: [] for v in calls}
+    for v in (*calls, *reversed(calls)):
+        turns[v].append(_time_cuda(calls[v])[1])
+    t = {v: sum(x) / 2 for v, x in turns.items()}
+    floor = int(sw.max()) * n * one_ns / 1e6
+    own = int(sw.max()) * n * step_ns[plan.levels] / 1e6
+    print(f"{label} bisect chain floors: one lane at m=1 {one:.3f} ms "
+          f"({80 * n} dependent steps, {one_ns:.2f} ns a step); the plan's "
+          f"{int(sw.max())} sweeps x {n} steps x {one_ns:.2f} ns = "
+          f"{floor:.3f} ms (at the kernel's own step at "
+          f"{threads[plan.levels]} threads an SM, {step_ns[plan.levels]:.1f} "
+          f"ns: {own:.3f} ms) against its {times[plan.levels]['stop']:.3f} "
+          f"ms; in turns: the wrapper {t['wrapper']:.3f} ms (earlier "
+          f"{wrapper_ms:.3f}), m=1 without the stop, 128 threads a block, "
+          f"{t['m=1']:.3f} ms", flush=True)
+    checks.check(f"{label} bisect_sturm at most a quarter of m=1",
+                 t["wrapper"] <= 0.25 * t["m=1"],
+                 f"{t['wrapper']:.3f} against {t['m=1']:.3f} ms, in turns")
+    return int(sweeps[1].sum())
+
+
+def td2_chain_floors(label: str, d, e, lam, piv, X0) -> None:
+    """The dependent-chain floor of the ``invit`` solve: every lane runs its
+    own chain (2n dependent steps), so one shift alone takes the least time
+    the chain allows; one solve launch at one shift beside all s, through
+    the C entry point (no launch counted). The bisection's is in
+    ``bisect_levels``."""
     import torch
     from repro_torch.device import current_stream
     from repro_torch.kernels.tridiag_eig import kernel
 
     n, s = X0.shape
-    ks = torch.arange(s, device=d.device)
-    bis = {k: _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks[:k], scal))[1]
-           for k in (1, s)}
     lib = kernel._lib()
     W = torch.empty((n, s, 4), dtype=torch.float64, device=d.device)
 
@@ -375,11 +473,9 @@ def td2_chain_floors(label: str, d, e, e2, scal, lam, piv, X0) -> None:
 
     solve(s)
     sol = {k: _time_cuda(lambda: solve(k))[1] for k in (1, s)}
-    print(f"{label} chain floors (one lane against all {s}): bisect_sturm "
-          f"{bis[1]:.3f} against {bis[s]:.3f} ms ({80 * n} dependent steps, "
-          f"{1e6 * bis[1] / (80 * n):.2f} ns a step); invit solve launch "
-          f"{sol[1]:.3f} against {sol[s]:.3f} ms ({2 * n} dependent steps, "
-          f"{1e6 * sol[1] / (2 * n):.2f} ns a step)", flush=True)
+    print(f"{label} chain floors (one lane against all {s}): invit solve "
+          f"launch {sol[1]:.3f} against {sol[s]:.3f} ms ({2 * n} dependent "
+          f"steps, {1e6 * sol[1] / (2 * n):.2f} ns a step)", flush=True)
 
 
 def gamma_bound(A_h, X_h):
@@ -734,13 +830,35 @@ def _device_ms(fn, calls: int = TIMING_REPS):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(ev, "device_time_total", 0.0)
-                for ev in prof.key_averages())
-    return total / 1e3 / calls if total else None
+    for _ in range(3):      # the profiler here at times records no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(ev, "device_time_total", 0.0)
+                    for ev in prof.key_averages())
+        if total:
+            return total / 1e3 / calls
+    return None
+
+
+def _queued_ms(fn, calls: int = TIMING_REPS) -> float:
+    """Device time a call with the launches queued back to back: the stream
+    held by a spin kernel while the host enqueues ``calls`` calls, CUDA
+    events around them (each launch's own gap on the card included, the
+    host's excluded)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)           # ~3 ms, longer than the enqueue
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def _ms(x) -> str:
@@ -1371,13 +1489,36 @@ def compare_trsm_tile(label: str, Ut, B, checks: Checks) -> dict:
                          FP64_TENSOR_FLOPS))
 
 
+def _host_ms(fn, calls: int = TIMING_REPS) -> float:
+    """The host's enqueue time a call over ``calls`` back-to-back calls
+    (host clock, no synchronize inside the window)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
+
+
 def compare_band_mv(label: str, Wb, w: int, checks: Checks, seed: int) -> dict:
     """``band_mv`` on the (n, w+1) layout of the TT band Wb against its
     plain version (the dense product ``band_to_dense(band) @ x``) and
     against ``unpack_band(Wb) @ x``, on the card, componentwise within
-    gamma_(2w+1) |A||x| (at most 2w+1 nonzero terms a row); in turns."""
+    gamma_(2w+1) |A||x| (at most 2w+1 nonzero terms a row); in turns. Then
+    for both layouts (the contiguous (n, w+1) array and the transposed
+    view of Wb, strides (1, n)): bitwise on repeat and against the direct
+    kernel (the first design's, which sums in the same order); the
+    wrapper's time a call (CUDA events over back-to-back calls), its host
+    enqueue and its device time (``torch.profiler``, and with the launches
+    queued back to back); the host's enqueue by piece; and an empty
+    kernel's device time and time a call on the same grid and stream, the
+    floor one launch cannot beat."""
     import torch
     from repro_torch.core.band_storage import to_band_mv_layout, unpack_band
+    from repro_torch.device import current_stream
     from repro_torch.kernels.band_mv import kernel, ref
 
     n = Wb.shape[1]
@@ -1398,19 +1539,61 @@ def compare_band_mv(label: str, Wb, w: int, checks: Checks, seed: int) -> dict:
     del A
     err = float((y - yp).abs().max())
     print(f"{label} band_mv (n={n}, w={w}): kernel {k1 * 1e3:.2f} / "
-          f"{k2 * 1e3:.2f} us, plain {p1:.2f} / {p2:.2f} ms (dense, on the "
-          f"card)", flush=True)
+          f"{k2 * 1e3:.2f} us a call, plain {p1:.2f} / {p2:.2f} ms (dense, "
+          f"on the card)", flush=True)
     checks.check(f"{label} band_mv within gamma_(2w+1) of plain",
                  bool(torch.all((y - yp).abs() <= bound)),
                  f"max |kernel - plain| = {err!r}")
     checks.check(f"{label} band_mv within gamma_(2w+1) of unpack_band @ x",
                  bool(torch.all((y - yd).abs() <= bound)),
                  f"max |kernel - dense| = {float((y - yd).abs().max())!r}")
+    smem = kernel.band_mv_plan(n, w, 128)
+    for name, bd in (("row-major", band), ("transposed view",
+                                           to_band_mv_layout(Wb))):
+        call = lambda: kernel.band_mv(bd, x, w)                   # noqa: E731
+        first, again = call(), call()
+        direct = kernel.band_mv_launch(bd, x, w, 128, 0)
+        checks.check(f"{label} band_mv {name} repeats bitwise",
+                     bool(torch.equal(first, again)), "two calls")
+        checks.check(f"{label} band_mv {name} bitwise against the direct "
+                     f"kernel", bool(torch.equal(first, direct)),
+                     f"max |staged - direct| = "
+                     f"{float((first - direct).abs().max())!r}")
+        checks.check(f"{label} band_mv {name} layouts agree bitwise",
+                     bool(torch.equal(first, y)), "against the row-major "
+                     "call")
+        direct = functools.partial(kernel.band_mv_launch, bd, x, w, 128, 0)
+        print(f"{label} band_mv {name}: a call "
+              f"{_time_cuda(call, TIMING_REPS)[1] * 1e3:.2f} us, host "
+              f"enqueue {_host_ms(call) * 1e3:.2f} us, device "
+              f"{_ms(_device_ms(call))} (torch.profiler) / "
+              f"{_queued_ms(call) * 1e3:.2f} us a launch queued; the direct "
+              f"kernel {_ms(_device_ms(direct))} / "
+              f"{_queued_ms(direct) * 1e3:.2f} us (staged {smem} bytes a "
+              f"block of 128 rows)", flush=True)
+    empty = functools.partial(kernel.empty_launch, Wb.device, n)
+    # the host's cost a call, by piece
+    y0 = torch.empty_like(x)
+    c_entry = functools.partial(
+        kernel._lib().band_mv_fp64, band.data_ptr(), w + 1, 1, x.data_ptr(),
+        y0.data_ptr(), n, w, 128, smem, current_stream(Wb.device))
+    print(f"{label} band_mv host enqueue a call, by piece: the wrapper "
+          f"{_host_ms(run) * 1e3:.2f} us; torch.empty_like(x) "
+          f"{_host_ms(lambda: torch.empty_like(x)) * 1e3:.2f} us; the C "
+          f"entry through ctypes (its launch included) "
+          f"{_host_ms(c_entry) * 1e3:.2f} us; an empty kernel through "
+          f"ctypes {_host_ms(empty) * 1e3:.2f} us", flush=True)
+    bnd = _bound(2.0 * (2 * w + 1) * n, 8.0 * (n * (w + 1) + 2 * n),
+                 FP64_TENSOR_FLOPS)
+    print(f"{label} band_mv floors: an empty kernel on its grid "
+          f"({-(-n // 128)} blocks of 128), device {_ms(_device_ms(empty))} "
+          f"/ {_queued_ms(empty) * 1e3:.2f} us a launch queued, a call "
+          f"{_time_cuda(empty, TIMING_REPS)[1] * 1e3:.2f} us, host enqueue "
+          f"{_host_ms(empty) * 1e3:.2f} us; byte bound "
+          f"{bnd['bound_ms']:.5f} ms", flush=True)
     # the band once, x once, y once; 2 (2w+1) flops a row
     return dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                library_ms=None,
-                **_bound(2.0 * (2 * w + 1) * n, 8.0 * (n * (w + 1) + 2 * n),
-                         FP64_TENSOR_FLOPS))
+                library_ms=None, **bnd)
 
 
 def _kernel_name(key: str) -> str:

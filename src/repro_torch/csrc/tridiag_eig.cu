@@ -6,14 +6,32 @@
 // on the caller's stream, allocates nothing and returns cudaGetLastError().
 //
 // bisect_sturm replaces _bisect_kernel / bisect_sturm_pallas
-// (repro/kernels/tridiag_eig/kernel.py). One thread per wanted index runs
-// all 80 bisection sweeps; each sweep is the pivmin-clamped Sturm
-// recurrence down all n rows, staged through shared memory in chunks so
-// every thread of a block reads the same row (a broadcast). What bounds it
-// on this card is latency, not bytes or flops: 80*n DEPENDENT fp64
-// divisions per lane, with s lanes on ceil(s/128) of the 132 SMs. The
-// recurrence keeps the reference's op order with the _rn intrinsics (no
-// FMA contraction), so it agrees bitwise with the plain version.
+// (repro/kernels/tridiag_eig/kernel.py). Each sweep of the bisection is the
+// pivmin-clamped Sturm recurrence down all n rows, and every step of it is
+// a DEPENDENT fp64 division: what bounds a lane on this card is that chain
+// (~81 ns a step), not bytes or flops. One lane an index takes 80 sweeps of
+// n steps (64 ms at n = 9997), and its s lanes fill a sliver of the card.
+// So the kernel shortens the chain by exact multisection: bisection from
+// (lo, hi) is a deterministic map, so the 2^m - 1 midpoints it could visit
+// in its next m levels are known ahead, each by the sequential loop's own
+// ops (mid = 0.5 (lo + hi), _rn intrinsics). A wanted index owns a team of
+// 2^m threads of one block; in a round, thread t takes heap node t + 1
+// (node 1 the round's (lo, hi), node j's children 2j and 2j + 1), derives
+// its interval from the root, and runs the Sturm recurrence at its
+// midpoint, unchanged; the counts are exchanged (warp shuffles for a team
+// within a warp, shared memory above) and every thread walks the same path
+// with right = cnt <= k. One sweep thus does m levels, and the result is
+// the sequential bisection's bit for bit (m = 1 is that loop). A level that
+// leaves (lo, hi) unchanged, bit for bit, has hit a fixed point of the map,
+// so the index is done; a block ends once all its indices are (the stop
+// flag), its threads meeting every barrier until then. The rows are staged
+// in chunks through shared memory (a broadcast: every thread reads the
+// same row; read through L1 instead, the sweep was slower at the plan's m,
+// PERF.md). The plan (levels, indices a block) is kernel.py's bisect_plan:
+// the most levels that keep an SM within the threads at which the step
+// holds its one-lane time. The recurrence keeps the reference's op
+// order with the _rn intrinsics (no FMA contraction), so it agrees bitwise
+// with the plain version.
 //
 // invit replaces _invit_kernel / invit_pallas (same file), as two launches
 // per round, Z (n, s) row-major throughout:
@@ -48,8 +66,11 @@
 
 namespace {
 
-constexpr int kBisThreads = 128;
 constexpr int kBisChunk = 2048;  // rows staged per pass: 2 x 16 KB static shared
+constexpr int kBisMaxLevels = 10;  // a team of 2^levels threads, a block at most
+constexpr int kBisMaxThreads = 1 << kBisMaxLevels;
+// flags of tridiag_bisect_sturm
+constexpr int kBisStop = 1;  // a block ends when all its indices are fixed
 constexpr int kSolveLanes = 32;  // shifts of a solve block
 constexpr int kSolveU = 8;       // rows whose loads are in flight ahead
 constexpr int kOrthThreads = 256;
@@ -60,22 +81,52 @@ __device__ __forceinline__ double clamp_piv(double q, double piv) {
   return fabs(q) < piv ? (q < 0.0 ? -piv : piv) : q;
 }
 
-__global__ void __launch_bounds__(kBisThreads)
+// the index's state after a level: unchanged bit for bit is a fixed point
+__device__ __forceinline__ bool same_bits(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// One wanted index per team of 2^levels threads, per_block teams a block.
+// sweeps (may be null) gets, per index, the round whose walk found its
+// fixed point (1-based), or the rounds its block ran if none did.
+__global__ void __launch_bounds__(kBisMaxThreads)
 bisect_sturm_kernel(const double* __restrict__ d, const double* __restrict__ e2,
                     const int64_t* __restrict__ ks,
                     const double* __restrict__ scal, double* __restrict__ lam,
-                    int n, int s, int max_iters) {
+                    int* __restrict__ sweeps, int n, int s, int max_iters,
+                    int levels, int per_block, bool stop) {
   __shared__ double sd[kBisChunk];
   __shared__ double se[kBisChunk];
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = j < s ? ks[j] : 0;
+  extern __shared__ int scnt[];  // the counts, for teams wider than a warp
+  const int T = 1 << levels;
+  const int team = threadIdx.x >> levels;
+  const int node = (threadIdx.x & (T - 1)) + 1;
+  const int depth = 31 - __clz(node);
+  const int j = blockIdx.x * per_block + team;
+  const bool valid = j < s;
+  // the threads of this warp (a block of fewer than 32 fills part of one)
+  const int in_warp = min(32, (int)blockDim.x - (int)(threadIdx.x & ~31u));
+  const unsigned warp_mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1;
+  const int64_t k = valid ? ks[j] : 0;
   const double piv = scal[2];
   double lo = scal[0];
   double hi = scal[1];
-  for (int it = 0; it < max_iters; ++it) {
-    const double mid = __dmul_rn(0.5, __dadd_rn(lo, hi));
+  bool fixed = !valid;
+  int first = 0, rounds = 0;
+  for (int done = 0; done < max_iters;) {
+    const int L = min(levels, max_iters - done);
+    // this node's interval, from the root by the sequential loop's ops
+    double nlo = lo, nhi = hi;
+    for (int b = depth - 1; b >= 0; --b) {
+      const double m = __dmul_rn(0.5, __dadd_rn(nlo, nhi));
+      if ((node >> b) & 1) nlo = m;
+      else nhi = m;
+    }
+    const double mid = __dmul_rn(0.5, __dadd_rn(nlo, nhi));
+    // a fixed index sweeps on only without the stop (the full-work variant)
+    const bool active = valid && depth < L && !(stop && fixed);
     double q = 1.0;
-    int64_t cnt = 0;
+    int cnt = 0;
     for (int c0 = 0; c0 < n; c0 += kBisChunk) {
       const int m = min(kBisChunk, n - c0);
       __syncthreads();
@@ -84,16 +135,47 @@ bisect_sturm_kernel(const double* __restrict__ d, const double* __restrict__ e2,
         se[r] = e2[c0 + r];
       }
       __syncthreads();
-      for (int r = 0; r < m; ++r) {
-        q = __dsub_rn(__dsub_rn(sd[r], mid), __ddiv_rn(se[r], clamp_piv(q, piv)));
-        cnt += (q < 0.0);
+      if (active) {
+        for (int r = 0; r < m; ++r) {
+          q = __dsub_rn(__dsub_rn(sd[r], mid), __ddiv_rn(se[r], clamp_piv(q, piv)));
+          cnt += (q < 0.0);
+        }
       }
     }
-    const bool right = cnt <= k;  // lambda_k >= mid
-    lo = right ? mid : lo;
-    hi = right ? hi : mid;
+    if (T > 32) {
+      scnt[threadIdx.x] = cnt;
+      __syncthreads();
+    }
+    ++rounds;
+    // the walk: every thread of the team follows the same path
+    int at = 1;
+    for (int l = 0; l < L; ++l) {
+      const int c = T <= 32 ? __shfl_sync(warp_mask, cnt, at - 1, T)
+                            : scnt[(team << levels) + at - 1];
+      const bool right = c <= k;  // lambda_k >= mid
+      if (!fixed) {
+        const double m = __dmul_rn(0.5, __dadd_rn(lo, hi));
+        const double tlo = right ? m : lo;
+        const double thi = right ? hi : m;
+        if (same_bits(tlo, lo) && same_bits(thi, hi)) {
+          fixed = true;
+          first = rounds;
+        }
+        lo = tlo;
+        hi = thi;
+      }
+      at = 2 * at + (right ? 1 : 0);
+    }
+    done += L;
+    // also the barrier between this round's reads of scnt and the next's
+    // writes
+    const bool all_fixed = __syncthreads_and(fixed);
+    if (stop && all_fixed) break;
   }
-  if (j < s) lam[j] = __dmul_rn(0.5, __dadd_rn(lo, hi));
+  if (valid && node == 1) {
+    lam[j] = __dmul_rn(0.5, __dadd_rn(lo, hi));
+    if (sweeps) sweeps[j] = first ? first : rounds;
+  }
 }
 
 // forward step i's inputs for rows i0 .. i0+kSolveU-1: d[i+1], e[i],
@@ -519,13 +601,22 @@ invit_orth_kernel(double* __restrict__ Z, const int* __restrict__ cid,
 
 extern "C" {
 
+// lam (s,) and, if sweeps is not null, the sweep each index stopped at
+// (int32, s); a team of 2^levels threads an index, per_block teams a block.
 int tridiag_bisect_sturm(const void* d, const void* e2, const void* ks,
-                         const void* scal, void* lam, int n, int s,
-                         int max_iters, void* stream) {
-  const int blocks = (s + kBisThreads - 1) / kBisThreads;
-  bisect_sturm_kernel<<<blocks, kBisThreads, 0, (cudaStream_t)stream>>>(
+                         const void* scal, void* lam, void* sweeps, int n,
+                         int s, int max_iters, int levels, int per_block,
+                         int flags, void* stream) {
+  if (n < 0 || s < 1 || levels < 1 || levels > kBisMaxLevels || per_block < 1 ||
+      (per_block << levels) > kBisMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const int threads = per_block << levels;
+  const int blocks = (s + per_block - 1) / per_block;
+  const size_t shm = levels > 5 ? threads * sizeof(int) : 0;
+  bisect_sturm_kernel<<<blocks, threads, shm, (cudaStream_t)stream>>>(
       (const double*)d, (const double*)e2, (const int64_t*)ks,
-      (const double*)scal, (double*)lam, n, s, max_iters);
+      (const double*)scal, (double*)lam, (int*)sweeps, n, s, max_iters,
+      levels, per_block, (flags & kBisStop) != 0);
   return (int)cudaGetLastError();
 }
 

@@ -367,3 +367,21 @@ def test_band_mv_wrappers_refuse_what_they_do_not_run():
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(NotImplementedError, match="item 8"):
             bmv_ops.band_mv(band.to(dt), x.to(dt), 2)
+
+
+@pytest.mark.parametrize("n,w,bm,want", [
+    (9997, 16, 128, 8 * (17 * 145 + 160)),   # the MD band: 144 rows, padded
+    (9997, 16, 64, 8 * (17 * 81 + 96)),
+    (1, 0, 128, 8 * (3 + 1)),                # one row, one diagonal
+    (20, 25, 64, 8 * (20 * 26 + 2 + 20)),    # w >= n: the run is wider
+    (1000, 3, 1, 8 * (4 * 5 + 7)),
+    (9997, 60, 128, 0),                      # past 48 KB: the direct kernel
+    (5000, 5000, 128, 0),
+])
+def test_band_mv_plan(n, w, bm, want):
+    """Shared memory of a staged block: the band rows [r0 - w, r0 + bm) in
+    the larger of their layouts (the contiguous run plus two words, or
+    diagonal-major with the rows padded to odd) and x[r0 - w, r0 + bm + w);
+    0 (the direct kernel) past ``STAGED_SMEM_MAX``."""
+    assert bmv_kernel.band_mv_plan(n, w, bm) == want
+    assert want <= bmv_kernel.STAGED_SMEM_MAX

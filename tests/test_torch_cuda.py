@@ -41,6 +41,7 @@ from repro_torch.kernels.symv import ref as symv_ref
 from repro_torch.kernels.syr2k import kernel as syr2k_kernel
 from repro_torch.kernels.syr2k import ref as syr2k_ref
 from repro_torch.kernels.tridiag_eig import kernel, ref
+from repro_torch.kernels.tridiag_eig.schedule import bisect_multisection
 from repro_torch.kernels.trsm import kernel as trsm_kernel
 from repro_torch.kernels.trsm import ops as trsm_ops
 from repro_torch.kernels.trsm import ref as trsm_ref
@@ -62,14 +63,34 @@ def _tridiag(n, seed, device):
     return d.to(device), e.to(device)
 
 
-@pytest.mark.parametrize("n,s", [(1, 1), (37, 5), (3000, 130)])
-def test_bisect_sturm_bitwise_vs_plain(cuda, n, s):
+@pytest.mark.parametrize("max_iters", [80, 7])
+@pytest.mark.parametrize("n,s", [(1, 1), (37, 5), (3000, 130), (17243, 448)])
+def test_bisect_sturm_bitwise_vs_plain(cuda, n, s, max_iters):
+    """The wrapper (the plan's levels, with the stop) and every forced m
+    that a block holds, with the stop on and off, bitwise against the
+    plain bisection; the sweeps at small n as the plain twin counts them."""
     d, e = _tridiag(n, n, cuda)
     e2, scal = bisect_inputs(d, e)
     ks = torch.arange(s, device=cuda)
-    lam = kernel.bisect_sturm(d, e2, ks, scal)
-    plain = ref.bisect_sturm_ref(d.cpu(), e2.cpu(), ks.cpu(), scal.cpu())
+    host = (d.cpu(), e2.cpu(), ks.cpu(), scal.cpu())
+    plain = ref.bisect_sturm_ref(*host, max_iters=max_iters)
+    kernel.reset_launches()
+    lam = kernel.bisect_sturm(d, e2, ks, scal, max_iters=max_iters)
+    assert kernel.launch_counts()["bisect_sturm"] == 1
     assert torch.equal(lam.cpu(), plain)
+    sms = kernel.sm_count(cuda.index or 0)
+    for m in range(1, kernel.MAX_LEVELS + 1):
+        per = kernel.bisect_plan(n, s, sms, max_iters, levels=m).per_block
+        for flags in (kernel.STOP, 0):
+            lam, sweeps = kernel.bisect_launch(d, e2, ks, scal, max_iters, m,
+                                               per, flags)
+            assert torch.equal(lam.cpu(), plain), (m, flags)
+            if n <= 37:
+                twin = bisect_multisection(*host, m, max_iters,
+                                           stop=bool(flags & kernel.STOP))
+                assert torch.equal(twin[0], plain)
+                assert torch.equal(sweeps.cpu(), twin[1]), (m, flags)
+    assert kernel.launch_counts()["bisect_sturm"] == 1
 
 
 @pytest.mark.parametrize("n,s", [(37, 5), (1500, 40)])
@@ -792,21 +813,37 @@ def _band_problem(n, w, seed):
 
 
 @pytest.mark.parametrize("n,w", [(1, 0), (37, 1), (300, 16), (1000, 3),
-                                 (20, 25)])
+                                 (20, 25), (129, 0), (2500, 16), (333, 7),
+                                 (400, 200)])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_band_mv_vs_plain(cuda, n, w, transposed):
+    """Staged (where the window fits; (400, 200) takes the direct kernel)
+    at ragged n, w = 0 and w >= n: within gamma_(2w+1) of the plain
+    version, bitwise on repeat, and bitwise against the direct kernel and
+    across layouts and block heights (every one sums a row in the same
+    order)."""
     A, band = _band_problem(n, w, n + w)
     x = _randn((n,), n, "cpu")
     bd = band.to(cuda)
     if transposed:          # the TT pipeline's lower band, as a view
         bd = bd.mT.contiguous().mT
+    xd = x.to(cuda)
     bmv_kernel.reset_launches()
-    y = bmv_ops.band_mv(bd, x.to(cuda), w, bm=64)
+    y = bmv_ops.band_mv(bd, xd, w, bm=64)
     assert bmv_kernel.launch_counts() == {"band_mv": 1}
     # within gamma_(2w+1) |A| |x|: at most 2w+1 products a row
     bound = _gamma(2 * w + 1) * (A.abs() @ x.abs())
     assert bool(torch.all((y.cpu() - bmv_ref.band_mv_ref(band, x)).abs()
                           <= 2 * bound))
+    assert torch.equal(bmv_ops.band_mv(bd, xd, w, bm=64), y)
+    assert torch.equal(bmv_kernel.band_mv_launch(bd, xd, w, 64, 0), y)
+    assert torch.equal(bmv_ops.band_mv(band.to(cuda), xd, w, bm=128), y)
+    assert torch.equal(bmv_ops.band_mv(bd, xd, w, bm=1), y)
+    # a row stride past w + 1: rows of a wider array
+    wide = torch.zeros((n, w + 3), dtype=torch.float64, device=cuda)
+    wide[:, : w + 1] = band.to(cuda)
+    assert torch.equal(bmv_ops.band_mv(wide[:, : w + 1], xd, w), y)
+    assert (bmv_kernel.band_mv_plan(n, w, 64) == 0) == ((n, w) == (400, 200))
 
 
 def test_blocked_stages_on_the_card_launch_their_kernels(cuda):

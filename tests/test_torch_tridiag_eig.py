@@ -7,6 +7,8 @@ Bisection is held bitwise; inverse iteration gets the start block JAX drew
 and is held elementwise on separated spectra (after fixing each column's
 sign) and by residual, orthogonality and subspace angle on clusters.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ from repro.core import tridiag_eig as jte
 from repro.kernels.tridiag_eig.ops import bisect_sturm as j_bisect_sturm
 from repro_torch.core import tridiag_eig as tte
 from repro_torch.kernels import _build
-from repro_torch.kernels.tridiag_eig import kernel, ops, ref
+from repro_torch.kernels.tridiag_eig import kernel, ops, ref, schedule
 
 KEY = jax.random.PRNGKey(9)
 
@@ -109,6 +111,101 @@ def test_sturm_count_matches_reference():
     for x in (-2.0, 0.0, 0.7, 3.5):
         assert tte.sturm_count(_t(d), _t(e), x) == int(
             jte.sturm_count(jnp.asarray(d), jnp.asarray(e), jnp.asarray(x)))
+
+
+# ------------------------------------------- multisection (the kernel's order) --
+
+def _multisection_fixture(name):
+    if name == "split":                   # e = 0 splits it into three blocks
+        d, e = _rand(40, 5)
+        e[[9, 24]] = 0.0
+        return (d, e), np.arange(0, 40, 5)
+    if name == "constant":                # a constant diagonal
+        return (np.full(30, 2.0), np.ones(29)), np.arange(11, 19)
+    if name == "straddle0":               # eigenvalues on both sides of 0
+        return (np.linspace(-1.0, 1.0, 33), np.full(32, 0.1)), np.arange(13, 20)
+    return _fixture(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_bisection(name, max_iters):
+    """(inputs, the plain bisection, the JAX one) of a fixture."""
+    (d, e), ks = _multisection_fixture(name)
+    e2, scal = tte.bisect_inputs(_t(d), _t(e))
+    ks_t = torch.from_numpy(ks)
+    plain = ref.bisect_sturm_ref(_t(d), e2, ks_t, scal, max_iters=max_iters)
+    jax_lam = np.asarray(jte.bisect_eigenvalues(
+        jnp.asarray(d), jnp.asarray(e), jnp.asarray(ks), max_iters=max_iters))
+    return (_t(d), e2, ks_t, scal), plain, jax_lam
+
+
+@pytest.mark.parametrize("stop", [True, False])
+@pytest.mark.parametrize("max_iters", [80, 7, 1])
+@pytest.mark.parametrize("levels", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("name", ["random64", "wilkinson_top", "graded",
+                                  "split", "constant", "straddle0"])
+def test_multisection_bitwise_vs_bisection(name, levels, max_iters, stop):
+    """The kernel's order (m levels a Sturm sweep, the walk, the stop at a
+    fixed point) is the sequential bisection bit for bit: against the
+    port's plain version and the JAX reference."""
+    args, plain, jax_lam = _plain_bisection(name, max_iters)
+    lam, sweeps = schedule.bisect_multisection(*args, levels, max_iters,
+                                               stop=stop)
+    assert torch.equal(lam, plain)
+    assert np.array_equal(lam.numpy(), jax_lam)
+    rounds = -(-max_iters // levels)
+    assert bool(torch.all((sweeps >= 1) & (sweeps <= rounds)))
+    if not stop:    # the sweep counts do not depend on the stop
+        on = schedule.bisect_multisection(*args, levels, max_iters)[1]
+        assert torch.equal(on, sweeps)
+
+
+def test_multisection_stops_at_the_fixed_point():
+    """At 80 levels O(1) eigenvalues reach their fixed point before the
+    last sweep, and one level a sweep counts the levels taken."""
+    args, plain, _ = _plain_bisection("random64", 80)
+    _, levels = schedule.bisect_multisection(*args, 1, 80)
+    assert 40 < int(levels.max()) < 80
+    _, sweeps = schedule.bisect_multisection(*args, 8, 80)
+    assert torch.equal(sweeps, -(-levels // 8))
+
+
+@pytest.mark.parametrize("n,s,sms,max_iters,want", [
+    (9997, 100, 132, 80, (8, 256, 1, 100)),     # MD: a team an SM
+    (17243, 448, 132, 80, (6, 64, 4, 112)),     # DFT: four teams an SM
+    (9997, 1, 132, 80, (8, 256, 1, 1)),
+    (1, 1, 132, 80, (8, 256, 1, 1)),            # n does not move the plan
+    (1, 3, 132, 7, (7, 128, 1, 3)),             # m at most max_iters
+    (50, 5, 132, 1, (1, 2, 1, 5)),
+    (3000, 130, 132, 80, (8, 256, 1, 130)),
+    (3000, 300, 132, 80, (6, 64, 3, 100)),      # 192 threads, not 384
+    (100, 448, 16, 80, (3, 8, 28, 16)),         # a smaller card
+    (100, 264, 132, 80, (7, 128, 2, 132)),      # two teams: 256 threads
+    (100, 660, 132, 80, (5, 32, 5, 132)),       # five: 160, not 320
+    (100, 16896, 132, 80, (1, 2, 128, 132)),    # 128 teams: 256 threads
+    (100, 17028, 132, 80, (1, 2, 129, 132)),    # 129: past 256 at any m
+    (100, 10 ** 5, 132, 80, (1, 2, 512, 196)),  # beyond 512 teams an SM
+])
+def test_bisect_plan(n, s, sms, max_iters, want):
+    plan = kernel.bisect_plan(n, s, sms, max_iters)
+    assert tuple(plan) == want
+    assert plan.lanes == 1 << plan.levels
+    assert plan.per_block * plan.lanes <= kernel.MAX_THREADS
+    assert plan.per_block * plan.blocks >= s > plan.per_block * (plan.blocks - 1)
+    if plan.levels > 1:     # the most levels within FLAT_THREADS an SM
+        teams = -(-s // sms)
+        assert teams << plan.levels <= kernel.FLAT_THREADS
+        assert (teams << plan.levels + 1 > kernel.FLAT_THREADS
+                or plan.levels == min(max_iters, kernel.MAX_LEVELS))
+
+
+def test_bisect_plan_forced_levels_and_refusals():
+    assert kernel.bisect_plan(9997, 448, 132, levels=10) == (10, 1024, 1, 448)
+    assert kernel.bisect_plan(9997, 100, 132, levels=1) == (1, 2, 1, 100)
+    for bad in ({"s": 0}, {"sms": 0}, {"levels": 0}, {"levels": 11}):
+        args = {"n": 10, "s": 4, "sms": 132, **bad}
+        with pytest.raises(ValueError):
+            kernel.bisect_plan(**args)
 
 
 # ----------------------------------------------------- inverse iteration --
