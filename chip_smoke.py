@@ -121,6 +121,28 @@ Phases, each printed as it runs; any failed check exits nonzero:
    each public entry point that ``solve`` does not reach: ``apply_op(
    ExplicitC(C), x, use_kernel=True)`` on a vector (``symv``),
    ``rot_apply``, ``gemm``, ``trsm`` (the BT1 shape) and ``band_mv``;
+3d. the fp32 and bf16 instances (``_fp32``, ``_bf16``) against their
+   plain versions on the card, at the MD shapes: ``house_panel`` on the
+   first panel (the cooperative kernel's instances), ``syr2k`` on the
+   first window (k=16, plain and symmetrized), ``chase_pass`` on the first
+   (b=16) and last (b=2) pass of the MD band (the cooperative chase's
+   instances), ``replay_pass`` of those two tables onto (n, 100) (the
+   sweep kernel's), ``rot_apply`` at G=1000, L=8, and ``symm_block`` at
+   p=1 and p=4 and ``symv`` on C (the plain chase on a host copy, the
+   others on the card); bitwise where the plain version rounds
+   at the kernel's points, else within the gamma bars stated in
+   ``compare_reduced``; each timed beside its bound at 4 or 2 bytes an
+   entry and fp32's 67 TFLOP/s, and beside the library call where one
+   exists (``torch.addmm``, ``torch.matmul``, ``torch.geqrf``);
+4b. the precision levels on the MD pencil at the paper's size: TT, KE and
+   KI at ``mixed`` and ``fast`` and TD at ``mixed`` (``on_failure=
+   "recover"``), each held to the Table-3 bars on the original pencil and
+   the exact spectrum, with its refinement (steps, shifts, residual
+   trajectory), recovery rungs and per-instance launch counts (624
+   ``house_panel``/``syr2k`` and 15 ``chase_pass``/``replay_pass`` launches
+   of the level's instances in TT); then a fault drill: a transient NaN in
+   GS2's input through TD (n=1000) recovered by ``transient_retry``, with
+   ``info`` JSON-clean;
 5. one JSON line of the kernels (launches on their main path, error
    against the plain version, times, bound), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
@@ -148,6 +170,9 @@ sys.path.insert(0, str(ROOT / "src"))
 FP64_VECTOR_FLOPS = 34e12
 FP64_TENSOR_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# fp32 outside the tensor cores: the rate of the reduced (fp32 and bf16)
+# instances, which all compute in fp32
+FP32_VECTOR_FLOPS = 67e12
 
 TABLE3 = 1e-12           # relative_residual and b_orthogonality bars
 EVAL_BAR = 1e-10         # max eigenvalue error / max|lambda| of the spectrum
@@ -195,7 +220,10 @@ REPLACES = {"bisect_sturm": "src/repro/kernels/tridiag_eig/kernel.py:74",
             "band_mv": "src/repro/kernels/band_mv/kernel.py:53"}
 KERNEL_ORDER = ("bisect_sturm", "invit", "symv", "symm_block", "house_panel",
                 "syr2k", "rot_apply", "chase_pass", "replay_pass", "gemm",
-                "trsm_tile", "band_mv")
+                "trsm_tile", "band_mv") + tuple(
+    f"{k}_{sfx}" for sfx in ("fp32", "bf16")
+    for k in ("symv", "symm_block", "house_panel", "syr2k", "rot_apply",
+              "chase_pass", "replay_pass"))
 
 
 def _nvidia_smi() -> str:
@@ -926,30 +954,34 @@ def _chase_work(n: int, b: int):
     return rots, (J + 1) * (K0 + 1)
 
 
-def _chase_bound(n: int, w: int, bs) -> dict:
+def _chase_bound(n: int, w: int, bs, esize: int = 8,
+                 peak: float = FP64_VECTOR_FLOPS) -> dict:
     """Bound of the chase passes ``bs``: per rotation the Givens (~6
     flops) and 2b+3 pair rotations of 6 flops; the padded band read and
-    written once per pass, the tables written once."""
+    written once per pass, the tables written once (``esize`` bytes an
+    entry, operations at ``peak``)."""
     from repro_torch.kernels.rot_apply.schedule import P_LEFT
     npad = P_LEFT + n + 3 * w + 8
     ops = nbytes = 0.0
     for b in bs:
         rots, cells = _chase_work(n, b)
         ops += rots * (6 + 6 * (2 * b + 3))
-        nbytes += 8 * 2.0 * (w + 2) * npad + 16.0 * cells
-    return _bound(ops, nbytes)
+        nbytes += esize * (2.0 * (w + 2) * npad + 2.0 * cells)
+    return _bound(ops, nbytes, peak)
 
 
-def _replay_bound(n: int, cols: int, bs) -> dict:
+def _replay_bound(n: int, cols: int, bs, esize: int = 8,
+                  peak: float = FP64_VECTOR_FLOPS) -> dict:
     """Bound of the replay passes ``bs`` onto an (n, cols) slab: 6 flops
     per rotation and column; the tables read once, the slab read and
-    written once per pass."""
+    written once per pass (``esize`` bytes an entry, operations at
+    ``peak``)."""
     ops = nbytes = 0.0
     for b in bs:
         rots, cells = _chase_work(n, b)
         ops += 6.0 * cols * rots
-        nbytes += 16.0 * cells + 16.0 * n * cols
-    return _bound(ops, nbytes)
+        nbytes += esize * (2.0 * cells + 2.0 * n * cols)
+    return _bound(ops, nbytes, peak)
 
 
 def _per_launch(bound: dict, launches: int) -> dict:
@@ -1596,6 +1628,385 @@ def compare_band_mv(label: str, Wb, w: int, checks: Checks, seed: int) -> dict:
                 library_ms=None, **bnd)
 
 
+# ---- the reduced (fp32 and bf16) instances ---------------------------------
+
+#: unit roundoff of fp32 (every reduced instance computes in fp32) and of
+#: each storage dtype; bytes an entry
+U32 = 2.0 ** -24
+U_STORE = {"fp32": 2.0 ** -24, "bf16": 2.0 ** -8}
+ESIZE = {"fp32": 4, "bf16": 2}
+
+
+def _gamma32(k: int) -> float:
+    return k * U32 / (1 - k * U32)
+
+
+#: the reduced panel's bar: entry (i, j) of V (rows, b) or T (b, b) within
+#: PANEL_C sqrt(rows) u(fp32) max(|x_ij|, ||x_:j|| / sqrt(m)) + 2 u_store
+#: |x_ij|, m the matrix's own rows: fp32 sums over the panel's rows in other
+#: orders (a column's error, spread over its entries), then one rounding to
+#: the storage dtype (one unit of it at most). PANEL_C from readings at
+#: 9997 x 16 on the host CPU (the plain panel in fp32 against it in fp64:
+#: max ratio 0.019 for V, 0.009 for T at c = 4; the first MD panel at
+#: n = 2000: 0.053, 0.020; the card's MD panel against the plain one: 0.017
+#: in fp32, and in bf16 up to 1, which a one-unit flip at the store reads
+#: by construction); a bf16-computed panel reads 200 to 2400 times the
+#: fp32 bar and 18 to 370 times the bf16 one, a V zeroed below its pivots
+#: 128 times or more, and compare_reduced checks both on the card's panel
+#: every run
+PANEL_C = 4.0
+
+
+def _panel_ratio(got, want, rows: int, us: float) -> float:
+    """max over entries of |got - want| / the panel's bar."""
+    import torch
+    got, want = got.double().cpu(), want.double().cpu()
+    col = torch.linalg.vector_norm(want, dim=0, keepdim=True)
+    scale = torch.maximum(want.abs(), col / want.shape[0] ** 0.5)
+    bar = PANEL_C * rows ** 0.5 * U32 * scale + 2 * us * want.abs()
+    return float(((got - want).abs() / bar).max())
+
+
+def _reduced_dtype(sfx: str):
+    import torch
+    return {"fp32": torch.float32, "bf16": torch.bfloat16}[sfx]
+
+
+def _in_turns(run, plain, reps: int = 1):
+    """kernel, plain, kernel: (kernel result, plain result, kernel ms
+    (mean of two turns), plain ms)."""
+    run()                                             # warm-up
+    out_k, k1 = _time_cuda(run, reps)
+    out_p, p1 = _time_cuda(plain)
+    _, k2 = _time_cuda(run, reps)
+    return out_k, out_p, (k1 + k2) / 2, p1
+
+
+def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
+    """Each fp32 and bf16 instance against its plain version on the card, at
+    the MD main path's shapes; returns a row per instance
+    (``<kernel>_<fp32|bf16>``).
+
+    Bars: ``syr2k``, ``rot_apply``, ``chase_pass`` and ``replay_pass`` are
+    bitwise (their plain versions round at the kernels' points, no FMA on
+    either side); ``house_panel`` within the panel's bar (``PANEL_C``),
+    which a bf16-computed panel and a V zeroed below its pivots must fail;
+    ``symm_block`` and ``symv`` within
+    2 gamma_n(fp32) |sym(triu A)||X| + 2 u_store |Y| (fp32 sums in other
+    orders, then one rounding to the storage dtype). Library calls:
+    ``torch.addmm`` for ``syr2k``, ``torch.matmul`` for the product and the
+    batched ``torch.matmul`` of the (G, 2, 2) rotations for ``rot_apply``,
+    in the storage dtype (fp32 with TF32 off, as PyTorch's default is);
+    ``torch.geqrf`` of the active rows for the fp32 panel (no bf16
+    geqrf)."""
+    import torch
+    from repro_torch.core.band_storage import clean_band
+    from repro_torch.core.linalg_utils import wy_syr2k_panel
+    from repro_torch.core.sbr import _executed_passes
+    from repro_torch.kernels.house_panel import kernel as hk
+    from repro_torch.kernels.house_panel import ops as ho
+    from repro_torch.kernels.house_panel import ref as hr
+    from repro_torch.kernels.rot_apply import kernel as rk
+    from repro_torch.kernels.rot_apply import ref as rr
+    from repro_torch.kernels.rot_apply.schedule import padded_band
+    from repro_torch.kernels.symv import kernel as yk
+    from repro_torch.kernels.symv import ref as yr
+    from repro_torch.kernels.syr2k import kernel as sk
+    from repro_torch.kernels.syr2k import ref as sr
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n = C.shape[0]
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    passes = _executed_passes(n, w)
+    for sfx in ("fp32", "bf16"):
+        dt = _reduced_dtype(sfx)
+        es, us = ESIZE[sfx], U_STORE[sfx]
+        Cd = C.to(dt)
+        # ---- house_panel: the first TT1 panel, row_start w --------------
+        E = Cd[:, :w]
+        (V, T), (Vp, Tp), ms, pms = _in_turns(
+            lambda: hk.house_panel(E, w),
+            lambda: ho.house_panel(E.cpu(), w), TIMING_REPS)
+        err = max(float((V.cpu().double() - Vp.double()).abs().max()),
+                  float((T.cpu().double() - Tp.double()).abs().max()))
+        ratio = max(_panel_ratio(V, Vp, n, us), _panel_ratio(T, Tp, n, us))
+        # what the bar must reject: the panel computed in bf16 arithmetic
+        # (the plain version without its fp32 upcast), V zeroed below the
+        # pivots
+        Vc, Tc = hr.house_panel_ref(E.cpu().to(torch.bfloat16), w)
+        bad_c = min(_panel_ratio(Vc, Vp, n, us), _panel_ratio(Tc, Tp, n, us))
+        Vz = V.cpu().clone()
+        Vz[2 * w + 1:] = 0
+        bad_z = _panel_ratio(Vz, Vp, n, us)
+        del Vc, Tc, Vz
+        lib = None
+        if dt == torch.float32:
+            act = E[w:].contiguous()
+            torch.geqrf(act)
+            _, lib = _time_cuda(lambda: torch.geqrf(act), TIMING_REPS)
+        print(f"{label} house_panel_{sfx} ({n} x {w}, row_start {w}; "
+              f"cooperative instance): kernel {ms:.4f} ms a call, plain "
+              f"{pms:.1f} ms (host CPU), torch.geqrf "
+              f"{'not run (no bf16 geqrf)' if lib is None else f'{lib:.4f} ms'}",
+              flush=True)
+        checks.check(f"{label} house_panel_{sfx} V, T vs plain",
+                     ratio <= 1.0, f"max |kernel - plain| = {err!r}, max "
+                     f"gap / bar {ratio!r} (c = {PANEL_C}; one unit of "
+                     f"{sfx} at the store reads up to 1)")
+        checks.check(f"{label} house_panel_{sfx} bar rejects a bf16-computed "
+                     f"panel and a zeroed V tail",
+                     bad_c > 1.0 and bad_z > 1.0,
+                     f"min gap / bar {bad_c!r} (bf16-computed V or T), "
+                     f"{bad_z!r} (V zeroed below row {2 * w})")
+        rows[f"house_panel_{sfx}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib,
+            **_bound(4.0 * n * w * w, es * 2.0 * n * w, FP32_VECTOR_FLOPS))
+        # ---- syr2k: the first window, (V, Z) of that panel --------------
+        Z = wy_syr2k_panel(Cd, V, T)
+        out = torch.empty_like(Cd)
+        R, Rp, ms, pms = _in_turns(
+            lambda: sk.syr2k(Cd, V, Z, alpha=-1.0, out=out),
+            lambda: sr.syr2k_reduced_ref(Cd, V, Z, -1.0), TIMING_REPS)
+        same = bool(torch.equal(R, Rp))
+        err = float((R.float() - Rp.float()).abs().max())
+        S = sk.syr2k(Cd, V, Z, alpha=-1.0, symmetrize=True)
+        same_sym = bool(torch.equal(S, sr.syr2k_reduced_ref(
+            Cd, V, Z, -1.0, symmetrize=True)))
+        VW, WV = torch.cat([V, Z], 1), torch.cat([Z, V], 1).mT
+        torch.addmm(Cd, VW, WV, alpha=-1.0)
+        _, lib = _time_cuda(lambda: torch.addmm(Cd, VW, WV, alpha=-1.0),
+                            TIMING_REPS)
+        print(f"{label} syr2k_{sfx} (n={n}, k={w}): kernel {ms:.4f} ms, "
+              f"plain {pms:.1f} ms (on the card), torch.addmm {lib:.4f} ms",
+              flush=True)
+        checks.check(f"{label} syr2k_{sfx} bitwise vs plain", same,
+                     f"max |kernel - plain| = {err!r}")
+        checks.check(f"{label} syr2k_{sfx} symmetrized bitwise vs plain",
+                     same_sym, "the TT1 sweep's launch")
+        rows[f"syr2k_{sfx}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib,
+            **_bound(4.0 * w * n * n, es * (2.0 * n * n + 2 * n * w),
+                     FP32_VECTOR_FLOPS))
+        del R, Rp, S, out, VW, WV, Z
+        torch.cuda.empty_cache()
+        # ---- chase_pass: the first and last pass of the MD band ---------
+        Wp = padded_band(clean_band(Wb).to(dt), w)
+        tables, errs, k_ms, p_ms = {}, [], [], []
+        for b in passes:
+            if b not in (passes[0], passes[-1]):
+                rk.chase_pass(Wp, b, w, n)
+                continue
+            # the plain chase on a host copy: a host loop of small ops a
+            # step, which the host runs faster than the card's launches
+            Wk, Wk2, Wq = Wp.clone(), Wp.clone(), Wp.cpu()
+            CS, k1 = _time_cuda(lambda: rk.chase_pass(Wk, b, w, n))
+            CSq, p1 = _time_host(lambda: rr.chase_pass_lanes_ref(Wq, b, w,
+                                                                 n))
+            _, k2 = _time_cuda(lambda: rk.chase_pass(Wk2, b, w, n))
+            same = (torch.equal(Wk.cpu(), Wq) and torch.equal(CS.cpu(), CSq)
+                    and torch.equal(Wk, Wk2))
+            gap = float((Wk.cpu().float() - Wq.float()).abs().max())
+            print(f"{label} chase_pass_{sfx} b={b} (cooperative instance): "
+                  f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.0f} ms (on "
+                  f"the host CPU)", flush=True)
+            checks.check(f"{label} chase_pass_{sfx} b={b} band and (c, s) "
+                         f"table bitwise vs plain", same,
+                         f"max |kernel - plain| = {gap!r}")
+            errs.append(gap)
+            k_ms.append((k1 + k2) / 2)
+            p_ms.append(p1)
+            tables[b] = CS
+            Wp = Wk
+            del Wq, Wk2, CSq
+        rows[f"chase_pass_{sfx}"] = dict(
+            max_abs_err=max(errs), ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
+            library_ms=None, **_per_launch(_chase_bound(
+                n, w, tables, es, FP32_VECTOR_FLOPS), 2))
+        # ---- replay_pass: those two tables onto (n, 100) ----------------
+        Zs = torch.randn((n, 100), generator=gen, dtype=torch.float32,
+                         device=dev).to(dt)
+
+        def replay(fn, Zs=Zs, tables=tables):
+            Y = Zs.clone()
+            for b in sorted(tables):
+                fn(Y, tables[b], b, n, True)
+            return Y
+
+        Y, Yp, ms, pms = _in_turns(lambda: replay(rk.replay_pass),
+                                   lambda: replay(rr.replay_pass_ref))
+        print(f"{label} replay_pass_{sfx} (passes b={passes[-1]} and "
+              f"b={passes[0]} onto ({n}, 100); sweep instance): kernel "
+              f"{ms:.3f} ms, plain {pms:.0f} ms (on the card)", flush=True)
+        checks.check(f"{label} replay_pass_{sfx} bitwise vs plain",
+                     bool(torch.equal(Y, Yp)),
+                     f"max |kernel - plain| = "
+                     f"{float((Y.float() - Yp.float()).abs().max())!r}")
+        rows[f"replay_pass_{sfx}"] = dict(
+            max_abs_err=float((Y.float() - Yp.float()).abs().max()),
+            ms=ms / 2, plain_ms=pms / 2, library_ms=None,
+            **_per_launch(_replay_bound(n, 100, tables, es,
+                                        FP32_VECTOR_FLOPS), 2))
+        del Wp, tables, Y, Yp, Zs
+        # ---- rot_apply at the chase's widest wavefront ------------------
+        pairs = torch.randn((1000, 2, 8), generator=gen, dtype=torch.float32,
+                            device=dev).to(dt)
+        th = 6.283185307179586 * torch.rand((1000,), generator=gen,
+                                            device=dev)
+        cs = torch.stack([torch.cos(th), torch.sin(th)], 1).to(dt)
+        Yr, Yq, ms, pms = _in_turns(
+            lambda: rk.rot_apply(pairs, cs),
+            lambda: rr.rot_apply_ref(pairs.cpu(), cs.cpu()), TIMING_REPS)
+        c, s_ = cs[:, 0], cs[:, 1]
+        Rm = torch.stack([torch.stack([c, s_], 1),
+                          torch.stack([-s_, c], 1)], 1)
+        torch.matmul(Rm, pairs)
+        _, lib = _time_cuda(lambda: torch.matmul(Rm, pairs), TIMING_REPS)
+        print(f"rot_apply_{sfx} (G=1000, L=8): kernel {ms:.4f} ms, plain "
+              f"{pms:.3f} ms (on the host CPU), torch.matmul {lib:.4f} ms",
+              flush=True)
+        checks.check(f"rot_apply_{sfx} G=1000 L=8 bitwise vs plain",
+                     bool(torch.equal(Yr.cpu(), Yq)),
+                     f"max |kernel - plain| = "
+                     f"{float((Yr.cpu().float() - Yq.float()).abs().max())!r}")
+        rows[f"rot_apply_{sfx}"] = dict(
+            max_abs_err=float((Yr.cpu().float() - Yq.float()).abs().max()),
+            ms=ms, plain_ms=pms, library_ms=lib,
+            **_bound(6.0 * 1000 * 8, es * (4.0 * 1000 * 8 + 2 * 1000),
+                     FP32_VECTOR_FLOPS))
+        # ---- symm_block at p = 1 and 4, symv ----------------------------
+        absA = torch.triu(Cd.abs()).float()
+        absA += torch.triu(Cd.abs(), 1).mT.float()
+        for name, p in (("symm_block", 1), ("symm_block", 4), ("symv", 1)):
+            X = torch.randn((n, p), generator=gen, dtype=torch.float32,
+                            device=dev).to(dt)
+            if name == "symv":
+                X = X[:, 0].contiguous()
+                run = lambda X=X: yk.symv(Cd, X)          # noqa: E731
+                plain = lambda X=X: yr.symv_upper_ref(Cd, X)  # noqa: E731
+            else:
+                run = lambda X=X: yk.symm_block(Cd, X)    # noqa: E731
+                plain = lambda X=X: yr.symm_block_upper_ref(Cd, X)  # noqa
+            Yk, Yq, ms, pms = _in_turns(run, plain, TIMING_REPS)
+            torch.matmul(Cd, X)
+            _, lib = _time_cuda(lambda X=X: torch.matmul(Cd, X),
+                                TIMING_REPS)
+            bar = (2 * _gamma32(n) * (absA @ X.float().abs())
+                   + 2 * us * Yq.float().abs())
+            gap = (Yk.float() - Yq.float()).abs()
+            key = f"{name} p={p}" if name == "symm_block" else name
+            print(f"{label} {key} {sfx}: kernel {ms:.4f} ms, plain "
+                  f"{pms:.3f} ms (on the card), torch.matmul {lib:.4f} ms",
+                  flush=True)
+            checks.check(f"{label} {key} {sfx} within the gamma bar of "
+                         f"plain", bool(torch.all(gap <= bar)),
+                         f"max |kernel - plain| = {float(gap.max())!r}, max "
+                         f"ratio {float((gap / bar).max())!r}")
+            again = run()
+            checks.check(f"{label} {key} {sfx} repeats bitwise",
+                         bool(torch.equal(again, Yk)), "two calls")
+            if p > 1:
+                continue
+            rows[f"{name}_{sfx}"] = dict(
+                max_abs_err=float(gap.max()), ms=ms, plain_ms=pms,
+                library_ms=lib,
+                **_bound(2.0 * n * n * p,
+                         es * (n * (n + 1) / 2 + 2 * n * p),
+                         FP32_VECTOR_FLOPS))
+        del absA, Cd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_precision(md, s: int, checks: Checks) -> dict:
+    """The mixed and fast levels on the MD pencil at the paper's size: TT,
+    KE (invert, p = 1) and KI at both levels, TD at mixed; each through
+    ``run_solve`` (the Table-3 bars on the original pencil, the exact
+    spectrum, launches) with ``on_failure="recover"`` and the default
+    refinement settings, printing the refinement (steps, shifts, residual
+    trajectory) and the recovery rungs
+    (an ``escalate_precision`` rerun at fp64 is reported). Checks that
+    the reduced instances ran: 624 ``house_panel`` and ``syr2k`` and 15
+    ``chase_pass`` and ``replay_pass`` launches of the level's instances
+    for TT, ``symm_block``'s for KE and KI. Returns each solve's launch
+    counts."""
+    from repro_torch.core.sbr import _executed_passes, _n_panels
+
+    n = md.A.shape[0]
+    out = {}
+    cases = [("TT", "mixed", dict(variant="TT", band_width=TT_W)),
+             ("TT", "fast", dict(variant="TT", band_width=TT_W)),
+             ("KE", "mixed", dict(variant="KE", invert=True,
+                                  use_kernel=True)),
+             ("KE", "fast", dict(variant="KE", invert=True,
+                                 use_kernel=True)),
+             ("KI", "mixed", dict(variant="KI", invert=True,
+                                  use_kernel=True)),
+             ("KI", "fast", dict(variant="KI", invert=True,
+                                 use_kernel=True)),
+             ("TD", "mixed", dict(variant="TD"))]
+    for variant, level, kw in cases:
+        label = f"{variant} {level}"
+        res = run_solve(label, md, s, checks, precision=level,
+                        on_failure="recover", **kw)
+        rinfo = res.info["refinement"]
+        rungs = [(r["action"], r["outcome"]) for r in res.info["recovery"]]
+        print(f"  refinement: steps {rinfo['steps']}, converged "
+              f"{rinfo['converged']}, stalled {rinfo['stalled']}, sigma "
+              f"{rinfo['sigma']}, relative_residual "
+              f"{[float(f'{x:.3e}') for x in rinfo['relative_residual']]}; "
+              f"recovery {rungs}", flush=True)
+        sfx = {"mixed": "fp32", "fast": "bf16"}[level]
+        counts = res.info["kernel_launches"]
+        if variant == "TT":
+            n_pass = len(_executed_passes(n, TT_W))
+            want = {f"house_panel_{sfx}": _n_panels(n, TT_W),
+                    f"syr2k_{sfx}": _n_panels(n, TT_W),
+                    f"chase_pass_{sfx}": n_pass,
+                    f"replay_pass_{sfx}": n_pass}
+            got = {k: counts[k] for k in want}
+            checks.check(f"{label} reduced TT launch counts", got == want,
+                         f"{json.dumps(got)} (expected {json.dumps(want)})")
+        elif variant in ("KE", "KI"):
+            checks.check(f"{label} launched symm_block_{sfx}",
+                         counts[f"symm_block_{sfx}"] > 0,
+                         f"{counts[f'symm_block_{sfx}']} launches (n_matvec "
+                         f"{res.info['n_matvec']})")
+        out[label] = counts
+        del res
+    return out
+
+
+def fault_drill(checks: Checks, dev, n: int = 1000) -> None:
+    """A transient NaN in GS2's input (``NanPoison("GS2", once=True)``)
+    through TD on the card under ``on_failure="recover"``: the retry rung
+    recovers, the solve is healthy and its info passes ``json.dumps``."""
+    import torch
+    from repro_torch.core import solve
+    from repro_torch.data.problems import md_like
+    from repro_torch.resilience.faults import NanPoison, inject
+
+    prob = md_like(n, device=dev)
+    fault = NanPoison("GS2", once=True)
+    with inject(fault):
+        res = solve(prob.A, prob.B, 10, variant="TD", on_failure="recover")
+    torch.cuda.synchronize()
+    rungs = res.info["recovery"]
+    print(f"fault drill (md n={n}, TD, NanPoison('GS2', once=True)): "
+          f"{fault.hits} hit, recovery {json.dumps(rungs)}", flush=True)
+    checks.check("fault drill transient_retry recovered",
+                 bool(rungs) and rungs[-1]["action"] == "transient_retry"
+                 and rungs[-1]["outcome"] == "recovered",
+                 json.dumps(rungs))
+    checks.check("fault drill healthy", bool(res.info["health"]["healthy"]),
+                 json.dumps(res.info["health"]["stages"]))
+    err = float((res.evals - prob.exact_evals[:10]).abs().max())
+    checks.check("fault drill eigenvalues", err <= EVAL_BAR * float(
+        prob.exact_evals.abs().max()), f"max error {err!r}")
+    checks.check("fault drill info is JSON-clean", bool(json.dumps(res.info)),
+                 f"{len(json.dumps(res.info))} bytes")
+
+
 def _kernel_name(key: str) -> str:
     """``gemm_dmma`` of ``void (anonymous namespace)::gemm_dmma<2, 16,
     true>(double const*, ...)``: the profiler's kernel name, bare."""
@@ -1874,8 +2285,12 @@ def main() -> int:
     rows["band_mv"] = compare_band_mv(f"MD band n={n} w={TT_W}", band.Wb, TT_W,
                                       checks, seed=9)
     band_bm = to_band_mv_layout(band.Wb).contiguous()
+    phase_done("3b (band_mv)")
+    # ---- phase 3d: the fp32 and bf16 instances at the MD shapes ----------
+    rows.update(compare_reduced(f"MD n={n}", C, band.Wb, TT_W, checks, dev))
     del band
     torch.cuda.empty_cache()
+    phase_done("3d (kernels below fp64)")
 
     # ---- phase 3c: gemm and trsm at the MD shapes -------------------------
     U = cholesky_upper(md.B).contiguous()
@@ -2001,6 +2416,10 @@ def main() -> int:
     keb = keb_res.info["kernel_launches"]
     del td_res, tdb_res, keb_res
     phase_done("4 (main paths)")
+    # ---- phase 4b: the mixed and fast levels, and a fault drill ----------
+    prec = run_precision(md, args.md_s, checks)
+    fault_drill(checks, dev)
+    phase_done("4b (precision, fault drill)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),
@@ -2083,6 +2502,21 @@ def main() -> int:
         checks.check(f"{name} ops call launched {kname}",
                      public[name][kname] == want,
                      f"{public[name][kname]} launches (expected {want})")
+    # the reduced symv and rot_apply: reached by their public entry points
+    for sfx in ("fp32", "bf16"):
+        dt = _reduced_dtype(sfx)
+        for name, call in (
+                ("symv", lambda dt=dt: apply_op(ExplicitC(C.to(dt)), x.to(dt),
+                                                use_kernel=True)),
+                ("rot_apply", lambda dt=dt: rot_ops.rot_apply(pairs.to(dt),
+                                                              cs.to(dt)))):
+            kernels.reset_launches()
+            call()
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()[f"{name}_{sfx}"]
+            public[f"{name}_{sfx}"] = got
+            checks.check(f"{name} ops call on {sfx} launched {name}_{sfx}",
+                         got == 1, f"{got} launches")
     del U, Xs, band_bm
     phase_done("4 (public calls)")
     launches = {"bisect_sturm": td["bisect_sturm"], "invit": td["invit"],
@@ -2093,14 +2527,23 @@ def main() -> int:
                 "gemm": public["gemm"]["gemm"],
                 "trsm_tile": public["trsm"]["trsm_tile"],
                 "band_mv": public["band_mv"]["band_mv"]}
+    for sfx, level in (("fp32", "mixed"), ("bf16", "fast")):
+        tt_r, ke_r = prec[f"TT {level}"], prec[f"KE {level}"]
+        for name in ("house_panel", "syr2k", "chase_pass", "replay_pass"):
+            launches[f"{name}_{sfx}"] = tt_r[f"{name}_{sfx}"]
+        launches[f"symm_block_{sfx}"] = ke_r[f"symm_block_{sfx}"]
+        for name in ("symv", "rot_apply"):
+            launches[f"{name}_{sfx}"] = public[f"{name}_{sfx}"]
 
     # ---- phase 5: the report ---------------------------------------------
     kernel_rows = []
     for name in KERNEL_ORDER:
         r = rows[name]
+        family = name.rsplit("_", 1)[0] if name.endswith(
+            ("_fp32", "_bf16")) else name
         kernel_rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[family],
+            "replaces": REPLACES[family], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -14,8 +14,22 @@ The port carries the paper's four variants:
   KI — GS1, Lanczos on the implicit C = U^{-T} A U^{-1} (no GS2), BT1.
 With ``use_kernel=True`` every Krylov matvec runs the one-triangle CUDA
 kernel (``kernels/symv``); the default ``False`` is ``torch.matmul`` on the
-full matrix, as the reference's default is XLA's dot. Precisions other
-than fp64 are not ported yet and raise.
+full matrix, as the reference's default is XLA's dot.
+
+``precision="mixed"`` (fp32) and ``"fast"`` (bf16, fp32 accumulation) run
+the GEMM-heavy stages in the compute dtype, as the reference does: C is
+demoted before TD1/TT1, TT2 and TT4 run in it (the fp32/bf16 instances of
+``house_panel``, ``syr2k``, ``chase_pass`` and ``replay_pass`` on the
+card), the tridiagonal goes back to fp64 for TD2/TT3, and the Krylov
+operator is demoted (``symm_block``'s fp32/bf16 instances). GS1, GS2,
+TD2/TT3, BT1 and all convergence math stay fp64, and fp64 refinement
+against the original pencil (``core.refinement``, stage ``RF``) restores
+the Table-3 accuracy. The blocked GS1/GS2 stay fp64 at every level; the
+blocked TD1 runs in the compute dtype on ``syr2k``'s instance.
+
+Fault injection (``resilience.faults``) hooks in at the reference's seams:
+the inputs of GS1, GS2, TD1, TT1 and of the KE/KI operators, and the
+Krylov knobs (``force_nonconverge``).
 
 The paper's blocked alternatives (its Table 4) run on the port's block
 kernels: ``gs1="blocked"`` the right-looking blocked Cholesky,
@@ -42,7 +56,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import kernels as _kernels
+from repro_torch.kernels import _launches
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.resilience import faults
 from repro_torch.resilience.health import (array_finite, chol_health,
                                            host_finite, verdict_from_stages)
 from repro_torch.resilience.recovery import (SolverError, cholesky_shift_taus,
@@ -52,7 +68,9 @@ from .back_transform import back_transform_generalized
 from .cholesky import cholesky_blocked, cholesky_upper, diag_shifted
 from .lanczos import default_subspace, lanczos_solve
 from .operators import ExplicitC, ImplicitC
-from .precision import ensure_strong, validate_precision
+from .precision import (check_fp32_matmul, compute_dtype, ensure_strong,
+                        validate_precision)
+from .refinement import REFINE_TOL, refine_eigenpairs
 from .residuals import b_normalize
 from .sbr import apply_q2, band_chase, default_n_chunks, reduce_to_band
 from .standard_form import to_standard_sygst, to_standard_two_trsm
@@ -69,8 +87,8 @@ _NOT_PORTED = {
     "auto": "ROADMAP.md §1 item 11 (analysis: the variant router)",
 }
 
-#: the kernel families of the TT1 sweep, whose launches ``info['tt1']``
-#: reports
+#: the kernel families of the TT1 sweep, whose launches (of the instance
+#: of the compute dtype) ``info['tt1']`` reports
 _TT1_KERNELS = ("house_panel", "syr2k")
 
 
@@ -135,14 +153,21 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                 m, tol: float,
                 max_restarts: int, use_kernel: bool, clustered: bool,
                 krylov_block, filter, x0, v0, probe_v0,  # noqa: A002
-                generator, precision: str, on_failure: str, recovery: list,
-                device: torch.device) -> GSyEigResult:
+                generator, precision: str, refine, refine_tol: float,
+                refine_max_steps: int, guard0, on_failure: str,
+                recovery: list, device: torch.device) -> GSyEigResult:
     """One attempt of the pipeline. Stage verdicts land in
     ``info['_stage_health']`` for ``solve`` to fold into ``info['health']``;
     a breakdown or non-finite stage raises a diagnosed ``SolverError``
     unless ``on_failure == 'ignore'``."""
     validate_precision(precision)
     _check_options(variant, which, gs1, gs2, td1)
+    cdtype = compute_dtype(precision)
+    demoted = precision != "fp64"
+    if demoted:
+        check_fp32_matmul(precision)
+    if refine is None:
+        refine = demoted
     A = ensure_strong(A, device)
     B = ensure_strong(B, device)
     n = A.shape[0]
@@ -160,7 +185,7 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     if variant in ("KE", "KI"):
         info["krylov"] = {"p": int(p), "filter_degree": int(filter_degree)}
 
-    B_orig = B
+    A_orig, B_orig, which_orig = A, B, which
     if invert:
         A, B = B, A
         which = "largest" if which == "smallest" else "smallest"
@@ -172,6 +197,7 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                           health=verdict_from_stages(stage_health).as_json_dict())
 
     # ---- GS1: B = U^T U --------------------------------------------------
+    B = faults.poison_stage("GS1", B)
     if gs1 == "blocked":
         U, gs1_ok = _timed(times, "GS1", device)(_chol_blocked_fused, B,
                                                  block)
@@ -211,11 +237,13 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     # ---- GS2: C = U^{-T} A U^{-1} (not for KI) ---------------------------
     C = None
     if variant in ("TD", "TT", "KE"):
+        Ag = faults.poison_stage("GS2", A)
         if gs2 == "sygst":
-            C, gs2_ok = _timed(times, "GS2", device)(_gs2_sygst_fused, A, U,
+            C, gs2_ok = _timed(times, "GS2", device)(_gs2_sygst_fused, Ag, U,
                                                      block)
         else:
-            C, gs2_ok = _timed(times, "GS2", device)(_gs2_trsm_fused, A, U)
+            C, gs2_ok = _timed(times, "GS2", device)(_gs2_trsm_fused, Ag, U)
+        del Ag
         stage_health["GS2"] = bool(gs2_ok)
         if not stage_health["GS2"] and on_failure != "ignore":
             fail("GS2", "nonfinite_stage",
@@ -227,6 +255,8 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
         # ---- TD1 / TD2 / TD3 ---------------------------------------------
         ks = (torch.arange(s, device=device) if which == "smallest"
               else torch.arange(n - s, n, device=device))
+        # the reflector stages run in the compute dtype; TD2 in fp64
+        C = faults.poison_stage("TD1", C.to(cdtype))
         if td1 == "blocked":
             res = _timed(times, "TD1", device)(tridiagonalize_blocked, C,
                                                panel=32)
@@ -239,23 +269,24 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
             fail("TD1", "nonfinite_stage", "non-finite tridiagonal after TD1",
                  "corrupted C entering the reflector sweep (upstream NaN)")
         lam, Z = _timed(times, "TD2", device)(
-            eigh_tridiag_selected, res.d, res.e, ks, x0=x0,
+            eigh_tridiag_selected, res.d.double(), res.e.double(), ks, x0=x0,
             generator=generator)
-        Y = _timed(times, "TD3", device)(apply_q, res, Z)
+        Y = _timed(times, "TD3", device)(apply_q, res, Z.to(cdtype)).double()
         del res
     elif variant == "TT":
         # ---- TT1 / TT2 / TT3 / TT4 ---------------------------------------
         ks = (torch.arange(s, device=device) if which == "smallest"
               else torch.arange(n - s, n, device=device))
         n_chunks = default_n_chunks(n, band_width)
+        C = faults.poison_stage("TT1", C.to(cdtype))
         l0 = _kernels.launch_counts()
         band = _timed(times, "TT1", device)(reduce_to_band, C, w=band_width,
                                             n_chunks=n_chunks)
         del C
         l1 = _kernels.launch_counts()
+        tt1 = [_launches.instance(k, cdtype) for k in _TT1_KERNELS]
         info["tt1"] = {"n_chunks": int(n_chunks),
-                       "kernel_launches": {k: l1[k] - l0[k]
-                                           for k in _TT1_KERNELS}}
+                       "kernel_launches": {k: l1[k] - l0[k] for k in tt1}}
         # host sentinel on the (w+1, n) band the chase consumes
         stage_health["TT1"] = host_finite(band.Wb)
         if not stage_health["TT1"] and on_failure != "ignore":
@@ -269,25 +300,29 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                  "non-finite tridiagonal after the TT2 chase",
                  "the rotation wavefront hit non-finite band entries")
         lam, Z = _timed(times, "TT3", device)(
-            eigh_tridiag_selected, chase.d, chase.e, ks, x0=x0,
-            generator=generator)
+            eigh_tridiag_selected, chase.d.double(), chase.e.double(), ks,
+            x0=x0, generator=generator)
         Y = _timed(times, "TT4", device)(
-            lambda: band.Q1 @ apply_q2(chase, Z, band_width))
+            lambda: band.Q1 @ apply_q2(chase, Z.to(cdtype), band_width))
+        Y = Y.double()
         del band, chase
     else:
         # ---- KE_iter / KI_iter: thick-restart block Lanczos --------------
         stage = f"{variant}_iter"
-        op = ExplicitC(C) if variant == "KE" else ImplicitC(A, U)
+        op = (ExplicitC(faults.poison_stage("KE_iter", C)) if variant == "KE"
+              else ImplicitC(faults.poison_stage("KI_iter", A), U))
         del C
         if m is None:
             m = default_subspace(s, n, p)
         elif p > 1 and m % p:
             m = -(-m // p) * p          # block-align a user-supplied m
+        tol, max_restarts = faults.force_nonconverge(tol, max_restarts)
         lres = _timed(times, stage, device)(
             lanczos_solve, op, s, which="SA" if which == "smallest" else "LA",
             m=m, tol=tol, max_restarts=max_restarts, use_kernel=use_kernel,
             v0=v0, probe_v0=probe_v0, generator=generator, p=p,
-            filter_degree=filter_degree)
+            filter_degree=filter_degree,
+            compute_dtype=cdtype if demoted else None)
         del op
         # plain Python only: info must survive json.dumps
         info.update(n_matvec=int(lres.n_matvec),
@@ -314,12 +349,18 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     # ---- BT1: X = U^{-1} Y -----------------------------------------------
     X = _timed(times, "BT1", device)(back_transform_generalized, U, Y)
     info["_stage_health"] = stage_health
-    return _finalize(lam, X, B_orig, invert, times, info)
+    refine_cfg = (dict(tol=refine_tol, max_steps=refine_max_steps,
+                       guard0=guard0) if refine else None)
+    return _finalize(lam, X, A_orig, B_orig, which_orig, invert, times, info,
+                     refine_cfg, device)
 
 
-def _finalize(lam, X, B_orig, invert: bool, times: Dict[str, float],
-              info: Dict[str, Any]) -> GSyEigResult:
-    """Undo the inverse-pair trick and total the stage timings."""
+def _finalize(lam, X, A_orig, B_orig, which_orig: str, invert: bool,
+              times: Dict[str, float], info: Dict[str, Any],
+              refine_cfg: Dict[str, Any] | None,
+              device: torch.device) -> GSyEigResult:
+    """Undo the inverse-pair trick, refine against the original fp64
+    pencil when asked (stage ``RF``), and total the stage timings."""
     if invert:
         lam = 1.0 / lam
         order = torch.argsort(lam)
@@ -327,6 +368,10 @@ def _finalize(lam, X, B_orig, invert: bool, times: Dict[str, float],
         # the inverse-pair solve returns A-orthonormal vectors; renormalize
         # each column to unit B-norm for the original problem's metric
         X = b_normalize(X, B_orig)
+    if refine_cfg is not None:
+        lam, X, info["refinement"] = _timed(times, "RF", device)(
+            refine_eigenpairs, A_orig, B_orig, lam, X, which=which_orig,
+            **refine_cfg)
     times["Tot."] = float(sum(v for k, v in times.items() if k != "Tot."))
     return GSyEigResult(evals=lam, X=X, stage_times=times, info=info)
 
@@ -341,6 +386,8 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           x0: torch.Tensor | None = None, v0: torch.Tensor | None = None,
           probe_v0: torch.Tensor | None = None,
           generator: torch.Generator | None = None, precision: str = "fp64",
+          refine: bool | None = None, refine_tol: float = REFINE_TOL,
+          refine_max_steps: int = 60, guard0: torch.Tensor | None = None,
           on_failure: str = "warn", max_retries: int = 2,
           device=None) -> GSyEigResult:
     """GSYEIG with failure containment, on ``device`` (``None`` = the card;
@@ -370,6 +417,15 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     those in. What is not given is drawn from ``generator``, by default one
     seeded with ``SOLVE_SEED`` on ``device``.
 
+    ``precision``: ``'fp64'`` (default), ``'mixed'`` (fp32) or ``'fast'``
+    (bf16 with fp32 accumulation) for the GEMM-heavy stages (module
+    docstring). ``refine`` (default: on below fp64) runs fp64 refinement
+    of the returned pairs against the original pencil until
+    ``refine_tol`` (the Table-3 bar), at most ``refine_max_steps`` steps;
+    ``guard0`` is its (n, guard) guard block (the reference draws it from
+    ``PRNGKey(1203)``; else a seeded draw). ``info['refinement']`` holds
+    its steps and trajectories, ``stage_times['RF']`` its time.
+
     ``on_failure``: ``'warn'`` (default) diagnoses failures — a GS1
     breakdown tries the diagonal-shift rungs, any remaining non-finite
     stage or output raises ``SolverError``, an unconverged KE/KI retires
@@ -377,7 +433,9 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     non-finite failures up to ``max_retries`` times with fresh start
     blocks, escalates an unconverged KE/KI to 4x the restarts and a
     degree >= 16 filter, and if that fails too falls back to TT (the
-    ``fallback_variant`` rung); ``'ignore'`` raises
+    ``fallback_variant`` rung), and reruns a demoted solve at fp64 when
+    its refinement stalls above tolerance (``escalate_precision``);
+    ``'ignore'`` raises
     nothing and still records the verdict. ``info`` carries ``health``,
     ``recovery`` and ``kernel_launches`` (launches of every kernel wrapper
     in this call), and survives ``json.dumps``.
@@ -391,7 +449,9 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
         max_restarts=max_restarts,
         use_kernel=use_kernel, clustered=clustered,
         krylov_block=krylov_block, filter=filter, x0=x0, v0=v0,
-        probe_v0=probe_v0, generator=generator, precision=precision)
+        probe_v0=probe_v0, generator=generator, precision=precision,
+        refine=refine, refine_tol=refine_tol,
+        refine_max_steps=refine_max_steps, guard0=guard0)
     launches0 = _kernels.launch_counts()
 
     def attempt(attempt_kw):
@@ -457,6 +517,18 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
             res = attempt(dict(kw, variant="TT"))
             fb["outcome"] = ("recovered"
                              if res.info.get("converged", True) else "failed")
+
+    # --- ladder: demoted refinement stalled above tol -> fp64 rerun ------
+    rinfo = res.info.get("refinement")
+    if (on_failure == "recover" and precision != "fp64" and rinfo
+            and not rinfo["converged"] and rinfo["stalled"]):
+        r = rung("escalate_precision", "RF", "attempt",
+                 from_precision=precision, to_precision="fp64")
+        recovery.append(r)
+        res = attempt(dict(kw, variant=res.info["variant"],
+                           precision="fp64", refine=True))
+        r["outcome"] = ("recovered" if res.info["refinement"]["converged"]
+                        else "failed")
     launches1 = _kernels.launch_counts()
     res.info["kernel_launches"] = {k: launches1[k] - launches0[k]
                                    for k in launches1}

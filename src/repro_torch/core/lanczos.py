@@ -21,6 +21,12 @@ cannot replay threefry, so parity runs pass in what JAX drew). Without
 them both are drawn from ``generator``. The fully jitted variant of the
 batched path (``lanczos_solve_jit``) comes with that path (ROADMAP.md §1
 item 9).
+
+``compute_dtype`` (fp32 or bf16) demotes only the operator: its matrices
+are cast once, each block goes in cast and comes out in fp64, and the
+basis, T and all restart and convergence math stay fp64. The convergence
+test then also accepts bounds under 8 eps(compute dtype) max|theta|, the
+floor a demoted product can reach; fp64 refinement recovers the rest.
 """
 from __future__ import annotations
 
@@ -98,7 +104,7 @@ def _segment_impl(matvec, V: torch.Tensor, T: torch.Tensor, j0: int,
 
 def _restart_math(V: torch.Tensor, T: torch.Tensor, B_q: torch.Tensor,
                   tol_eff: float, s: int, keep: int, m: int, p: int,
-                  which: str):
+                  which: str, resid_floor_rel: float = 0.0):
     """eigh of T_m, Ritz selection, residual bounds, the thick-restart state
     and the convergence verdict, all on the device.
 
@@ -116,6 +122,10 @@ def _restart_math(V: torch.Tensor, T: torch.Tensor, B_q: torch.Tensor,
     # ARPACK dsconv criterion: bound_i <= tol * max(eps^{2/3}, |theta_i|)
     eps23 = torch.finfo(V.dtype).eps ** (2.0 / 3.0)
     thresh = tol_eff * torch.clamp_min(torch.abs(theta[:s]), eps23)
+    if resid_floor_rel:
+        # a demoted product floors the attainable bound at ~eps_c ||C||
+        thresh = torch.clamp_min(thresh, resid_floor_rel
+                                 * torch.abs(theta).max())
     all_conv = torch.all(resid[:s] <= thresh)
     healthy = torch.isfinite(theta).all() & torch.isfinite(resid).all()
     V_restart = torch.zeros_like(V)
@@ -171,11 +181,21 @@ def _seed_block(v0, n: int, p: int, generator, dtype, device):
     return v0
 
 
-def _check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype not in (None, torch.float64, "float64"):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} is not ported yet (ROADMAP.md "
-            f"§1 item 8); the port runs the operator in float64")
+def _demoted(op, matvec, compute_dtype, use_kernel: bool):
+    """(matvec, resid_floor_rel) with the operator in ``compute_dtype``."""
+    if compute_dtype in (None, torch.float64):
+        return matvec, 0.0
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float64, float32 or "
+                         f"bfloat16, got {compute_dtype!r}")
+    if isinstance(op, (ExplicitC, ImplicitC)):
+        op_c = type(op)(*(t.to(compute_dtype) for t in op))
+        inner = lambda X: apply_op(op_c, X.to(compute_dtype),  # noqa: E731
+                                   use_kernel=use_kernel)
+    else:
+        inner = lambda X: op(X.to(compute_dtype))  # noqa: E731
+    return (lambda X: inner(X).to(torch.float64),
+            8.0 * torch.finfo(compute_dtype).eps)
 
 
 def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
@@ -195,8 +215,9 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
     Chebyshev-filters the start block, with bounds from a probe started at
     ``probe_v0``. ``v0`` is (n,) or (n, p); what is not given is drawn
     from ``generator`` (by default one seeded with ``START_SEED``).
+    ``compute_dtype`` (None, or torch.float32/bfloat16) demotes the
+    operator only (module docstring).
     """
-    _check_compute_dtype(compute_dtype)
     if which not in ("SA", "LA"):
         raise ValueError(f"which must be 'SA' or 'LA', got {which!r}")
     if isinstance(op, (ExplicitC, ImplicitC)):
@@ -217,9 +238,10 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
     else:
         raise TypeError(f"op must be an Operator or a matvec callable: {op!r}")
     if dtype != torch.float64:
-        raise NotImplementedError(
-            f"the port's Lanczos runs in float64, got {dtype} (ROADMAP.md §1 "
-            f"item 8)")
+        raise ValueError(
+            f"the Lanczos state is float64 and so is the operator it is "
+            f"given, got {dtype}; compute_dtype= demotes the operator")
+    matvec, resid_floor_rel = _demoted(op, matvec, compute_dtype, use_kernel)
     if m is None:
         m = default_subspace(s, n, p)
     if m % p or m + p > n + (1 if p == 1 else 0):
@@ -256,7 +278,8 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
         V, T, B_q = _segment_impl(matvec, V, T, j0, p)
         n_matvec += m - j0 * p
         theta, S, resid, V_restart, T_new, all_conv, healthy = _restart_math(
-            V, T, B_q, tol_eff, s=s, keep=keep, m=m, p=p, which=which)
+            V, T, B_q, tol_eff, s=s, keep=keep, m=m, p=p, which=which,
+            resid_floor_rel=resid_floor_rel)
         # the one device-to-host copy of the restart: both verdicts
         conv_ok, health_ok = torch.stack([all_conv, healthy]).tolist()
         if not health_ok:

@@ -9,12 +9,19 @@
 its plain version for a CPU tensor); ``False`` is ``torch.matmul`` on the
 full matrix, the plain product XLA computes in the reference. The
 triangular solves stay library calls, as the reference leaves them to XLA.
+
+An operator may hold fp32 or bf16 matrices (the demoted Krylov operator
+of ``precision="mixed"``/``"fast"``): the product then runs in that dtype,
+bf16 accumulated in fp32 (``precision.matmul_acc`` off the kernel path),
+and a bf16 triangular solve runs in fp32 and rounds its result to bf16.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Union
 
 import torch
+
+from .precision import matmul_acc
 
 
 class ExplicitC(NamedTuple):
@@ -36,17 +43,21 @@ def _symm(M: torch.Tensor, w: torch.Tensor, use_kernel: bool) -> torch.Tensor:
         if w.dim() == 1:
             return symv_ops.symv(M, w)
         return symv_ops.symm_block(M, w)
-    return M @ w
+    return matmul_acc(M, w)
 
 
 def _solve_upper(U: torch.Tensor, w: torch.Tensor, trans: bool) -> torch.Tensor:
     """U^{-1} w (``trans`` False) or U^{-T} w (True), reading only the upper
     triangle of U; w is (n,) or (n, p)."""
     W = w.unsqueeze(-1) if w.dim() == 1 else w
+    dtype = W.dtype
+    if dtype == torch.bfloat16:
+        U, W = U.float(), W.float()
     if trans:
         out = torch.linalg.solve_triangular(U.mT, W, upper=False)
     else:
         out = torch.linalg.solve_triangular(U, W, upper=True)
+    out = out.to(dtype)
     return out.squeeze(-1) if w.dim() == 1 else out
 
 

@@ -43,9 +43,19 @@
 //     updates its rows, and block 0 extends T. Partials go to
 //     per-reflector slots, so no slot is reused within a launch.
 // Every sum runs in a fixed order, so a result repeats bitwise.
+//
+// Instances (reduced.cuh). The cluster kernel sizes its shared memory for
+// fp64 and has the fp64 instance only. The cooperative kernel also has an
+// fp32 instance (panel, partials and T in fp32) and a bf16 one: the panel
+// is read from bf16 and factored in fp32, as the TPU kernel's bf16 path
+// computes in fp32 (its reflector norms and taus cancel too hard for
+// bf16), and V and T are rounded to bf16 at the store; the T recurrence
+// runs on an fp32 copy of T that block 0 rounds out at the end.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduced.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -59,7 +69,8 @@ constexpr int kMaxSmem = 200 * 1024;
 constexpr int kMaxClusterSmem = 232448;   // a CTA's dynamic shared memory
 
 // sum over the block, in a fixed order; every thread gets the total
-__device__ double block_sum(double v, double* red) {
+template <typename A>
+__device__ A block_sum(A v, A* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -67,23 +78,23 @@ __device__ double block_sum(double v, double* red) {
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    double t = lane < kWarps ? red[lane] : 0.0;
+    A t = lane < kWarps ? red[lane] : A(0);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
     if (lane == 0) red[kWarps] = t;
   }
   __syncthreads();
-  const double total = red[kWarps];
+  const A total = red[kWarps];
   __syncthreads();  // red is reused by the next call
   return total;
 }
 
 // sum of vals[0], vals[stride], ... over the nb blocks' partials, by one
 // warp, in a fixed order (the same in every block); lane 0 gets the sum
-__device__ double warp_sum_partials(const double* vals, int64_t stride,
-                                    int nb) {
+template <typename A>
+__device__ A warp_sum_partials(const A* vals, int64_t stride, int nb) {
   const int lane = threadIdx.x & 31;
-  double t = 0.0;
+  A t = A(0);
   for (int k = lane; k < nb; k += 32) t += __ldcg(vals + k * stride);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
@@ -113,17 +124,22 @@ __device__ void grid_sync(unsigned int* count, unsigned int& target) {
 // this block's own partial
 constexpr int kFull = 0, kBarrierOnly = 1, kNoBarrier = 2, kNoSums = 3;
 
-template <int kMode>
+// V and T are the outputs in the storage type S; Tw is the working T in
+// the compute type A (T itself where the two are one type)
+template <typename S, int kMode>
 __global__ void __launch_bounds__(kThreads)
-house_panel_kernel(const double* __restrict__ E, int64_t lde,
-                   double* __restrict__ V, double* __restrict__ T,
-                   double* __restrict__ part, unsigned int* bar, int rows,
-                   int b, int rs, int rpb) {
-  extern __shared__ double P[];          // this block's rows, (rpb, b)
-  __shared__ double red[kWarps + 1];
-  __shared__ double wred[kWarps][kChunk];
-  __shared__ double proj[kMaxB];
-  __shared__ double scal[2];             // total tail norm^2, alpha
+house_panel_kernel(const S* __restrict__ E, int64_t lde,
+                   S* __restrict__ V, S* __restrict__ T,
+                   typename Acc<S>::type* __restrict__ Tw,
+                   typename Acc<S>::type* __restrict__ part,
+                   unsigned int* bar, int rows, int b, int rs, int rpb) {
+  using A = typename Acc<S>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* P = reinterpret_cast<A*>(smem_raw);   // this block's rows, (rpb, b)
+  __shared__ A red[kWarps + 1];
+  __shared__ A wred[kWarps][kChunk];
+  __shared__ A proj[kMaxB];
+  __shared__ A scal[2];                  // total tail norm^2, alpha
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -131,27 +147,27 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
   const int blk = blockIdx.x;
   const int r0 = blk * rpb;
   const int nr = max(0, min(rows, r0 + rpb) - r0);
-  double* part_sq = part;                          // [b][nb]
-  double* part_pr = part + (int64_t)b * nb;        // [b][nb][b]
-  double* alphas = part_pr + (int64_t)b * nb * b;  // [b]
+  A* part_sq = part;                               // [b][nb]
+  A* part_pr = part + (int64_t)b * nb;             // [b][nb][b]
+  A* alphas = part_pr + (int64_t)b * nb * b;       // [b]
   unsigned int target = 0;
   if (kMode == kBarrierOnly) {
     for (int j = 0; j < 2 * b; ++j) grid_sync(bar, target);
     return;
   }
   // the sums over blocks: in block order, or this block's own partial
-  auto sum_partials = [&](const double* vals, int64_t stride) {
+  auto sum_partials = [&](const A* vals, int64_t stride) {
     return kMode == kNoSums
-               ? (lane == 0 ? __ldcg(vals + blk * stride) : 0.0)
+               ? (lane == 0 ? __ldcg(vals + blk * stride) : A(0))
                : warp_sum_partials(vals, stride, nb);
   };
 
   for (int idx = tid; idx < nr * b; idx += kThreads) {
     const int64_t i = r0 + idx / b;
-    P[idx] = i >= rs ? E[i * lde + idx % b] : 0.0;
+    P[idx] = i >= rs ? to_acc(E[i * lde + idx % b]) : A(0);
   }
   if (blk == 0)
-    for (int idx = tid; idx < b * b; idx += kThreads) T[idx] = 0.0;
+    for (int idx = tid; idx < b * b; idx += kThreads) Tw[idx] = A(0);
   __syncthreads();
 
   for (int j = 0; j < b; ++j) {
@@ -159,10 +175,10 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     // ---- the partial tail norm, and alpha from the pivot's owner -------
     if (tid == 0 && pivot >= r0 && pivot < r0 + nr)
       alphas[j] = P[(pivot - r0) * b + j];
-    double sq = 0.0;
+    A sq = A(0);
     for (int i = tid; i < nr; i += kThreads) {
       if (r0 + i >= pivot) {
-        const double x = P[i * b + j];
+        const A x = P[i * b + j];
         sq += x * x;
       }
     }
@@ -170,57 +186,57 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     if (tid == 0) part_sq[(int64_t)j * nb + blk] = sq;
     if (kMode != kNoBarrier) grid_sync(bar, target);
     if (warp == 0) {
-      const double total = sum_partials(part_sq + (int64_t)j * nb, 1);
+      const A total = sum_partials(part_sq + (int64_t)j * nb, 1);
       if (lane == 0) {
         scal[0] = total;
-        scal[1] = pivot < rows ? __ldcg(alphas + j) : 0.0;
+        scal[1] = pivot < rows ? __ldcg(alphas + j) : A(0);
       }
     }
     __syncthreads();
-    const double alpha = scal[1];
-    double sigma = scal[0] - alpha * alpha;
-    sigma = sigma < 0.0 ? 0.0 : sigma;   // max(., 0), NaN passes through
-    const bool safe = sigma > 0.0;
-    const double norm_x = sqrt(alpha * alpha + sigma);
-    const double sgn = alpha >= 0.0 ? 1.0 : -1.0;
-    const double beta = safe ? -sgn * norm_x : alpha;
-    const double denom = safe ? alpha - beta : 1.0;
-    const double tau = safe ? (beta - alpha) / beta : 0.0;
+    const A alpha = scal[1];
+    A sigma = scal[0] - alpha * alpha;
+    sigma = sigma < A(0) ? A(0) : sigma;   // max(., 0), NaN passes through
+    const bool safe = sigma > A(0);
+    const A norm_x = sqrt(alpha * alpha + sigma);
+    const A sgn = alpha >= A(0) ? A(1) : A(-1);
+    const A beta = safe ? -sgn * norm_x : alpha;
+    const A denom = safe ? alpha - beta : A(1);
+    const A tau = safe ? (beta - alpha) / beta : A(0);
 
     // ---- v into column j, then the partial v^T buf over every column ---
     for (int i = tid; i < nr; i += kThreads) {
       const int gi = r0 + i;
       if (gi < rs) continue;
-      double v;
-      if (!safe) v = gi == pivot ? 1.0 : 0.0;
+      A v;
+      if (!safe) v = gi == pivot ? A(1) : A(0);
       else if (gi > pivot) v = P[i * b + j] / denom;
-      else v = gi == pivot ? 1.0 : 0.0;
+      else v = gi == pivot ? A(1) : A(0);
       P[i * b + j] = v;
     }
-    double* slot = part_pr + ((int64_t)j * nb + blk) * b;
+    A* slot = part_pr + ((int64_t)j * nb + blk) * b;
     for (int c0 = 0; c0 < b; c0 += kChunk) {
       const int nc = min(kChunk, b - c0);
-      double acc[kChunk];
+      A acc[kChunk];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) acc[c] = 0.0;
+      for (int c = 0; c < kChunk; ++c) acc[c] = A(0);
       for (int i = tid; i < nr; i += kThreads) {
         if (r0 + i < pivot) continue;   // v is zero above the pivot
-        const double v = P[i * b + j];
-        const double* row = P + i * b + c0;
+        const A v = P[i * b + j];
+        const A* row = P + i * b + c0;
 #pragma unroll
         for (int c = 0; c < kChunk; ++c)
           if (c < nc) acc[c] += v * row[c];
       }
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
-        double t = acc[c];
+        A t = acc[c];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
         if (lane == 0) wred[warp][c] = t;
       }
       __syncthreads();
       if (tid < nc) {
-        double t = 0.0;
+        A t = A(0);
         for (int w = 0; w < kWarps; ++w) t += wred[w][tid];
         slot[c0 + tid] = t;
       }
@@ -228,7 +244,7 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     }
     if (kMode != kNoBarrier) grid_sync(bar, target);
     for (int c = warp; c < b; c += kWarps) {
-      const double t = sum_partials(part_pr + (int64_t)j * nb * b + c, b);
+      const A t = sum_partials(part_pr + (int64_t)j * nb * b + c, b);
       if (lane == 0) proj[c] = t;
     }
     __syncthreads();
@@ -236,22 +252,27 @@ house_panel_kernel(const double* __restrict__ E, int64_t lde,
     // ---- T column j from z = proj[:j]; the update R -= tau v p^T -------
     if (blk == 0) {
       if (tid < j) {
-        double t = 0.0;
-        for (int k = 0; k < j; ++k) t += T[tid * b + k] * proj[k];
-        T[tid * b + j] = -tau * t;
+        A t = A(0);
+        for (int k = 0; k < j; ++k) t += Tw[tid * b + k] * proj[k];
+        Tw[tid * b + j] = -tau * t;
       }
-      if (tid == 0) T[j * b + j] = tau;
+      if (tid == 0) Tw[j * b + j] = tau;
     }
     for (int i = tid; i < nr; i += kThreads) {
       if (r0 + i <= pivot) continue;   // v = 0 above; the pivot row is done
-      const double v = P[i * b + j];
+      const A v = P[i * b + j];
       for (int c = j + 1; c < b; ++c) P[i * b + c] -= tau * (v * proj[c]);
     }
     __syncthreads();
   }
 
   for (int idx = tid; idx < nr * b; idx += kThreads)
-    V[(int64_t)r0 * b + idx] = P[idx];
+    V[(int64_t)r0 * b + idx] = from_acc<S>(P[idx]);
+  if constexpr (!std::is_same_v<S, A>) {
+    if (blk == 0)   // block 0 wrote Tw, and its threads are past the loop
+      for (int idx = tid; idx < b * b; idx += kThreads)
+        T[idx] = from_acc<S>(Tw[idx]);
+  }
 }
 
 // ---- the panel in one cluster's distributed shared memory -----------------
@@ -490,33 +511,34 @@ int launch_cluster(const double* E, int64_t lde, double* V, double* T,
   return (int)cudaGetLastError();
 }
 
-template <int kMode>
-int launch_coop(const double* E, int64_t lde, double* V, double* T,
-                double* part, unsigned int* bar, int rows, int b,
-                int row_start, cudaStream_t stream) {
+template <typename S, int kMode>
+int launch_coop(const S* E, int64_t lde, S* V, S* T,
+                typename Acc<S>::type* Tw, typename Acc<S>::type* part,
+                unsigned int* bar, int rows, int b, int row_start,
+                cudaStream_t stream) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   int nb = max(1, min(sms, (rows + 31) / 32));
   int rpb = (rows + nb - 1) / nb;
   nb = (rows + rpb - 1) / rpb;   // every block owns at least one row
-  const size_t smem = (size_t)rpb * b * sizeof(double);
+  const size_t smem = (size_t)rpb * b * sizeof(typename Acc<S>::type);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t err;
   if (!smem_set) {
-    err = cudaFuncSetAttribute(house_panel_kernel<kMode>,
+    err = cudaFuncSetAttribute(house_panel_kernel<S, kMode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   void* args[] = {(void*)&E, (void*)&lde, (void*)&V, (void*)&T,
-                  (void*)&part, (void*)&bar, (void*)&rows, (void*)&b,
-                  (void*)&row_start, (void*)&rpb};
-  err = cudaLaunchCooperativeKernel((const void*)house_panel_kernel<kMode>,
-                                    dim3(nb), dim3(kThreads), args, smem,
-                                    stream);
+                  (void*)&Tw, (void*)&part, (void*)&bar, (void*)&rows,
+                  (void*)&b, (void*)&row_start, (void*)&rpb};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)house_panel_kernel<S, kMode>, dim3(nb), dim3(kThreads),
+      args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -545,18 +567,39 @@ int house_panel_fp64(const double* E, int64_t lde, double* V, double* T,
   if (b < 1 || b > kMaxB || rows < 1) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kBarrierOnly:
-      return launch_coop<kBarrierOnly>(E, lde, V, T, part, bar, rows, b,
-                                       row_start, stream);
+      return launch_coop<double, kBarrierOnly>(E, lde, V, T, T, part, bar,
+                                               rows, b, row_start, stream);
     case kNoBarrier:
-      return launch_coop<kNoBarrier>(E, lde, V, T, part, bar, rows, b,
-                                     row_start, stream);
+      return launch_coop<double, kNoBarrier>(E, lde, V, T, T, part, bar,
+                                             rows, b, row_start, stream);
     case kNoSums:
-      return launch_coop<kNoSums>(E, lde, V, T, part, bar, rows, b,
-                                  row_start, stream);
+      return launch_coop<double, kNoSums>(E, lde, V, T, T, part, bar, rows,
+                                          b, row_start, stream);
     default:
-      return launch_coop<kFull>(E, lde, V, T, part, bar, rows, b, row_start,
-                                stream);
+      return launch_coop<double, kFull>(E, lde, V, T, T, part, bar, rows, b,
+                                        row_start, stream);
   }
+}
+
+// The cooperative factorization in fp32: E, V, T and the scratch part
+// (house_panel_scratch_doubles(b) floats) in fp32.
+int house_panel_fp32(const float* E, int64_t lde, float* V, float* T,
+                     float* part, unsigned int* bar, int rows, int b,
+                     int row_start, cudaStream_t stream) {
+  if (b < 1 || b > kMaxB || rows < 1) return (int)cudaErrorInvalidValue;
+  return launch_coop<float, kFull>(E, lde, V, T, T, part, bar, rows, b,
+                                   row_start, stream);
+}
+
+// The same for a bf16 panel, computed in fp32: V and T in bf16, Tw (b, b)
+// and part in fp32.
+int house_panel_bf16(const __nv_bfloat16* E, int64_t lde, __nv_bfloat16* V,
+                     __nv_bfloat16* T, float* Tw, float* part,
+                     unsigned int* bar, int rows, int b, int row_start,
+                     cudaStream_t stream) {
+  if (b < 1 || b > kMaxB || rows < 1) return (int)cudaErrorInvalidValue;
+  return launch_coop<__nv_bfloat16, kFull>(E, lde, V, T, Tw, part, bar, rows,
+                                           b, row_start, stream);
 }
 
 // The same with the panel in the distributed shared memory of one cluster

@@ -108,9 +108,24 @@
 //     column) items spread over the threads, four per thread in flight at
 //     once.
 // Slots past a sweep's end hold the identity and are skipped.
+//
+// Instances (reduced.cuh). Every kernel has its fp64 instance. The cluster
+// chase and the slab replay size their shared memory for fp64 and stay
+// fp64 only; rot_apply, the cooperative chase and the sweep replay also
+// have fp32 and bf16 instances: stored in fp32 or bf16, computed in fp32
+// (the TPU kernel rotates bf16 tiles in fp32 and rounds at the store).
+// The reduced chase computes each Givens rotation in fp32 from the stored
+// entries and rounds (c, s) to the storage type (its table's type, and
+// the values it rotates with); every rotated entry rounds at its store,
+// and the 2 x 2 block also between its row and its column rotation, as
+// the reference's wavefront stores the rotated rows before it rotates the
+// columns. The plain versions (kernels/rot_apply/ref.py) round at the
+// same points, so every instance is bitwise equal to its plain version.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduced.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -124,16 +139,18 @@ constexpr int kMaxCluster = 16;      // CTAs of a chase cluster (non-portable)
 constexpr int kReplayThreads = 1024;
 constexpr int kReplayCols = 4;       // one 32-byte sector of a row
 
-__device__ __forceinline__ void rotate(double c, double s, double x0,
-                                       double x1, double* y0, double* y1) {
+template <typename A>
+__device__ __forceinline__ void rotate(A c, A s, A x0, A x1, A* y0, A* y1) {
   *y0 = c * x0 + s * x1;
   *y1 = -s * x0 + c * x1;
 }
 
+template <typename S>
 __global__ void __launch_bounds__(256)
-rot_apply_kernel(const double* __restrict__ X, const double* __restrict__ CS,
-                 double* __restrict__ Y, unsigned G, unsigned L) {
-  __shared__ double cs[2 * 256];
+rot_apply_kernel(const S* __restrict__ X, const S* __restrict__ CS,
+                 S* __restrict__ Y, unsigned G, unsigned L) {
+  using A = typename Acc<S>::type;
+  __shared__ A cs[2 * 256];
   const unsigned tx = blockDim.x;                 // threads of a pair
   const unsigned ty = blockDim.y;                 // pairs of the block
   const unsigned tid = threadIdx.y * tx + threadIdx.x;
@@ -141,17 +158,19 @@ rot_apply_kernel(const double* __restrict__ X, const double* __restrict__ CS,
   // the block's 2 ty (c, s) entries; at L = 1 a block holds 256 pairs,
   // so each thread stages two
   for (unsigned i = tid; i < 2 * ty && g0 + i / 2 < G; i += tx * ty)
-    cs[i] = CS[2 * g0 + i];
+    cs[i] = to_acc(CS[2 * g0 + i]);
   __syncthreads();
   const unsigned g = g0 + threadIdx.y;
   if (g >= G) return;
-  const double c = cs[2 * threadIdx.y];
-  const double s = cs[2 * threadIdx.y + 1];
+  const A c = cs[2 * threadIdx.y];
+  const A s = cs[2 * threadIdx.y + 1];
   const unsigned base = 2 * g * L;
   for (unsigned l = blockIdx.y * tx + threadIdx.x; l < L;
        l += gridDim.y * tx) {
-    rotate(c, s, X[base + l], X[base + L + l], &Y[base + l],
-           &Y[base + L + l]);
+    A y0, y1;
+    rotate(c, s, to_acc(X[base + l]), to_acc(X[base + L + l]), &y0, &y1);
+    Y[base + l] = from_acc<S>(y0);
+    Y[base + L + l] = from_acc<S>(y1);
   }
 }
 
@@ -175,6 +194,19 @@ __device__ __forceinline__ double ld_cg(const double* p) {
   double v;
   asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
   return v;
+}
+
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// a bf16 entry, widened to fp32
+__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.cg.b16 %0, [%1];" : "=h"(v) : "l"(p) : "memory");
+  return __bfloat162float(__ushort_as_bfloat16(v));
 }
 
 // all blocks of the (cooperative, hence co-resident) grid meet here;
@@ -208,13 +240,14 @@ __device__ void grid_sync(unsigned int* count, unsigned int& target) {
 constexpr int kFull = 0, kBarrierOnly = 1, kNoBarrier = 2, kLocalOnly = 3,
               kNoGivens = 4, kNoBlockSync = 5;
 
-template <int kMode>
+template <typename S, int kMode>
 __global__ void __launch_bounds__(kChaseThreads)
-chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
-                  int64_t npad, double* __restrict__ CS, unsigned int* bar,
+chase_pass_kernel(S* __restrict__ Wp, int64_t sd, int64_t sc,
+                  int64_t npad, S* __restrict__ CS, unsigned int* bar,
                   int n, int b, int w, int g, int T_pass, int G, int J,
                   int K0, int lpb) {
-  __shared__ double s_cs[2 * kMaxLanesPerBlock];
+  using A = typename Acc<S>::type;
+  __shared__ A s_cs[2 * kMaxLanesPerBlock];
   const int tid = threadIdx.x;
   const int blk = blockIdx.x;
   const int nb = gridDim.x;
@@ -230,14 +263,14 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
     }
     // ---- loads: this thread's pairs (phase B) and, for one lane, the
     // pivot, target and 2 x 2 block (phase A), all in flight at once -----
-    double* q0[kBatch];
-    double* q1[kBatch];
-    double x0[kBatch], x1[kBatch];
+    S* q0[kBatch];
+    S* q1[kBatch];
+    A x0[kBatch], x1[kBatch];
     int lane_of[kBatch];
 #pragma unroll
     for (int m = 0; m < kBatch; ++m) {
       q0[m] = q1[m] = nullptr;
-      x0[m] = x1[m] = 0.0;
+      x0[m] = x1[m] = A(0);
       lane_of[m] = -1;
       const int idx = tid + m * kChaseThreads;
       if (idx >= total) continue;
@@ -284,31 +317,37 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
         // W[r, r-1] = W[r-1, r], W[r, r]
         const int64_t col = (r - b - sk + kPLeft) * sc;
         const int64_t cb = (r - 1 + kPLeft) * sc;
-        const double a = ld_cg(Wp + (b - 1 + sk) * sd + col);
-        const double bb = ld_cg(Wp + (b + sk) * sd + col);
-        double* p11 = Wp + cb;
-        double* p21 = Wp + sd + cb;
-        double* p22 = Wp + cb + sc;
-        const double a11 = ld_cg(p11), a21 = ld_cg(p21), a22 = ld_cg(p22);
-        const double rr = sqrt(a * a + bb * bb);
-        const bool safe = rr > 0.0;
-        const double den = safe ? rr : 1.0;
-        const double c = safe ? a / den : 1.0;
-        const double s = safe ? bb / den : 0.0;
-        double* slot = CS + ((int64_t)j * (K0 + 1) + k) * 2;
-        slot[0] = c;
-        slot[1] = s;
+        const A a = ld_cg(Wp + (b - 1 + sk) * sd + col);
+        const A bb = ld_cg(Wp + (b + sk) * sd + col);
+        S* p11 = Wp + cb;
+        S* p21 = Wp + sd + cb;
+        S* p22 = Wp + cb + sc;
+        const A a11 = ld_cg(p11), a21 = ld_cg(p21), a22 = ld_cg(p22);
+        const A rr = sqrt(a * a + bb * bb);
+        const bool safe = rr > A(0);
+        const A den = safe ? rr : A(1);
+        // (c, s) at the table's precision
+        const A c = rnd<S>(safe ? a / den : A(1));
+        const A s = rnd<S>(safe ? bb / den : A(0));
+        S* slot = CS + ((int64_t)j * (K0 + 1) + k) * 2;
+        slot[0] = from_acc<S>(c);
+        slot[1] = from_acc<S>(s);
         s_cs[2 * li] = c;
         s_cs[2 * li + 1] = s;
-        // rows, then columns, as the reference's two rot_apply calls
-        double r11, r21, r12, r22, n11, n12, n21, n22;
+        // rows, then columns, as the reference's two rot_apply calls, the
+        // rotated rows stored between them
+        A r11, r21, r12, r22, n11, n12, n21, n22;
         rotate(c, s, a11, a21, &r11, &r21);
         rotate(c, s, a21, a22, &r12, &r22);
+        r11 = rnd<S>(r11);
+        r21 = rnd<S>(r21);
+        r12 = rnd<S>(r12);
+        r22 = rnd<S>(r22);
         rotate(c, s, r11, r12, &n11, &n12);
         rotate(c, s, r21, r22, &n21, &n22);
-        *p11 = n11;
-        *p21 = n21;
-        *p22 = n22;
+        *p11 = from_acc<S>(n11);
+        *p21 = from_acc<S>(n21);
+        *p22 = from_acc<S>(n22);
       }
     }
     __syncthreads();
@@ -316,11 +355,11 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
 #pragma unroll
     for (int m = 0; m < kBatch; ++m) {
       if (lane_of[m] < 0) continue;
-      double y0, y1;
+      A y0, y1;
       rotate(s_cs[2 * lane_of[m]], s_cs[2 * lane_of[m] + 1], x0[m], x1[m],
              &y0, &y1);
-      if (q0[m]) *q0[m] = y0;
-      if (q1[m]) *q1[m] = y1;
+      if (q0[m]) *q0[m] = from_acc<S>(y0);
+      if (q1[m]) *q1[m] = from_acc<S>(y1);
     }
     // the next step's lanes read what neighbouring lanes, in other
     // blocks, wrote in this one
@@ -331,7 +370,7 @@ chase_pass_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
   for (int64_t idx = (int64_t)blk * kChaseThreads + tid;
        idx < (int64_t)(w + 2 - b) * npad;
        idx += (int64_t)nb * kChaseThreads) {
-    Wp[(b + idx / npad) * sd + (idx % npad) * sc] = 0.0;
+    Wp[(b + idx / npad) * sd + (idx % npad) * sc] = from_acc<S>(A(0));
   }
 }
 
@@ -527,44 +566,47 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
   }
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kReplayThreads)
-replay_pass_kernel(double* __restrict__ X, int64_t ldx, int ncols,
-                   const double* __restrict__ CS, int n, int b, int J, int K0,
+replay_pass_kernel(S* __restrict__ X, int64_t ldx, int ncols,
+                   const S* __restrict__ CS, int n, int b, int J, int K0,
                    int reverse) {
+  using A = typename Acc<S>::type;
   const int col0 = blockIdx.x * kReplayCols;
   const int nc = min(kReplayCols, ncols - col0);
   for (int i = 0; i < J; ++i) {
     const int j = reverse ? J - 1 - i : i;
     const int Kj = (n - 1 - j - b) / b + 1;
     const int total = Kj * nc;
-    const double* row = CS + (int64_t)j * (K0 + 1) * 2;
+    const S* row = CS + (int64_t)j * (K0 + 1) * 2;
     // kBatch rotations in flight per thread: loads first, then stores (a
     // sweep's row pairs are disjoint)
     for (int base = threadIdx.x; base < total;
          base += kReplayThreads * kBatch) {
-      double* p0[kBatch];
-      double x0[kBatch], x1[kBatch], cc[kBatch], ss[kBatch];
+      S* p0[kBatch];
+      A x0[kBatch], x1[kBatch], cc[kBatch], ss[kBatch];
 #pragma unroll
       for (int m = 0; m < kBatch; ++m) {
         p0[m] = nullptr;
-        x0[m] = x1[m] = cc[m] = ss[m] = 0.0;
+        x0[m] = x1[m] = cc[m] = ss[m] = A(0);
         const int idx = base + m * kReplayThreads;
         if (idx >= total) continue;
         const int k = idx / nc;
         const int64_t r = j + (int64_t)(k + 1) * b;
-        cc[m] = row[2 * k];
-        ss[m] = reverse ? row[2 * k + 1] * -1.0 : row[2 * k + 1];
+        cc[m] = to_acc(row[2 * k]);
+        ss[m] = reverse ? to_acc(row[2 * k + 1]) * A(-1)
+                        : to_acc(row[2 * k + 1]);
         p0[m] = X + (r - 1) * ldx + col0 + idx % nc;
-        x0[m] = p0[m][0];
-        x1[m] = p0[m][ldx];
+        x0[m] = to_acc(p0[m][0]);
+        x1[m] = to_acc(p0[m][ldx]);
       }
 #pragma unroll
       for (int m = 0; m < kBatch; ++m) {
         if (!p0[m]) continue;
-        double y0, y1;
+        A y0, y1;
         rotate(cc[m], ss[m], x0[m], x1[m], &y0, &y1);
-        p0[m][0] = y0;
-        p0[m][ldx] = y1;
+        p0[m][0] = from_acc<S>(y0);
+        p0[m][ldx] = from_acc<S>(y1);
       }
     }
     __syncthreads();
@@ -868,32 +910,20 @@ int launch_cluster(double* Wp, int64_t sd, int64_t sc, int64_t npad,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Y (G, 2, L) = the rotations CS (G, 2) of the row pairs X (G, 2, L);
-// all contiguous, G L < 2^31. Blocks of (tx, 256 / tx) threads, grid
-// (gx, gy): the wrapper's launch_shape.
-int rot_apply_fp64(const double* X, const double* CS, double* Y, int G,
-                   int L, int tx, int gx, int gy, cudaStream_t stream) {
+template <typename S>
+int rot_apply_launch(const S* X, const S* CS, S* Y, int G, int L, int tx,
+                     int gx, int gy, cudaStream_t stream) {
   if (G <= 0 || L <= 0) return 0;
   if (tx < 1 || tx > 256 || 256 % tx != 0) return (int)cudaErrorInvalidValue;
-  rot_apply_kernel<<<dim3(gx, gy), dim3(tx, 256 / tx), 0, stream>>>(
+  rot_apply_kernel<S><<<dim3(gx, gy), dim3(tx, 256 / tx), 0, stream>>>(
       X, CS, Y, (unsigned)G, (unsigned)L);
   return (int)cudaGetLastError();
 }
 
-// One bandwidth-b pass over the padded band Wp (w+2 diagonals, npad
-// columns, strides sd and sc), in place; CS (J+1, K0+1, 2) contiguous,
-// filled with the identity by the caller, receives the pass's rotations;
-// bar is one zeroed counter. One cooperative launch, so that all blocks
-// are resident while they wait at the grid barrier. ``mode`` is kFull, or
-// a timing variant (kBarrierOnly, kNoBarrier).
-int chase_pass_coop_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
-                         double* CS, unsigned int* bar, int n, int b, int w,
-                         int g, int T_pass, int G, int J, int K0, int mode,
-                         cudaStream_t stream) {
+template <typename S>
+int chase_coop(S* Wp, int64_t sd, int64_t sc, int64_t npad, S* CS,
+               unsigned int* bar, int n, int b, int w, int g, int T_pass,
+               int G, int J, int K0, int mode, cudaStream_t stream) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -909,14 +939,81 @@ int chase_pass_coop_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
                   (void*)&CS, (void*)&bar, (void*)&n, (void*)&b, (void*)&w,
                   (void*)&g, (void*)&T_pass, (void*)&G, (void*)&J,
                   (void*)&K0, (void*)&lpb};
-  const void* fn = mode == kBarrierOnly ? (const void*)chase_pass_kernel<kBarrierOnly>
-                 : mode == kNoBarrier ? (const void*)chase_pass_kernel<kNoBarrier>
-                                      : (const void*)chase_pass_kernel<kFull>;
+  const void* fn =
+      mode == kBarrierOnly ? (const void*)chase_pass_kernel<S, kBarrierOnly>
+      : mode == kNoBarrier ? (const void*)chase_pass_kernel<S, kNoBarrier>
+                           : (const void*)chase_pass_kernel<S, kFull>;
   cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(nb),
                                                 dim3(kChaseThreads), args, 0,
                                                 stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int replay_sweeps(S* X, int64_t ldx, int ncols, const S* CS, int n, int b,
+                  int J, int K0, int reverse, cudaStream_t stream) {
+  if (ncols <= 0 || J <= 0) return 0;
+  const int blocks = (ncols + kReplayCols - 1) / kReplayCols;
+  replay_pass_kernel<S><<<blocks, kReplayThreads, 0, stream>>>(
+      X, ldx, ncols, CS, n, b, J, K0, reverse);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Y (G, 2, L) = the rotations CS (G, 2) of the row pairs X (G, 2, L);
+// all contiguous, G L < 2^31. Blocks of (tx, 256 / tx) threads, grid
+// (gx, gy): the wrapper's launch_shape.
+int rot_apply_fp64(const double* X, const double* CS, double* Y, int G,
+                   int L, int tx, int gx, int gy, cudaStream_t stream) {
+  return rot_apply_launch(X, CS, Y, G, L, tx, gx, gy, stream);
+}
+
+// The same in fp32, and in bf16 (rotated in fp32).
+int rot_apply_fp32(const float* X, const float* CS, float* Y, int G, int L,
+                   int tx, int gx, int gy, cudaStream_t stream) {
+  return rot_apply_launch(X, CS, Y, G, L, tx, gx, gy, stream);
+}
+
+int rot_apply_bf16(const __nv_bfloat16* X, const __nv_bfloat16* CS,
+                   __nv_bfloat16* Y, int G, int L, int tx, int gx, int gy,
+                   cudaStream_t stream) {
+  return rot_apply_launch(X, CS, Y, G, L, tx, gx, gy, stream);
+}
+
+// One bandwidth-b pass over the padded band Wp (w+2 diagonals, npad
+// columns, strides sd and sc), in place; CS (J+1, K0+1, 2) contiguous,
+// filled with the identity by the caller, receives the pass's rotations;
+// bar is one zeroed counter. One cooperative launch, so that all blocks
+// are resident while they wait at the grid barrier. ``mode`` is kFull, or
+// a timing variant (kBarrierOnly, kNoBarrier).
+int chase_pass_coop_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
+                         double* CS, unsigned int* bar, int n, int b, int w,
+                         int g, int T_pass, int G, int J, int K0, int mode,
+                         cudaStream_t stream) {
+  return chase_coop(Wp, sd, sc, npad, CS, bar, n, b, w, g, T_pass, G, J, K0,
+                    mode, stream);
+}
+
+// The same pass on an fp32 band, and on a bf16 band (computed in fp32);
+// CS in the band's type.
+int chase_pass_coop_fp32(float* Wp, int64_t sd, int64_t sc, int64_t npad,
+                         float* CS, unsigned int* bar, int n, int b, int w,
+                         int g, int T_pass, int G, int J, int K0, int mode,
+                         cudaStream_t stream) {
+  return chase_coop(Wp, sd, sc, npad, CS, bar, n, b, w, g, T_pass, G, J, K0,
+                    mode, stream);
+}
+
+int chase_pass_coop_bf16(__nv_bfloat16* Wp, int64_t sd, int64_t sc,
+                         int64_t npad, __nv_bfloat16* CS, unsigned int* bar,
+                         int n, int b, int w, int g, int T_pass, int G, int J,
+                         int K0, int mode, cudaStream_t stream) {
+  return chase_coop(Wp, sd, sc, npad, CS, bar, n, b, w, g, T_pass, G, J, K0,
+                    mode, stream);
 }
 
 // How many clusters of csize CTAs with smem bytes of dynamic shared memory
@@ -971,11 +1068,21 @@ int chase_pass_cluster_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
 int replay_pass_fp64(double* X, int64_t ldx, int ncols, const double* CS,
                      int n, int b, int J, int K0, int reverse,
                      cudaStream_t stream) {
-  if (ncols <= 0 || J <= 0) return 0;
-  const int blocks = (ncols + kReplayCols - 1) / kReplayCols;
-  replay_pass_kernel<<<blocks, kReplayThreads, 0, stream>>>(
-      X, ldx, ncols, CS, n, b, J, K0, reverse);
-  return (int)cudaGetLastError();
+  return replay_sweeps(X, ldx, ncols, CS, n, b, J, K0, reverse, stream);
+}
+
+// The same on fp32 rows, and on bf16 rows (rotated in fp32); CS in the
+// rows' type.
+int replay_pass_fp32(float* X, int64_t ldx, int ncols, const float* CS,
+                     int n, int b, int J, int K0, int reverse,
+                     cudaStream_t stream) {
+  return replay_sweeps(X, ldx, ncols, CS, n, b, J, K0, reverse, stream);
+}
+
+int replay_pass_bf16(__nv_bfloat16* X, int64_t ldx, int ncols,
+                     const __nv_bfloat16* CS, int n, int b, int J, int K0,
+                     int reverse, cudaStream_t stream) {
+  return replay_sweeps(X, ldx, ncols, CS, n, b, J, K0, reverse, stream);
 }
 
 // Bytes of dynamic shared memory of the slab replay: two table slices of

@@ -61,8 +61,17 @@
 // n=9997, p=1, against the 400 MB triangle). X may be a column slice of a
 // wider row-major array (the Lanczos basis): it is read through its
 // leading dimension ldx, and A through lda; neither is copied or padded.
+//
+// Instances (reduced.cuh): fp64; fp32, A, X and Y in fp32 and every sum in
+// fp32; bf16, A, X and Y in bf16 (half the bytes of fp32) and every
+// product, sum, scratch slot and the slot sum in fp32, with Y rounded to
+// bf16 at the store, as the TPU kernel accumulates bf16 in fp32. The
+// reduced instances' least times are the triangle at 4 or 2 bytes an
+// entry over 3.35 TB/s.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduced.cuh"
 
 namespace {
 
@@ -92,24 +101,24 @@ __device__ __forceinline__ void tile_of(int t, int nb, int* ib, int* jb) {
 // Lane l returns the sum of value l / (32 / V). Fixed order: bitwise
 // repeatable. The steps recurse at compile time, so every index into v
 // is a constant and v stays in registers.
-template <int V, int H, int O>
-__device__ __forceinline__ void halve(double (&v)[V], int lane) {
+template <int V, int H, int O, typename T>
+__device__ __forceinline__ void halve(T (&v)[V], int lane) {
   if constexpr (H >= 1) {
     const bool up = lane & O;
 #pragma unroll
     for (int q = 0; q < H; ++q) {
-      const double send = up ? v[q] : v[q + H];
-      const double keep = up ? v[q + H] : v[q];
+      const T send = up ? v[q] : v[q + H];
+      const T keep = up ? v[q + H] : v[q];
       v[q] = keep + __shfl_xor_sync(kFull, send, O);
     }
     halve<V, H / 2, O / 2>(v, lane);
   }
 }
 
-template <int V>
-__device__ __forceinline__ double transpose_reduce(double (&v)[V], int lane) {
+template <int V, typename T>
+__device__ __forceinline__ T transpose_reduce(T (&v)[V], int lane) {
   halve<V, V / 2, 16>(v, lane);
-  double s = v[0];
+  T s = v[0];
 #pragma unroll
   for (int o = 16 / V; o >= 1; o /= 2) s += __shfl_xor_sync(kFull, s, o);
   return s;
@@ -117,10 +126,10 @@ __device__ __forceinline__ double transpose_reduce(double (&v)[V], int lane) {
 
 // rows c R .. c R + R - 1 of tile (ib, jb), columns lane and lane + 32;
 // zero outside A and, on the diagonal tile, strictly below the diagonal
-template <int R>
-__device__ __forceinline__ void load_chunk(const double* __restrict__ A,
-                                           int64_t lda, int n, int ib, int jb,
-                                           int c, int lane, double (&a)[R][2]) {
+template <int R, typename S>
+__device__ __forceinline__ void load_chunk(
+    const S* __restrict__ A, int64_t lda, int n, int ib, int jb, int c,
+    int lane, typename Acc<S>::type (&a)[R][2]) {
   const int i0 = ib * kT + c * R;
   const int j0 = jb * kT + lane;
   const bool diag = ib == jb;
@@ -131,16 +140,19 @@ __device__ __forceinline__ void load_chunk(const double* __restrict__ A,
       const int gi = i0 + rr;
       const int gj = j0 + 32 * h;
       const bool in = gi < n && gj < n && (!diag || gi <= gj);
-      a[rr][h] = in ? __ldcs(A + (int64_t)gi * lda + gj) : 0.0;
+      a[rr][h] = in ? load_cs(A + (int64_t)gi * lda + gj)
+                    : typename Acc<S>::type(0);
     }
   }
 }
 
-template <int KC, int R>
+template <typename S, int KC, int R>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocks)
-symm_tiles(const double* __restrict__ A, int64_t lda,
-           const double* __restrict__ X, int64_t ldx, double* __restrict__ P,
+symm_tiles(const S* __restrict__ A, int64_t lda,
+           const S* __restrict__ X, int64_t ldx,
+           typename Acc<S>::type* __restrict__ P,
            int n, int p, int nb, int ntiles) {
+  using T = typename Acc<S>::type;
   constexpr int V = R * KC;            // values of one transpose-reduce
   constexpr int kLanesPerValue = 32 / V;
   constexpr int kChunks = kT / R;
@@ -155,56 +167,56 @@ symm_tiles(const double* __restrict__ A, int64_t lda,
   const bool diag = ib == jb;
   const int nk = (p + KC - 1) / KC;     // passes of KC columns
   const int64_t np = (int64_t)n * p;
-  double* const row_out = P + (int64_t)jb * np;
-  double* const col_out = P + (int64_t)(diag ? nb : ib) * np;
+  T* const row_out = P + (int64_t)jb * np;
+  T* const col_out = P + (int64_t)(diag ? nb : ib) * np;
 
-  double a[R][2];
+  T a[R][2];
   load_chunk<R>(A, lda, n, ib, jb, 0, lane, a);
   for (int kk = 0; kk < nk; ++kk) {
     const int k0 = kk * KC;
     const int pc = min(KC, p - k0);
-    double xj[2][KC], cacc[2][KC];
+    T xj[2][KC], cacc[2][KC];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gj = j0 + lane + 32 * h;
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
-        xj[h][k] = (k < pc && gj < n) ? __ldg(X + (int64_t)gj * ldx + k0 + k)
-                                      : 0.0;
-        cacc[h][k] = 0.0;
+        xj[h][k] = (k < pc && gj < n) ? load_ro(X + (int64_t)gj * ldx + k0 + k)
+                                      : T(0);
+        cacc[h][k] = T(0);
       }
     }
     for (int c = 0; c < kChunks; ++c) {
       // the next chunk's loads are issued before this one is computed:
       // chunk c + 1 of this pass, or chunk 0 again for the next pass
-      double an[R][2];
+      T an[R][2];
       if (c + 1 < kChunks || kk + 1 < nk) {
         load_chunk<R>(A, lda, n, ib, jb, c + 1 < kChunks ? c + 1 : 0, lane,
                       an);
       } else {
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr) an[rr][0] = an[rr][1] = 0.0;
+        for (int rr = 0; rr < R; ++rr) an[rr][0] = an[rr][1] = T(0);
       }
 
-      double v[V];
+      T v[V];
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
         const int r = c * R + rr;       // row within the tile
         const int gi = i0 + r;
         // the mirror: strictly upper entries only on the diagonal tile
-        const double m0 = (diag && r >= lane) ? 0.0 : a[rr][0];
-        const double m1 = (diag && r >= lane + 32) ? 0.0 : a[rr][1];
+        const T m0 = (diag && r >= lane) ? T(0) : a[rr][0];
+        const T m1 = (diag && r >= lane + 32) ? T(0) : a[rr][1];
 #pragma unroll
         for (int k = 0; k < KC; ++k) {
-          const double xi = (k < pc && gi < n)
-                                ? __ldg(X + (int64_t)gi * ldx + k0 + k) : 0.0;
-          v[rr * KC + k] = __fma_rn(a[rr][1], xj[1][k],
-                                    __dmul_rn(a[rr][0], xj[0][k]));
-          cacc[0][k] = __fma_rn(m0, xi, cacc[0][k]);
-          cacc[1][k] = __fma_rn(m1, xi, cacc[1][k]);
+          const T xi = (k < pc && gi < n)
+                           ? load_ro(X + (int64_t)gi * ldx + k0 + k) : T(0);
+          v[rr * KC + k] = fma_rn(a[rr][1], xj[1][k],
+                                  mul_rn(a[rr][0], xj[0][k]));
+          cacc[0][k] = fma_rn(m0, xi, cacc[0][k]);
+          cacc[1][k] = fma_rn(m1, xi, cacc[1][k]);
         }
       }
-      const double s = transpose_reduce<V>(v, lane);
+      const T s = transpose_reduce<V>(v, lane);
       if (lane % kLanesPerValue == 0) {
         const int q = lane / kLanesPerValue;
         const int k = q % KC;
@@ -228,16 +240,18 @@ symm_tiles(const double* __restrict__ A, int64_t lda,
   }
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kSumGroups * 32)
-symm_slot_sum(const double* __restrict__ P, double* __restrict__ Y,
+symm_slot_sum(const typename Acc<S>::type* __restrict__ P, S* __restrict__ Y,
               int64_t np, int ns) {
-  __shared__ double part[kSumGroups][32];
+  using T = typename Acc<S>::type;
+  __shared__ T part[kSumGroups][32];
   const int x = threadIdx.x & 31;
   const int g = threadIdx.x >> 5;
   const int64_t idx = (int64_t)blockIdx.x * 32 + x;
   const int b0 = g * ns / kSumGroups;
   const int b1 = (g + 1) * ns / kSumGroups;
-  double s = 0.0;
+  T s = T(0);
   if (idx < np) {
 #pragma unroll 4
     for (int b = b0; b < b1; ++b) s += __ldcs(P + (int64_t)b * np + idx);
@@ -245,42 +259,44 @@ symm_slot_sum(const double* __restrict__ P, double* __restrict__ Y,
   part[g][x] = s;
   __syncthreads();
   if (g == 0 && idx < np) {
-    double y = part[0][x];
+    T y = part[0][x];
 #pragma unroll
     for (int h = 1; h < kSumGroups; ++h) y += part[h][x];
-    Y[idx] = y;
+    Y[idx] = from_acc<S>(y);
   }
 }
 
-template <int KC, int R>
-int launch_tiles(const double* A, int64_t lda, const double* X, int64_t ldx,
-                 double* P, int n, int p, int nb, int ntiles,
+template <typename S, int KC, int R>
+int launch_tiles(const S* A, int64_t lda, const S* X, int64_t ldx,
+                 typename Acc<S>::type* P, int n, int p, int nb, int ntiles,
                  cudaStream_t stream) {
   const int blocks = (ntiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  symm_tiles<KC, R><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  symm_tiles<S, KC, R><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       A, lda, X, ldx, P, n, p, nb, ntiles);
   return (int)cudaGetLastError();
 }
 
-int product(const double* A, int64_t lda, const double* X, int64_t ldx,
-            double* P, double* Y, int n, int p, int kc, cudaStream_t stream) {
+template <typename S>
+int product(const S* A, int64_t lda, const S* X, int64_t ldx,
+            typename Acc<S>::type* P, S* Y, int n, int p, int kc,
+            cudaStream_t stream) {
   const int nb = (n + kT - 1) / kT;
   const int ntiles = nb * (nb + 1) / 2;
   int err;
   switch (kc) {
-    case 1: err = launch_tiles<1, 8>(A, lda, X, ldx, P, n, p, nb, ntiles,
-                                     stream); break;
-    case 2: err = launch_tiles<2, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
-                                     stream); break;
-    case 4: err = launch_tiles<4, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
-                                     stream); break;
+    case 1: err = launch_tiles<S, 1, 8>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                        stream); break;
+    case 2: err = launch_tiles<S, 2, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                        stream); break;
+    case 4: err = launch_tiles<S, 4, 4>(A, lda, X, ldx, P, n, p, nb, ntiles,
+                                        stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
   const int64_t np = (int64_t)n * p;
   const int64_t blocks = (np + 31) / 32;
-  symm_slot_sum<<<(unsigned)blocks, kSumGroups * 32, 0, stream>>>(P, Y, np,
-                                                                  nb + 1);
+  symm_slot_sum<S><<<(unsigned)blocks, kSumGroups * 32, 0, stream>>>(
+      P, Y, np, nb + 1);
   return (int)cudaGetLastError();
 }
 
@@ -288,19 +304,28 @@ int product(const double* A, int64_t lda, const double* X, int64_t ldx,
 
 extern "C" {
 
-// y (n,) = A x from the upper triangle of A (row stride lda); P scratch of
-// (nb + 1) * n doubles, nb = ceil(n / 64).
-int symv_upper(const double* A, int64_t lda, const double* x, double* P,
-               double* y, int n, cudaStream_t stream) {
-  return product(A, lda, x, 1, P, y, n, 1, 1, stream);
-}
-
 // Y (n, p) row-major = A X from the upper triangle of A; X (n, p) with row
 // stride ldx and unit column stride; P scratch of (nb + 1) * n * p
-// doubles; kc (1, 2 or 4) columns of X a pass.
+// doubles, nb = ceil(n / 64); kc (1, 2 or 4) columns of X a pass. symv,
+// y (n,) = A x, is this product at p = 1, kc = 1.
 int symm_block_upper(const double* A, int64_t lda, const double* X,
                      int64_t ldx, double* P, double* Y, int n, int p, int kc,
                      cudaStream_t stream) {
+  return product(A, lda, X, ldx, P, Y, n, p, kc, stream);
+}
+
+// The same in fp32 (P in fp32), and in bf16 (A, X, Y in bf16; P and every
+// sum in fp32).
+int symm_block_upper_fp32(const float* A, int64_t lda, const float* X,
+                          int64_t ldx, float* P, float* Y, int n, int p,
+                          int kc, cudaStream_t stream) {
+  return product(A, lda, X, ldx, P, Y, n, p, kc, stream);
+}
+
+int symm_block_upper_bf16(const __nv_bfloat16* A, int64_t lda,
+                          const __nv_bfloat16* X, int64_t ldx, float* P,
+                          __nv_bfloat16* Y, int n, int p, int kc,
+                          cudaStream_t stream) {
   return product(A, lda, X, ldx, P, Y, n, p, kc, stream);
 }
 

@@ -32,8 +32,20 @@
 // updated in place). C and out are read through their row strides.
 // The --fmad=false of the build costs this kernel its FMAs; per-source
 // flags are later work.
+//
+// Instances (reduced.cuh): fp64; fp32, stored and computed in fp32; bf16,
+// stored in bf16 and computed in fp32, as the TPU kernel's bf16 path
+// accumulates in fp32. Below fp64 the rounding points are the reference's:
+// R = C + alpha (V W^T + W V^T) rounds to the storage type at the store
+// (the TPU kernel's), and the symmetrizing average of two stored entries
+// rounds again (the reference's symmetrize of the stored result). With
+// --fmad=false every product and sum rounds on its own, so the plain
+// version (kernels/syr2k/ref.py syr2k_reduced_ref) repeats the fp32 and
+// bf16 instances bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduced.cuh"
 
 namespace {
 
@@ -42,19 +54,22 @@ constexpr int kRows = 8;        // thread rows: 32 x 8 threads, 4 entries each
 constexpr int kThreads = kT * kRows;
 constexpr int kK = 16;          // panel columns staged per chunk
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-syr2k_tiles(const double* C, int64_t ldc, const double* V,
-            int64_t ldv, const double* W, int64_t ldw, double* out,
-            int64_t ldo, int n, int k, double alpha, int sym) {
+syr2k_tiles(const S* C, int64_t ldc, const S* V,
+            int64_t ldv, const S* W, int64_t ldw, S* out,
+            int64_t ldo, int n, int k, double alpha_d, int sym) {
+  using A = typename Acc<S>::type;
+  const A alpha = (A)alpha_d;
   const int jb = blockIdx.x;
   const int ib = blockIdx.y;
   if (jb < ib) return;
-  __shared__ double cij[kT][kT + 1];   // C[I, J], later out[I, J]
-  __shared__ double cji[kT][kT + 1];   // C[J, I], later out[J, I]
-  __shared__ double vi[kT][kK + 1];
-  __shared__ double wi[kT][kK + 1];
-  __shared__ double vj[kT][kK + 1];
-  __shared__ double wj[kT][kK + 1];
+  __shared__ A cij[kT][kT + 1];   // C[I, J], later out[I, J]
+  __shared__ A cji[kT][kT + 1];   // C[J, I], later out[J, I]
+  __shared__ A vi[kT][kK + 1];
+  __shared__ A wi[kT][kK + 1];
+  __shared__ A vj[kT][kK + 1];
+  __shared__ A wj[kT][kK + 1];
   const int tx = threadIdx.x % kT;
   const int ty = threadIdx.x / kT;
   const int64_t i0 = (int64_t)ib * kT;
@@ -63,13 +78,15 @@ syr2k_tiles(const double* C, int64_t ldc, const double* V,
 #pragma unroll
   for (int m = 0; m < kT / kRows; ++m) {
     const int r = ty + m * kRows;
-    cij[r][tx] = (i0 + r < n && j0 + tx < n) ? C[(i0 + r) * ldc + j0 + tx] : 0.0;
-    cji[r][tx] = (j0 + r < n && i0 + tx < n) ? C[(j0 + r) * ldc + i0 + tx] : 0.0;
+    cij[r][tx] = (i0 + r < n && j0 + tx < n)
+                     ? to_acc(C[(i0 + r) * ldc + j0 + tx]) : A(0);
+    cji[r][tx] = (j0 + r < n && i0 + tx < n)
+                     ? to_acc(C[(j0 + r) * ldc + i0 + tx]) : A(0);
   }
 
-  double dot1[kT / kRows], dot2[kT / kRows];
+  A dot1[kT / kRows], dot2[kT / kRows];
 #pragma unroll
-  for (int m = 0; m < kT / kRows; ++m) dot1[m] = dot2[m] = 0.0;
+  for (int m = 0; m < kT / kRows; ++m) dot1[m] = dot2[m] = A(0);
   for (int k0 = 0; k0 < k; k0 += kK) {
     __syncthreads();   // the previous chunk is consumed
     for (int e = threadIdx.x; e < kT * kK; e += kThreads) {
@@ -78,16 +95,16 @@ syr2k_tiles(const double* C, int64_t ldc, const double* V,
       const bool kin = k0 + c < k;
       const bool iin = kin && i0 + r < n;
       const bool jin = kin && j0 + r < n;
-      vi[r][c] = iin ? V[(i0 + r) * ldv + k0 + c] : 0.0;
-      wi[r][c] = iin ? W[(i0 + r) * ldw + k0 + c] : 0.0;
-      vj[r][c] = jin ? V[(j0 + r) * ldv + k0 + c] : 0.0;
-      wj[r][c] = jin ? W[(j0 + r) * ldw + k0 + c] : 0.0;
+      vi[r][c] = iin ? to_acc(V[(i0 + r) * ldv + k0 + c]) : A(0);
+      wi[r][c] = iin ? to_acc(W[(i0 + r) * ldw + k0 + c]) : A(0);
+      vj[r][c] = jin ? to_acc(V[(j0 + r) * ldv + k0 + c]) : A(0);
+      wj[r][c] = jin ? to_acc(W[(j0 + r) * ldw + k0 + c]) : A(0);
     }
     __syncthreads();
     const int kc = min(kK, k - k0);
     for (int c = 0; c < kc; ++c) {
-      const double a = wj[tx][c];
-      const double bb = vj[tx][c];
+      const A a = wj[tx][c];
+      const A bb = vj[tx][c];
 #pragma unroll
       for (int m = 0; m < kT / kRows; ++m) {
         const int r = ty + m * kRows;
@@ -98,15 +115,16 @@ syr2k_tiles(const double* C, int64_t ldc, const double* V,
   }
   __syncthreads();   // every thread has read its C entries
 
-  double o1[kT / kRows], o2[kT / kRows];
+  A o1[kT / kRows], o2[kT / kRows];
 #pragma unroll
   for (int m = 0; m < kT / kRows; ++m) {
     const int r = ty + m * kRows;
-    const double contrib = dot1[m] + dot2[m];
-    const double r1 = cij[r][tx] + alpha * contrib;   // entry (i0 + r, j0 + tx)
-    const double r2 = cji[tx][r] + alpha * contrib;   // entry (j0 + tx, i0 + r)
+    const A contrib = dot1[m] + dot2[m];
+    // entries (i0 + r, j0 + tx) and (j0 + tx, i0 + r), as stored
+    const A r1 = rnd<S>(cij[r][tx] + alpha * contrib);
+    const A r2 = rnd<S>(cji[tx][r] + alpha * contrib);
     if (sym) {
-      o1[m] = 0.5 * (r1 + r2);
+      o1[m] = rnd<S>(A(0.5) * (r1 + r2));
       o2[m] = o1[m];
     } else {
       o1[m] = r1;
@@ -124,11 +142,23 @@ syr2k_tiles(const double* C, int64_t ldc, const double* V,
 #pragma unroll
   for (int m = 0; m < kT / kRows; ++m) {
     const int r = ty + m * kRows;
-    if (i0 + r < n && j0 + tx < n) out[(i0 + r) * ldo + j0 + tx] = cij[r][tx];
+    if (i0 + r < n && j0 + tx < n)
+      out[(i0 + r) * ldo + j0 + tx] = from_acc<S>(cij[r][tx]);
     // the diagonal tile's mirror is the tile itself, written above
     if (jb != ib && j0 + r < n && i0 + tx < n)
-      out[(j0 + r) * ldo + i0 + tx] = cji[r][tx];
+      out[(j0 + r) * ldo + i0 + tx] = from_acc<S>(cji[r][tx]);
   }
+}
+
+template <typename S>
+int launch(const S* C, int64_t ldc, const S* V, int64_t ldv, const S* W,
+           int64_t ldw, S* out, int64_t ldo, int n, int k, double alpha,
+           int sym, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int nt = (n + kT - 1) / kT;
+  syr2k_tiles<S><<<dim3(nt, nt), kThreads, 0, stream>>>(
+      C, ldc, V, ldv, W, ldw, out, ldo, n, k, alpha, sym);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -141,12 +171,21 @@ extern "C" {
 int syr2k_fp64(const double* C, int64_t ldc, const double* V, int64_t ldv,
                const double* W, int64_t ldw, double* out, int64_t ldo, int n,
                int k, double alpha, int sym, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int nt = (n + kT - 1) / kT;
-  syr2k_tiles<<<dim3(nt, nt), kThreads, 0, stream>>>(C, ldc, V, ldv, W, ldw,
-                                                     out, ldo, n, k, alpha,
-                                                     sym);
-  return (int)cudaGetLastError();
+  return launch(C, ldc, V, ldv, W, ldw, out, ldo, n, k, alpha, sym, stream);
+}
+
+// The same in fp32, and in bf16 (computed in fp32): the instances above.
+int syr2k_fp32(const float* C, int64_t ldc, const float* V, int64_t ldv,
+               const float* W, int64_t ldw, float* out, int64_t ldo, int n,
+               int k, double alpha, int sym, cudaStream_t stream) {
+  return launch(C, ldc, V, ldv, W, ldw, out, ldo, n, k, alpha, sym, stream);
+}
+
+int syr2k_bf16(const __nv_bfloat16* C, int64_t ldc, const __nv_bfloat16* V,
+               int64_t ldv, const __nv_bfloat16* W, int64_t ldw,
+               __nv_bfloat16* out, int64_t ldo, int n, int k, double alpha,
+               int sym, cudaStream_t stream) {
+  return launch(C, ldc, V, ldv, W, ldw, out, ldo, n, k, alpha, sym, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 The solver has no weights. What a parity run hands over is the pencil
 (A, B and its exact spectrum) and the random starts the reference drew
 from ``jax.random`` (TD2's inverse-iteration block, the Lanczos start
-block and the filter probe) — torch cannot replay threefry. Arrays cross
+block, the filter probe and the refinement's guard block) — torch cannot
+replay threefry. Arrays cross
 as numpy; ``np.array`` copies first, because ``np.asarray`` of a jax
 array is read-only and ``torch.from_numpy`` warns on it.
 """
@@ -33,3 +34,10 @@ def start_block_from_numpy(X0, device=None) -> torch.Tensor:
     (``x0=``), the (n, p) Lanczos start block (``v0=``) or the filter
     probe's (n,) vector (``probe_v0=``)."""
     return _tensor(X0, resolve_device(device))
+
+
+def guard_block_from_numpy(G0, device=None) -> torch.Tensor:
+    """The refinement's (n, guard) guard block as the reference draws it
+    (``normal(PRNGKey(1203), (n, guard))``), for ``refine_eigenpairs``'s
+    and ``solve``'s ``guard0=``."""
+    return _tensor(G0, resolve_device(device))

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, one package per TPU kernel family.
 
 ``launch_counts()`` and ``reset_launches()`` cover the wrappers of every
-family, by wrapper name.
+family, by wrapper name, with the fp32 and bf16 instances counted apart
+(``<name>_fp32``, ``<name>_bf16``: ``_launches.py``).
 """
 from .band_mv import kernel as _band_mv
 from .gemm import kernel as _gemm

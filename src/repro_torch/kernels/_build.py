@@ -51,9 +51,9 @@ def _build_dir(sources) -> Path:
 
 def build_all() -> Path:
     """Compile every ``csrc/*.cu`` that has no library yet, in parallel;
-    return the build directory."""
+    return the build directory (keyed on the ``.cu`` and ``.cuh`` files)."""
     sources = sorted(CSRC.glob("*.cu"))
-    out_dir = _build_dir(sources)
+    out_dir = _build_dir(sources + sorted(CSRC.glob("*.cuh")))
     todo = [s for s in sources if not (out_dir / f"lib{s.stem}.so").exists()]
     if not todo:
         return out_dir

@@ -11,8 +11,14 @@ checks device, dtype, shape and strides, allocates V and T with torch
 (the cooperative path's partials and barrier counter are cached per
 device, width and stream; the counter is zeroed before each cooperative
 launch), makes one launch on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count per launch. E is read through its row
-stride: a column slice of the TT1 window goes in as it is.
+reports an error, and adds one to the count of the instance it launched
+(``kernels/_launches.py``). E is read through its row stride: a column
+slice of the TT1 window goes in as it is.
+
+Below fp64 the wrapper takes the cooperative kernel's fp32 and bf16
+instances (the cluster kernel lays out its shared memory for fp64): a
+float32 panel is factored in fp32, a bfloat16 panel in fp32 with V and T
+rounded to bf16 (``REDUCED_PLAN``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import current_stream
+from repro_torch.kernels import _launches
 from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
@@ -30,6 +37,8 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
     "house_panel_fp64": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "house_panel_fp32": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "house_panel_bf16": ([_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "house_cluster_fp64": ([_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
                            _I),
     "house_panel_scratch_doubles": ([_I], _L),
@@ -63,6 +72,9 @@ class HousePlan(NamedTuple):
 
 #: the cooperative kernel's plan
 COOPERATIVE = HousePlan("cooperative", 0, 0, 0)
+#: the plan of every fp32 and bf16 panel: the cooperative kernel's
+#: instances
+REDUCED_PLAN = COOPERATIVE
 
 
 def cluster_extra_doubles(b: int) -> int:
@@ -114,20 +126,26 @@ def cluster_capacity(csize: int) -> int:
 
 
 @functools.cache
-def _scratch(device: torch.device, b: int, stream: int):
-    """The cooperative path's partials and grid-barrier counter, one pair
-    per device, width and stream: launches on one stream run in order, so
-    they can share it; launches on two streams could race on one pair."""
-    part = torch.empty((_lib().house_panel_scratch_doubles(b),),
-                       dtype=torch.float64, device=device)
-    return part, torch.zeros((1,), dtype=torch.int32, device=device)
+def _scratch(device: torch.device, b: int, stream: int,
+             dtype: torch.dtype = torch.float64):
+    """The cooperative path's partials (in the compute dtype: fp32 for the
+    reduced instances), grid-barrier counter and, for bf16, the fp32 T it
+    works on; one set per device, width, stream and dtype: launches on one
+    stream run in order, so they can share it; launches on two streams
+    could race on one set."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    part = torch.empty((_lib().house_panel_scratch_doubles(b),), dtype=acc,
+                       device=device)
+    Tw = torch.empty((b, b), dtype=acc, device=device)
+    return part, torch.zeros((1,), dtype=torch.int32, device=device), Tw
 
 
 def _check(E: torch.Tensor) -> torch.Tensor:
     if E.device.type != "cuda":
         raise ValueError(f"E must be a CUDA tensor, got {E.device}")
-    if E.dtype != torch.float64:
-        raise ValueError(f"E must be torch.float64, got {E.dtype}")
+    if E.dtype not in _launches.DTYPES:
+        raise ValueError(f"E must be one of {_launches.DTYPES}, got "
+                         f"{E.dtype}")
     if E.dim() != 2:
         raise ValueError(f"E must be (rows, b), got shape {tuple(E.shape)}")
     if not 1 <= E.shape[1] <= MAX_B:
@@ -141,13 +159,14 @@ def house_panel(E: torch.Tensor, row_start: int):
     path ``house_plan`` picks."""
     E = _check(E)
     rows, b = E.shape
-    V = torch.empty((rows, b), dtype=torch.float64, device=E.device)
-    T = torch.empty((b, b), dtype=torch.float64, device=E.device)
+    V = torch.empty((rows, b), dtype=E.dtype, device=E.device)
+    T = torch.empty((b, b), dtype=E.dtype, device=E.device)
     if rows == 0:
         return V, T.zero_()
-    plan = house_plan(max(rows - int(row_start), 0), b, cluster_capacity)
+    plan = (house_plan(max(rows - int(row_start), 0), b, cluster_capacity)
+            if E.dtype == torch.float64 else REDUCED_PLAN)
     house_launch(E, int(row_start), V, T, plan, FULL)
-    house_panel.launches += 1
+    _launches.count(house_panel, E.dtype)
     return V, T
 
 
@@ -160,6 +179,27 @@ def house_launch(E: torch.Tensor, row_start: int, V: torch.Tensor,
     rows, b = E.shape
     lde = E.stride(0) if rows > 1 else b
     stream = current_stream(E.device)
+    if E.dtype != torch.float64:
+        if plan.path != "cooperative" or mode != FULL:
+            raise ValueError("the fp32 and bf16 instances are the "
+                             "cooperative kernel's full factorization")
+        part, bar, Tw = _scratch(E.device, b, stream, E.dtype)
+        bar.zero_()
+        lib = _lib()
+        if E.dtype == torch.float32:
+            err = lib.house_panel_fp32(E.data_ptr(), lde, V.data_ptr(),
+                                       T.data_ptr(), part.data_ptr(),
+                                       bar.data_ptr(), rows, b, row_start,
+                                       stream)
+        else:
+            err = lib.house_panel_bf16(E.data_ptr(), lde, V.data_ptr(),
+                                       T.data_ptr(), Tw.data_ptr(),
+                                       part.data_ptr(), bar.data_ptr(), rows,
+                                       b, row_start, stream)
+        if err != 0:
+            raise RuntimeError(f"house_panel ({E.dtype}) failed with "
+                               f"cudaError {err}")
+        return
     if plan.path == "cluster":
         err = _lib().house_cluster_fp64(
             E.data_ptr(), lde, V.data_ptr(), T.data_ptr(), rows, b,
@@ -168,7 +208,7 @@ def house_launch(E: torch.Tensor, row_start: int, V: torch.Tensor,
             raise RuntimeError(f"house_cluster_fp64 failed with cudaError "
                                f"{err}")
         return
-    part, bar = _scratch(E.device, b, stream)
+    part, bar, _ = _scratch(E.device, b, stream)
     bar.zero_()
     err = _lib().house_panel_fp64(E.data_ptr(), lde, V.data_ptr(),
                                   T.data_ptr(), part.data_ptr(),
@@ -178,16 +218,15 @@ def house_launch(E: torch.Tensor, row_start: int, V: torch.Tensor,
         raise RuntimeError(f"house_panel_fp64 failed with cudaError {err}")
 
 
-house_panel.launches = 0
+_launches.with_reduced(house_panel)
 
 #: every kernel wrapper of this module, by name
 WRAPPERS = {"house_panel": house_panel}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    _launches.reset(WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return _launches.read(WRAPPERS)

@@ -17,16 +17,16 @@ def house_panel(E: torch.Tensor, row_start: int):
 
     E is a (rows, b) full-height panel; reflector j pivots at row
     ``row_start + j``; V is (rows, b) with zeros above each pivot, T is
-    (b, b) upper triangular. fp64 only: the fp32/bf16 paths come with
-    ROADMAP.md §1 item 8.
+    (b, b) upper triangular. float64 and float32 factor in kind; a
+    bfloat16 panel is factored in float32 and V, T are rounded to
+    bfloat16, as the reference's bf16 path does.
     """
-    if E.dtype != torch.float64:
-        raise NotImplementedError(
-            f"house_panel in {E.dtype} is not ported yet (ROADMAP.md §1 "
-            f"item 8); the port runs torch.float64")
-    if E.device.type == "cpu":
-        return ref.house_panel_ref(E, row_start)
-    return kernel.house_panel(E, row_start)
+    if E.device.type != "cpu":
+        return kernel.house_panel(E, row_start)
+    if E.dtype == torch.bfloat16:
+        V, T = ref.house_panel_ref(E.float(), row_start)
+        return V.to(E.dtype), T.to(E.dtype)
+    return ref.house_panel_ref(E, row_start)
 
 
 __all__ = ["house_panel"]

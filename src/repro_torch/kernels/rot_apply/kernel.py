@@ -9,7 +9,14 @@ it. Each wrapper checks device, dtype, shapes and strides, allocates with
 ``torch.empty`` (the rotation table: filled with the identity first; the
 cooperative chase's grid-barrier counter: zeroed),
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
-and adds one to its ``launches`` count per launch.
+and adds one to the count of the instance it launched
+(``kernels/_launches.py``).
+
+Each wrapper also takes float32 and bfloat16 storage (computed in fp32),
+the kernels' reduced instances. The cluster chase and the slab replay lay
+out their shared memory for fp64, so below fp64 the chase takes the
+cooperative kernel (``REDUCED_CHASE``) and the replay the sweep kernel
+(``REDUCED_REPLAY``).
 
 ``chase_pass`` and ``replay_pass`` each have two hand-written paths, chosen
 by size by ``chase_plan`` and ``replay_plan`` (pure Python, reached by the
@@ -36,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import current_stream
+from repro_torch.kernels import _launches
 from repro_torch.kernels._build import load
 
 from .schedule import chase_stagger, identity_table, pass_schedule
@@ -43,16 +51,21 @@ from .schedule import chase_stagger, identity_table, pass_schedule
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_ROT = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_COOP = [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_SWEEP = [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P]
 _SIGS = {
-    "rot_apply_fp64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "chase_pass_coop_fp64": [_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _P],
     "chase_pass_cluster_fp64": [_P, _L, _L, _L, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _P],
     "chase_cluster_capacity": [_I, _I],
-    "replay_pass_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
     "replay_slab_fp64": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+#: the suffix of each instance's C entry points
+_SFX = {torch.float64: "fp64", torch.float32: "fp32", torch.bfloat16: "bf16"}
+for _sfx in _SFX.values():
+    _SIGS[f"rot_apply_{_sfx}"] = _ROT
+    _SIGS[f"chase_pass_coop_{_sfx}"] = _COOP
+    _SIGS[f"replay_pass_{_sfx}"] = _SWEEP
 
 
 #: threads of a ``rot_apply`` block, and the most column chunks of its grid
@@ -102,6 +115,8 @@ def chase_plan(npad: int, w: int, b: int, capacity=None) -> ChasePlan:
 
 #: the cooperative kernel's plan
 COOPERATIVE = ChasePlan("cooperative", 0, 0, 0)
+#: the chase's plan below fp64: the cooperative kernel's instances
+REDUCED_CHASE = COOPERATIVE
 
 #: the slab replay's consumer threads (a table slice holds a multiple of
 #: them in lanes) and its table slices in flight (the kernel's kSlabSlots)
@@ -123,6 +138,8 @@ class ReplayPlan(NamedTuple):
 
 #: the sweep kernel's plan
 SWEEP = ReplayPlan("sweep", 0, 0, 0)
+#: the replay's plan below fp64: the sweep kernel's instances
+REDUCED_REPLAY = SWEEP
 
 
 def replay_smem(n: int, stage: int) -> int:
@@ -179,11 +196,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple | None = None) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple | None = None,
+           dtype=None) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float64:
-        raise ValueError(f"{name} must be torch.float64, got {t.dtype}")
+    if t.dtype not in _SFX or (dtype is not None and t.dtype != dtype):
+        raise ValueError(f"{name} must be "
+                         f"{dtype or tuple(_SFX)}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
@@ -207,21 +226,22 @@ def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     if pairs.dim() != 3 or pairs.shape[1] != 2:
         raise ValueError(f"pairs must be (G, 2, L), got {tuple(pairs.shape)}")
     G, _, L = pairs.shape
-    _check("cs", cs, (G, 2))
+    _check("cs", cs, (G, 2), pairs.dtype)
     pairs, cs = pairs.contiguous(), cs.contiguous()
     out = torch.empty_like(pairs)
     if out.numel() == 0:
         return out
     tx, _, gx, gy = launch_shape(G, L)
-    err = _lib().rot_apply_fp64(pairs.data_ptr(), cs.data_ptr(),
-                                out.data_ptr(), G, L, tx, gx, gy,
-                                current_stream(pairs.device))
-    rot_apply.launches += 1
-    _raise_on(err, "rot_apply_fp64")
+    fn = f"rot_apply_{_SFX[pairs.dtype]}"
+    err = getattr(_lib(), fn)(pairs.data_ptr(), cs.data_ptr(),
+                              out.data_ptr(), G, L, tx, gx, gy,
+                              current_stream(pairs.device))
+    _launches.count(rot_apply, pairs.dtype)
+    _raise_on(err, fn)
     return out
 
 
-rot_apply.launches = 0
+_launches.with_reduced(rot_apply)
 
 
 def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
@@ -238,9 +258,10 @@ def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
         raise ValueError(f"chase_pass needs Wp (w+2, >= n+2) and "
                          f"2 <= b <= w < n; got Wp {tuple(Wp.shape)}, "
                          f"b={b}, w={w}, n={n}")
-    CS = chase_launch(Wp, b, w, n, chase_plan(Wp.shape[1], w, b,
-                                              cluster_capacity), FULL)
-    chase_pass.launches += 1
+    plan = (chase_plan(Wp.shape[1], w, b, cluster_capacity)
+            if Wp.dtype == torch.float64 else REDUCED_CHASE)
+    CS = chase_launch(Wp, b, w, n, plan, FULL)
+    _launches.count(chase_pass, Wp.dtype)
     return CS
 
 
@@ -253,6 +274,9 @@ def chase_launch(Wp: torch.Tensor, b: int, w: int, n: int, plan: ChasePlan,
     g, T_pass, G, J, K0 = pass_schedule(n, b, chase_stagger(b))
     CS = identity_table(J, K0, Wp)
     stream = current_stream(Wp.device)
+    if Wp.dtype != torch.float64 and plan.path != "cooperative":
+        raise ValueError("the fp32 and bf16 chase are the cooperative "
+                         "kernel's instances")
     if plan.path == "cluster":
         err = _lib().chase_pass_cluster_fp64(
             Wp.data_ptr(), Wp.stride(0), Wp.stride(1), Wp.shape[1],
@@ -261,15 +285,15 @@ def chase_launch(Wp: torch.Tensor, b: int, w: int, n: int, plan: ChasePlan,
         _raise_on(err, "chase_pass_cluster_fp64")
         return CS
     bar = torch.zeros((1,), dtype=torch.int32, device=Wp.device)
-    err = _lib().chase_pass_coop_fp64(Wp.data_ptr(), Wp.stride(0),
-                                      Wp.stride(1), Wp.shape[1],
-                                      CS.data_ptr(), bar.data_ptr(), n, b, w,
-                                      g, T_pass, G, J, K0, mode, stream)
-    _raise_on(err, "chase_pass_coop_fp64")
+    fn = f"chase_pass_coop_{_SFX[Wp.dtype]}"
+    err = getattr(_lib(), fn)(Wp.data_ptr(), Wp.stride(0), Wp.stride(1),
+                              Wp.shape[1], CS.data_ptr(), bar.data_ptr(), n,
+                              b, w, g, T_pass, G, J, K0, mode, stream)
+    _raise_on(err, fn)
     return CS
 
 
-chase_pass.launches = 0
+_launches.with_reduced(chase_pass)
 
 
 def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
@@ -279,7 +303,7 @@ def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     ``replay_plan`` picks."""
     _check("Xp", Xp)
     _row_major("Xp", Xp)
-    _check("CS", CS)
+    _check("CS", CS, dtype=Xp.dtype)
     if CS.dim() != 3 or CS.shape[2] != 2 or not CS.is_contiguous():
         raise ValueError(f"CS must be a contiguous (J+1, K0+1, 2) table, "
                          f"got {tuple(CS.shape)}")
@@ -287,9 +311,10 @@ def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     if Xp.shape[0] < n or (J, K0) != pass_schedule(n, b)[3:]:
         raise ValueError(f"the table {tuple(CS.shape)} and rows "
                          f"{Xp.shape[0]} do not fit n={n}, b={b}")
-    plan = replay_plan(n, Xp.shape[1], CS.data_ptr() % 16 == 0)
+    plan = (replay_plan(n, Xp.shape[1], CS.data_ptr() % 16 == 0)
+             if Xp.dtype == torch.float64 else REDUCED_REPLAY)
     replay_launch(Xp, CS, b, n, reverse, plan, REPLAY_FULL)
-    replay_pass.launches += 1
+    _launches.count(replay_pass, Xp.dtype)
     return Xp
 
 
@@ -301,19 +326,23 @@ def replay_launch(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     ``chase_launch``."""
     J, K0 = CS.shape[0] - 1, CS.shape[1] - 1
     stream = current_stream(Xp.device)
+    if Xp.dtype != torch.float64 and plan.path != "sweep":
+        raise ValueError("the fp32 and bf16 replay are the sweep kernel's "
+                         "instances")
     if plan.path == "slab":
         err = _lib().replay_slab_fp64(
             Xp.data_ptr(), Xp.stride(0), Xp.shape[1], CS.data_ptr(), n, b, J,
             K0, int(reverse), plan.stage, mode, stream)
         _raise_on(err, "replay_slab_fp64")
         return
-    err = _lib().replay_pass_fp64(Xp.data_ptr(), Xp.stride(0), Xp.shape[1],
-                                  CS.data_ptr(), n, b, J, K0, int(reverse),
-                                  stream)
-    _raise_on(err, "replay_pass_fp64")
+    fn = f"replay_pass_{_SFX[Xp.dtype]}"
+    err = getattr(_lib(), fn)(Xp.data_ptr(), Xp.stride(0), Xp.shape[1],
+                              CS.data_ptr(), n, b, J, K0, int(reverse),
+                              stream)
+    _raise_on(err, fn)
 
 
-replay_pass.launches = 0
+_launches.with_reduced(replay_pass)
 
 #: every kernel wrapper of this module, by name
 WRAPPERS = {"rot_apply": rot_apply, "chase_pass": chase_pass,
@@ -321,9 +350,8 @@ WRAPPERS = {"rot_apply": rot_apply, "chase_pass": chase_pass,
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    _launches.reset(WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return _launches.read(WRAPPERS)

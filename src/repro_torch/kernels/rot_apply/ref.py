@@ -8,9 +8,21 @@
   columns) and a scatter. A host loop of ``T_pass`` steps.
 - ``replay_pass_ref``: one pass of the recorded rotations applied to row
   storage, sweep by sweep (the reference's ``_replay_pass``).
+- ``chase_pass_lanes_ref``: the same pass in the CUDA chase's form: in
+  place on the packed band, each lane rotating only the entries it
+  changes, at the CUDA stagger (``schedule.chase_stagger``). It is what a
+  CPU tensor runs (``ops.chase_pass``), the plain version of every chase
+  instance; in fp64 it gives ``chase_pass_ref``'s bits, which the tests
+  hold it to.
+
+Below fp64 (float32 or bfloat16 storage) every version computes in fp32
+and rounds to the storage dtype where the kernels store: each rotated
+entry; (c, s), computed in fp32 from the stored pivot and target; and the
+chase's 2 x 2 block between its row and its column rotation.
 
 The CPU tests use the plain versions; on the card
-only ``chip_smoke.py``'s comparison runs them (on CPU copies).
+only ``chip_smoke.py``'s comparison runs them (on CPU copies, or on the
+card where the host would take minutes).
 """
 from __future__ import annotations
 
@@ -18,15 +30,24 @@ import torch
 
 from repro_torch.core.linalg_utils import givens
 
-from .schedule import P_LEFT, identity_table, pass_schedule
+from .schedule import P_LEFT, chase_stagger, identity_table, pass_schedule
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The compute dtype of a storage dtype: fp64 in kind, else fp32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
 
 def rot_apply_ref(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
-    """pairs (G, 2, L), cs (G, 2): out0 = c x0 + s x1, out1 = -s x0 + c x1."""
-    c = cs[:, 0][:, None]
-    s = cs[:, 1][:, None]
-    x0 = pairs[:, 0, :]
-    x1 = pairs[:, 1, :]
-    return torch.stack([c * x0 + s * x1, -s * x0 + c * x1], dim=1)
+    """pairs (G, 2, L), cs (G, 2): out0 = c x0 + s x1, out1 = -s x0 + c x1,
+    computed in ``acc_dtype`` and stored in the pairs' dtype."""
+    acc = acc_dtype(pairs.dtype)
+    c = cs[:, 0][:, None].to(acc)
+    s = cs[:, 1][:, None].to(acc)
+    x0 = pairs[:, 0, :].to(acc)
+    x1 = pairs[:, 1, :].to(acc)
+    return torch.stack([c * x0 + s * x1, -s * x0 + c * x1],
+                       dim=1).to(pairs.dtype)
 
 
 def chase_pass_ref(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
@@ -114,4 +135,87 @@ def replay_pass_ref(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     return Xp
 
 
-__all__ = ["rot_apply_ref", "chase_pass_ref", "replay_pass_ref"]
+def chase_pass_lanes_ref(Wp: torch.Tensor, b: int, w: int,
+                         n: int) -> torch.Tensor:
+    """One bandwidth-b pass over the padded band ``Wp`` IN PLACE, as the
+    cooperative CUDA chase runs it; returns the (J+1, K0+1, 2) table.
+
+    At step t the active lanes are the columns j whose plane (r-1, r), r =
+    (t+1) b - j (g b - 1), lies inside the band; each loads its pivot and
+    target, its 2 x 2 block, and its row pairs (rows r-1, r left of the
+    block: b+1 packed columns) and column pairs (columns r-1, r below it);
+    entries below the w+2 stored diagonals read as zero and are not
+    written. All loads of a step come before its stores, and the lanes'
+    footprints are disjoint (``schedule.chase_stagger``).
+    """
+    g, T_pass, _, J, K0 = pass_schedule(n, b, chase_stagger(b))
+    dt = Wp.dtype
+    acc = acc_dtype(dt)
+    dev = Wp.device
+    CS = identity_table(J, K0, Wp)
+    D = g * b - 1
+
+    def rnd(x):
+        return x.to(dt).to(acc)
+
+    # A lane's loads, as (diagonal, packed column - c0) with c0 = r-b-2+P_LEFT:
+    # its 2b+2 pairs (rows r-1, r at columns c0 + q, q <= b; then columns
+    # r-1, r below the block), first entries then second entries; the
+    # pivot and target (columns c0 + 2 - sk, diagonals b-1+sk and b+sk);
+    # and the block W[r-1, r-1], W[r, r-1], W[r, r]. Diagonals past w+1
+    # are not stored: they read as zero and are not written.
+    q = torch.arange(2 * b + 2, device=dev)
+    row = q <= b
+    d = torch.cat([torch.where(row, b + 1 - q, q + 1 - b),
+                   torch.where(row, b + 2 - q, q - b),
+                   torch.tensor([b - 1, b, 0, 1, 0], device=dev)])
+    o = torch.cat([torch.where(row, q, b + 1), torch.where(row, q, b + 2),
+                   torch.tensor([2, 2, b + 1, b + 1, b + 2], device=dev)])
+    # the pivot and target move one diagonal down, one column left, when
+    # k > 0 (the chased bulge)
+    dsk = torch.zeros_like(d)
+    dsk[-5:-3] = 1
+    stored = d <= w + 1
+    d = d.clamp(max=w + 1)
+    P = 2 * b + 2
+    # what a step writes: the stored pairs, then the block
+    out = torch.cat([torch.nonzero(stored[:2 * P])[:, 0],
+                     torch.arange(2 * P + 2, 2 * P + 5, device=dev)])
+    lanes = torch.arange(J, device=dev)
+    for t in range(T_pass):
+        jhi = min(t // g, J - 1)
+        jlo = max(0, -(-((t + 1) * b - (n - 1)) // D))
+        if jlo > jhi:
+            continue
+        j = lanes[jlo:jhi + 1]
+        k = t - g * j
+        sk = (k > 0).long()[:, None]
+        c0 = ((t + 1) * b - j * D - b - 2 + P_LEFT)[:, None]
+        rows = d + sk * dsk
+        cols = c0 + o - sk * dsk
+        x = torch.where(stored, Wp[rows, cols], 0.0).to(acc)
+        c, s = givens(x[:, 2 * P], x[:, 2 * P + 1])
+        c, s = rnd(c)[:, None], rnd(s)[:, None]
+        CS[j, k] = torch.cat([c, s], dim=1).to(dt)
+        # the pairs, and the block's rows (a11, a21) and (a21, a22)
+        x0 = torch.cat([x[:, :P], x[:, 2 * P + 2:2 * P + 4]], dim=1)
+        x1 = torch.cat([x[:, P:2 * P], x[:, 2 * P + 3:2 * P + 5]], dim=1)
+        y0 = c * x0 + s * x1
+        y1 = -s * x0 + c * x1
+        # the block's rows are stored before its columns rotate:
+        # (r11, r21) -> (n11, n21), then n22 from (r21, r22)
+        b0 = rnd(torch.stack([y0[:, P], y1[:, P]], dim=1))
+        b1 = rnd(torch.stack([y0[:, P + 1], y1[:, P + 1]], dim=1))
+        n0 = c * b0 + s * b1
+        n22 = -s[:, 0] * b0[:, 1] + c[:, 0] * b1[:, 1]
+        # in x's layout (the pivot and target columns are not written)
+        vals = torch.cat([y0[:, :P], y1[:, :P], x[:, 2 * P:2 * P + 2], n0,
+                          n22[:, None]], dim=1)
+        Wp[rows[:, out], cols[:, out]] = vals[:, out].to(dt)
+    # the annihilated diagonals: zero them
+    Wp[b:, :] = 0.0
+    return CS
+
+
+__all__ = ["rot_apply_ref", "chase_pass_ref", "replay_pass_ref",
+           "chase_pass_lanes_ref", "acc_dtype"]

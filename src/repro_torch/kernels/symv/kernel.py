@@ -7,8 +7,11 @@ in the ``.cu`` file says what bounds the kernel and what its design does
 about it. Each wrapper checks device, dtype, shape and strides, allocates
 the output and the (nb + 1, n, p) slot scratch with ``torch.empty``,
 launches on the current stream, raises if ``cudaGetLastError`` is not 0,
-and adds one to its ``launches`` count for every product it launches (a
-tile pass and its slot sum).
+and adds one to the count of the instance it launched for every product
+(a tile pass and its slot sum; ``kernels/_launches.py``).
+
+A and X may be float64, or float32 or bfloat16 (the kernel's reduced
+instances: the scratch and every sum in fp32, Y in the storage dtype).
 
 ``plan`` is pure Python, so the CPU tests reach it: the upper tiles (one
 warp each), the columns of X a pass (the kernel's compiled width) and the
@@ -30,16 +33,23 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import current_stream
+from repro_torch.kernels import _launches
 from repro_torch.kernels._build import load
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_SYMM = ([_P, _L, _P, _L, _P, _P, _I, _I, _I, _P], _I)
 _SIGS = {
-    "symv_upper": ([_P, _L, _P, _P, _P, _I, _P], _I),
-    "symm_block_upper": ([_P, _L, _P, _L, _P, _P, _I, _I, _I, _P], _I),
+    "symm_block_upper": _SYMM,
+    "symm_block_upper_fp32": _SYMM,
+    "symm_block_upper_bf16": _SYMM,
     "symv_tile": ([], _I),
 }
+#: the product's C entry point of each instance
+ENTRY = {torch.float64: "symm_block_upper",
+         torch.float32: "symm_block_upper_fp32",
+         torch.bfloat16: "symm_block_upper_bf16"}
 
 #: tile edge (``kT`` in symv.cu)
 TILE = 64
@@ -95,8 +105,8 @@ def _lib() -> ctypes.CDLL:
 def _check_matrix(A: torch.Tensor) -> int:
     if A.device.type != "cuda":
         raise ValueError(f"A must be a CUDA tensor, got {A.device}")
-    if A.dtype != torch.float64:
-        raise ValueError(f"A must be torch.float64, got {A.dtype}")
+    if A.dtype not in ENTRY:
+        raise ValueError(f"A must be one of {tuple(ENTRY)}, got {A.dtype}")
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
     n = A.shape[0]
@@ -110,8 +120,8 @@ def _check_rhs(X: torch.Tensor, A: torch.Tensor, shape: tuple) -> None:
     if X.device != A.device:
         raise ValueError(f"the right-hand side must be on {A.device}, got "
                          f"{X.device}")
-    if X.dtype != torch.float64:
-        raise ValueError(f"the right-hand side must be torch.float64, got "
+    if X.dtype != A.dtype:
+        raise ValueError(f"the right-hand side must be {A.dtype}, got "
                          f"{X.dtype}")
     if tuple(X.shape) != shape:
         raise ValueError(f"the right-hand side must have shape {shape}, got "
@@ -123,26 +133,32 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with cudaError {err}")
 
 
+def _scratch(pl: Plan, A: torch.Tensor) -> torch.Tensor:
+    acc = torch.float64 if A.dtype == torch.float64 else torch.float32
+    return torch.empty(pl.scratch, dtype=acc, device=A.device)
+
+
 def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (n,) = A x from the upper triangle of A (n, n)."""
     n = _check_matrix(A)
     _check_rhs(x, A, (n,))
-    y = torch.empty((n,), dtype=torch.float64, device=A.device)
+    y = torch.empty((n,), dtype=A.dtype, device=A.device)
     if n == 0:
         return y
     if x.stride(0) != 1:
         x = x.contiguous()
     pl = plan(n, 1)
-    P = torch.empty(pl.scratch, dtype=torch.float64, device=A.device)
-    err = _lib().symv_upper(A.data_ptr(), A.stride(0), x.data_ptr(),
-                            P.data_ptr(), y.data_ptr(), n,
-                            current_stream(A.device))
-    symv.launches += 1
-    _raise_on(err, "symv_upper")
+    P = _scratch(pl, A)
+    fn = ENTRY[A.dtype]     # the product's instance at p = 1, kc = 1
+    err = getattr(_lib(), fn)(A.data_ptr(), A.stride(0), x.data_ptr(), 1,
+                              P.data_ptr(), y.data_ptr(), n, 1, 1,
+                              current_stream(A.device))
+    _launches.count(symv, A.dtype)
+    _raise_on(err, fn)
     return y
 
 
-symv.launches = 0
+_launches.with_reduced(symv)
 
 
 def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -152,33 +168,32 @@ def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"X must be (n, p), got shape {tuple(X.shape)}")
     p = X.shape[1]
     _check_rhs(X, A, (n, p))
-    Y = torch.empty((n, p), dtype=torch.float64, device=A.device)
+    Y = torch.empty((n, p), dtype=A.dtype, device=A.device)
     if n == 0 or p == 0:
         return Y
     if n > 1 and ((p > 1 and X.stride(1) != 1) or X.stride(0) < p):
         X = X.contiguous()
     ldx = X.stride(0) if n > 1 else p
     pl = plan(n, p)
-    P = torch.empty(pl.scratch, dtype=torch.float64, device=A.device)
-    err = _lib().symm_block_upper(A.data_ptr(), A.stride(0) if n > 1 else 1,
-                                  X.data_ptr(), ldx, P.data_ptr(),
-                                  Y.data_ptr(), n, p, pl.kc,
-                                  current_stream(A.device))
-    symm_block.launches += 1
-    _raise_on(err, "symm_block_upper")
+    P = _scratch(pl, A)
+    fn = ENTRY[A.dtype]
+    err = getattr(_lib(), fn)(A.data_ptr(), A.stride(0) if n > 1 else 1,
+                              X.data_ptr(), ldx, P.data_ptr(), Y.data_ptr(),
+                              n, p, pl.kc, current_stream(A.device))
+    _launches.count(symm_block, A.dtype)
+    _raise_on(err, fn)
     return Y
 
 
-symm_block.launches = 0
+_launches.with_reduced(symm_block)
 
 #: every kernel wrapper of this module, by name
 WRAPPERS = {"symv": symv, "symm_block": symm_block}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    _launches.reset(WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return _launches.read(WRAPPERS)

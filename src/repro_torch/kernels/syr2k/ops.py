@@ -17,19 +17,18 @@ def syr2k(C: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
           out: torch.Tensor | None = None) -> torch.Tensor:
     """R = C + alpha (V W^T + W V^T), or (R + R^T)/2 with ``symmetrize``.
 
-    ``out`` receives the result (``out=C`` updates C in place). fp64 only:
-    the fp32/bf16 paths come with ROADMAP.md §1 item 8.
+    ``out`` receives the result (``out=C`` updates C in place). float64,
+    float32, or bfloat16 computed in float32 (the kernel's instances).
     """
-    if C.dtype != torch.float64:
-        raise NotImplementedError(
-            f"syr2k in {C.dtype} is not ported yet (ROADMAP.md §1 item 8); "
-            f"the port runs torch.float64")
     if C.device.type != "cpu":
         return kernel.syr2k(C, V, W, alpha=alpha, symmetrize=symmetrize,
                             out=out)
-    R = ref.syr2k_ref(C, V, W, alpha)
-    if symmetrize:
-        R = 0.5 * (R + R.mT)
+    if C.dtype == torch.float64:
+        R = ref.syr2k_ref(C, V, W, alpha)
+        if symmetrize:
+            R = 0.5 * (R + R.mT)
+    else:
+        R = ref.syr2k_reduced_ref(C, V, W, alpha, symmetrize)
     if out is None:
         return R
     return out.copy_(R)

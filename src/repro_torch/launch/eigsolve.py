@@ -5,7 +5,10 @@
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. The payload has the keys of ``repro.launch.eigsolve`` plus
-``device`` and ``kernel_launches`` (launches of each kernel wrapper).
+``device`` and ``kernel_launches`` (launches of each kernel instance);
+with ``--precision mixed|fast`` it also has ``precision`` and the
+``refinement`` block (steps, converged, and the relative-residual and
+B-orthogonality trajectories of the fp64 refinement).
 """
 from __future__ import annotations
 
@@ -48,6 +51,11 @@ def main() -> None:
     ap.add_argument("--tol", type=float, default=0.0,
                     help="Lanczos residual tolerance (0 = machine-eps "
                          "criterion)")
+    ap.add_argument("--precision", choices=["fp64", "mixed", "fast"],
+                    default="fp64",
+                    help="compute dtype of the GEMM-heavy stages (mixed = "
+                         "fp32, fast = bf16 with fp32 accumulation); below "
+                         "fp64 the payload reports the fp64 refinement")
     ap.add_argument("--on-failure", choices=["recover", "warn", "ignore"],
                     default="warn")
     ap.add_argument("--max-retries", type=int, default=2)
@@ -67,8 +75,8 @@ def main() -> None:
                 # the clustered-spectrum hint: the DFT generator's low end
                 clustered=(args.problem == "dft"
                            and args.which == "smallest"),
-                on_failure=args.on_failure, max_retries=args.max_retries,
-                device=dev)
+                precision=args.precision, on_failure=args.on_failure,
+                max_retries=args.max_retries, device=dev)
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
     exact = prob.exact_evals
     want = exact[:args.s] if args.which == "smallest" else exact[-args.s:]
@@ -93,6 +101,16 @@ def main() -> None:
     }
     if "warnings" in res.info:
         payload["warnings"] = res.info["warnings"]
+    if "refinement" in res.info:
+        rinfo = res.info["refinement"]
+        payload["precision"] = args.precision
+        payload["refinement"] = {
+            "steps": int(rinfo["steps"]),
+            "converged": bool(rinfo["converged"]),
+            "relative_residual": [float(x)
+                                  for x in rinfo["relative_residual"]],
+            "b_orthogonality": [float(x) for x in rinfo["b_orthogonality"]],
+        }
     if args.json:
         print(json.dumps(payload, indent=1))
     else:

@@ -1,5 +1,4 @@
-"""The degradation ladder (``repro.resilience.recovery``), as far as the TD
-pipeline uses it:
+"""The degradation ladder (``repro.resilience.recovery``):
 
 * Cholesky breakdown (GS1 NaN / nonpositive pivot): retry with a
   relative diagonal shift ``tau * max|diag B|`` for each rung in
@@ -7,11 +6,14 @@ pipeline uses it:
 * Non-finite stage or output: a transient retry with a fresh start block
   under ``on_failure="recover"``, else raise ``SolverError`` naming the
   failing stage.
+* An unconverged KE/KI: ``escalate_krylov``, then ``fallback_variant``
+  (TT); a demoted solve whose refinement stalls above tolerance:
+  ``escalate_precision`` (a rerun at fp64). These rungs are climbed by
+  ``core.gsyeig.solve``.
 
 Every rung taken is appended to ``info["recovery"]`` as a plain dict
-(action, stage, params, outcome). The Krylov escalation and the precision
-rerun come with their pipelines; fault injection (``faults.py``) comes
-later (ROADMAP.md §1 item 7).
+(action, stage, params, outcome). ``faults.py`` injects the faults the
+ladder is drilled against.
 """
 from __future__ import annotations
 

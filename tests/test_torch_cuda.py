@@ -185,10 +185,14 @@ def test_td_solve_on_the_card_launches_both_kernels(cuda):
     kernel.reset_launches()
     res = solve(p.A, p.B, 8)
     assert kernel.launch_counts() == {"bisect_sturm": 1, "invit": 6}
+    # every other instance (the fp32 and bf16 ones too) launched nothing
     assert res.info["kernel_launches"] == {
-        "bisect_sturm": 1, "invit": 6, "symv": 0, "symm_block": 0,
-        "house_panel": 0, "syr2k": 0, "rot_apply": 0, "chase_pass": 0,
-        "replay_pass": 0, "gemm": 0, "trsm_tile": 0, "band_mv": 0}
+        k: {"bisect_sturm": 1, "invit": 6}.get(k, 0)
+        for k in kernels.launch_counts()}
+    assert set(res.info["kernel_launches"]) >= {
+        "bisect_sturm", "invit", "symv", "symm_block", "house_panel",
+        "syr2k", "rot_apply", "chase_pass", "replay_pass", "gemm",
+        "trsm_tile", "band_mv", "syr2k_fp32", "chase_pass_bf16"}
     acc = accuracy_report(p.A, p.B, res.X, res.evals)
     assert float(acc.relative_residual) <= 1e-12
     assert float(acc.b_orthogonality) <= 1e-12
@@ -871,3 +875,155 @@ def test_blocked_stages_on_the_card_launch_their_kernels(cuda):
     assert float(acc.relative_residual) <= 1e-12
     assert float(acc.b_orthogonality) <= 1e-12
     assert float((out.evals - p.exact_evals[:s]).abs().max()) <= 1e-10 * scale
+
+
+# ---------------------------------------------- the fp32 and bf16 instances --
+
+REDUCED = [torch.float32, torch.bfloat16]
+#: unit roundoff of fp32 (the reduced instances' compute dtype) and of each
+#: storage dtype
+U32 = 2.0 ** -24
+U_STORE = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+
+
+def _gamma32(k):
+    return k * U32 / (1 - k * U32)
+
+
+def _panel_ratio(got, want, rows, us):
+    """max |got - want| / the reduced panel's bar, entry (i, j) of V or T
+    within 4 sqrt(rows) u(fp32) max(|x_ij|, ||x_:j|| / sqrt(m)) + 2 u_store
+    |x_ij| (m the matrix's rows; chip_smoke.py's PANEL_C says where the 4
+    comes from)."""
+    got, want = got.cpu().double(), want.cpu().double()
+    col = torch.linalg.vector_norm(want, dim=0, keepdim=True)
+    scale = torch.maximum(want.abs(), col / want.shape[0] ** 0.5)
+    bar = 4 * rows ** 0.5 * U32 * scale + 2 * us * want.abs()
+    return float(((got - want).abs() / bar).max())
+
+
+@pytest.mark.parametrize("dt", REDUCED)
+@pytest.mark.parametrize("n,k", [(1, 1), (33, 17), (130, 16), (1000, 16)])
+@pytest.mark.parametrize("sym", [False, True])
+def test_syr2k_reduced_bitwise_vs_plain(cuda, dt, n, k, sym):
+    g = torch.Generator().manual_seed(n + k)
+    C, V, W = (torch.randn(shape, generator=g).to(dt)
+               for shape in ((n, n), (n, k), (n, k)))
+    C = (C + C.mT).to(dt)
+    plain = syr2k_ref.syr2k_reduced_ref(C, V, W, -1.0, sym)
+    kernels.reset_launches()
+    got = syr2k_kernel.syr2k(C.to(cuda), V.to(cuda), W.to(cuda), -1.0, sym)
+    name = "syr2k_fp32" if dt == torch.float32 else "syr2k_bf16"
+    assert kernels.launch_counts()[name] == 1
+    assert kernels.launch_counts()["syr2k"] == 0
+    assert got.dtype == dt and torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.parametrize("dt", REDUCED)
+@pytest.mark.parametrize("rows,b,row_start", [(24, 4, 3), (1000, 16, 16),
+                                              (9997, 16, 16)])
+def test_house_panel_reduced_vs_plain(cuda, dt, rows, b, row_start):
+    """The cooperative instance against the plain panel factored in fp32
+    (rounded to bf16 at the store): within the panel's bar
+    (``_panel_ratio``), which the panel computed in bf16 arithmetic and a V
+    zeroed below its pivots fail."""
+    from repro_torch.kernels.house_panel import ops as hp_ops
+    E = torch.randn((rows, b), generator=torch.Generator().manual_seed(rows),
+                    dtype=torch.float64).to(dt)
+    Vp, Tp = hp_ops.house_panel(E, row_start)
+    V, T = hp_kernel.house_panel(E.to(cuda), row_start)
+    assert V.dtype == dt and T.dtype == dt
+    us = U_STORE[dt]
+    assert _panel_ratio(V, Vp, rows, us) <= 1.0
+    assert _panel_ratio(T, Tp, rows, us) <= 1.0
+    if rows > 100:
+        Vc, Tc = hp_ref.house_panel_ref(E.to(torch.bfloat16), row_start)
+        assert _panel_ratio(Vc, Vp, rows, us) > 1.0
+        assert _panel_ratio(Tc, Tp, rows, us) > 1.0
+        Vz = V.cpu().clone()
+        Vz[row_start + b + 1:] = 0
+        assert _panel_ratio(Vz, Vp, rows, us) > 1.0
+
+
+@pytest.mark.parametrize("dt", REDUCED)
+@pytest.mark.parametrize("G,L", [(1, 1), (1000, 8), (625, 100)])
+def test_rot_apply_reduced_bitwise_vs_plain(cuda, dt, G, L):
+    g = torch.Generator().manual_seed(G + L)
+    pairs = torch.randn((G, 2, L), generator=g).to(dt)
+    th = 6.283185307179586 * torch.rand((G,), generator=g)
+    cs = torch.stack([torch.cos(th), torch.sin(th)], 1).to(dt)
+    got = rot_kernel.rot_apply(pairs.to(cuda), cs.to(cuda))
+    assert torch.equal(got.cpu(), rot_ref.rot_apply_ref(pairs, cs))
+
+
+@pytest.mark.parametrize("dt", REDUCED)
+@pytest.mark.parametrize("n,w", [(9, 7), (97, 16), (500, 16)])
+def test_chase_and_replay_reduced_bitwise_vs_plain(cuda, dt, n, w):
+    """The cooperative chase's and the sweep replay's reduced instances,
+    pass by pass, bitwise against the plain versions (the same rounding
+    points), with one count of the dtype's instance a pass."""
+    prob = md_like(n)
+    C = to_standard_two_trsm(prob.A, cholesky_upper(prob.B))
+    Wb = sbr.reduce_to_band(C, w=w).Wb.to(dt).cpu()
+    Wk = rot_sched.padded_band(Wb, w).to(cuda)
+    Wq = rot_sched.padded_band(Wb, w)
+    passes = sbr._executed_passes(n, w)
+    kernels.reset_launches()
+    tk = [rot_kernel.chase_pass(Wk, b, w, n) for b in passes]
+    tq = [rot_ref.chase_pass_lanes_ref(Wq, b, w, n) for b in passes]
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    assert kernels.launch_counts()[f"chase_pass_{sfx}"] == len(passes)
+    assert torch.equal(Wk.cpu(), Wq)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tk, tq))
+    Z = torch.randn((n, 7), generator=torch.Generator().manual_seed(n)).to(dt)
+    Yk, Yq = Z.to(cuda), Z.clone()
+    for b, CSk, CSq in zip(reversed(passes), reversed(tk), reversed(tq)):
+        rot_kernel.replay_pass(Yk, CSk, b, n, True)
+        rot_ref.replay_pass_ref(Yq, CSq, b, n, True)
+    assert kernels.launch_counts()[f"replay_pass_{sfx}"] == len(passes)
+    assert torch.equal(Yk.cpu(), Yq)
+
+
+@pytest.mark.parametrize("dt", REDUCED)
+@pytest.mark.parametrize("n,p", [(1, 1), (65, 2), (1000, 1), (1000, 4),
+                                 (129, 5)])
+def test_symm_block_reduced_vs_plain(cuda, dt, n, p):
+    """fp32 sums in the kernel's order and the plain version's: within
+    2 gamma_n(fp32) |sym(triu A)||X| + 2 u_store |Y|, and bitwise on
+    repeat."""
+    g = torch.Generator().manual_seed(n * p)
+    A = torch.randn((n, n), generator=g, dtype=torch.float64)
+    A = (A + A.mT + torch.tril(1e3 * torch.ones(n, n), -1)).to(dt)
+    X = torch.randn((n, p), generator=g).to(dt)
+    plain = symv_ref.symm_block_upper_ref(A, X).double()
+    got = symv_kernel.symm_block(A.to(cuda), X.to(cuda))
+    Ad = A.double()
+    mag = (torch.triu(Ad).abs() + torch.triu(Ad, 1).abs().mT) @ X.double().abs()
+    bar = 2 * _gamma32(n) * mag + 2 * U_STORE[dt] * plain.abs()
+    assert got.dtype == dt
+    assert torch.all((got.cpu().double() - plain).abs() <= bar)
+    assert torch.equal(got, symv_kernel.symm_block(A.to(cuda), X.to(cuda)))
+    y = symv_kernel.symv(A.to(cuda), X[:, 0].to(cuda))
+    assert torch.all((y.cpu().double() - plain[:, 0]).abs() <= bar[:, 0])
+
+
+@pytest.mark.parametrize("precision", ["mixed", "fast"])
+def test_demoted_solves_on_the_card_launch_the_reduced_instances(cuda,
+                                                                 precision):
+    """TT and KE at a demoted level launch the level's instances and meet
+    the Table-3 bars after refinement (escalating to fp64 if it stalls)."""
+    prob = md_like(400, device=cuda)
+    sfx = {"mixed": "fp32", "fast": "bf16"}[precision]
+    res = solve(prob.A, prob.B, 8, variant="TT", band_width=16,
+                precision=precision, on_failure="recover")
+    counts = res.info["kernel_launches"]
+    n_pass = len(sbr._executed_passes(400, 16))
+    assert counts[f"house_panel_{sfx}"] == counts[f"syr2k_{sfx}"] > 0
+    assert counts[f"chase_pass_{sfx}"] == counts[f"replay_pass_{sfx}"] \
+        == n_pass
+    res = solve(prob.A, prob.B, 8, variant="KE", invert=True,
+                use_kernel=True, precision=precision, on_failure="recover")
+    assert res.info["kernel_launches"][f"symm_block_{sfx}"] > 0
+    acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
+    assert float(acc.relative_residual) <= 1e-12
+    assert float(acc.b_orthogonality) <= 1e-12

@@ -178,9 +178,12 @@ def test_residual_metrics_vs_reference():
 # --------------------------------------------------------- precision, data --
 
 @pytest.mark.parametrize("precision", ["mixed", "fast"])
-def test_demoted_precisions_raise(precision):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprec.validate_precision(precision)
+def test_demoted_precisions_resolve_to_their_dtypes(precision):
+    # the demoted levels run (tests/test_torch_precision.py); their dtypes
+    # are the reference's, and an unknown level still raises
+    assert tprec.validate_precision(precision) == precision
+    want = {"mixed": torch.float32, "fast": torch.bfloat16}[precision]
+    assert tprec.compute_dtype(precision) == want
     with pytest.raises(ValueError):
         tprec.validate_precision("fp16")
     assert tprec.compute_dtype("fp64") == torch.float64

@@ -113,7 +113,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
 def test_launch_counters_reset_and_read():
     kernel.symv.launches = 3
     kernel.reset_launches()
-    assert kernel.launch_counts() == {"symv": 0, "symm_block": 0}
+    assert kernel.launch_counts() == {f"{k}{s}": 0
+                                      for k in ("symv", "symm_block")
+                                      for s in ("", "_fp32", "_bf16")}
 
 
 @pytest.mark.parametrize("nb", [1, 2, 3, 64, 157, 270])

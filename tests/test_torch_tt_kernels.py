@@ -273,6 +273,19 @@ def test_chase_pass_plain_keeps_the_reference_table_layout():
     assert torch.equal(Wp[w:], torch.zeros_like(Wp[w:]))
 
 
+@pytest.mark.parametrize("n,w", [(9, 7), (30, 5), (61, 8), (100, 16)])
+def test_chase_pass_lanes_plain_is_the_window_plain_in_fp64(n, w):
+    # the in-place form (the CUDA chase's lanes and stagger, the plain
+    # version of its fp32/bf16 instances) gives the window form's bits
+    band = j_sbr.reduce_to_band(jnp.asarray(_sym(n, n)), w=w)
+    W1 = rot_sched.padded_band(_t(band.Wb), w)
+    W2 = W1.clone()
+    for b in j_sbr._executed_passes(n, w):
+        assert torch.equal(rot_ref.chase_pass_ref(W1, b, w, n),
+                           rot_ref.chase_pass_lanes_ref(W2, b, w, n))
+    assert torch.equal(W1, W2)
+
+
 # ------------------------------------------------- the slab replay's order --
 
 def _random_table(n, b, seed):
@@ -457,21 +470,27 @@ def test_kernel_wrappers_refuse_a_cpu_tensor(call):
 def test_rot_apply_launch_counters_reset_and_read():
     rot_kernel.rot_apply.launches = 2
     rot_kernel.replay_pass.launches = 5
+    rot_kernel.chase_pass.reduced["bf16"] = 3
     rot_kernel.reset_launches()
-    assert rot_kernel.launch_counts() == {"rot_apply": 0, "chase_pass": 0,
-                                          "replay_pass": 0}
+    assert rot_kernel.launch_counts() == {
+        f"{k}{s}": 0 for k in ("rot_apply", "chase_pass", "replay_pass")
+        for s in ("", "_fp32", "_bf16")}
 
 
 @pytest.mark.parametrize("call", [
     lambda x: hp_ops.house_panel(x, 0),
     lambda x: syr2k_ops.syr2k(x, x[:, :2], x[:, :2]),
     lambda x: rot_ops.rot_apply(x[:2, :2].reshape(1, 2, 2), x[0, :2][None]),
-    lambda x: rot_ops.chase_pass(x, 2, 2, 3),
+    # a padded band of n=3, w=2: (w+2, P_LEFT + n + 3w + 8)
+    lambda x: rot_ops.chase_pass(x.new_zeros((4, 19)), 2, 2, 3),
     lambda x: rot_ops.replay_pass(x, x[None], 2, 4, False),
 ])
-def test_lower_precisions_raise_naming_the_roadmap_item(call):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        call(torch.zeros((4, 4), dtype=torch.float32))
+def test_lower_precisions_run_the_plain_versions(call):
+    # fp32 storage runs (the fp32 instances' plain versions on the CPU) and
+    # returns fp32
+    out = call(torch.zeros((4, 4), dtype=torch.float32))
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.dtype == torch.float32 for o in outs)
 
 
 @pytest.mark.parametrize("n", [9, 40, 97])
