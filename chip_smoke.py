@@ -133,14 +133,21 @@ Phases, each printed as it runs; any failed check exits nonzero:
    at the kernel's points, else within the gamma bars stated in
    ``compare_reduced``; each timed beside its bound at 4 or 2 bytes an
    entry and fp32's 67 TFLOP/s, and beside the library call where one
-   exists (``torch.addmm``, ``torch.matmul``, ``torch.geqrf``);
+   exists (``torch.addmm``, ``torch.matmul``, ``torch.geqrf``); C in the
+   main path's layout (rows padded to 16 bytes, ``padded_copy``), and
+   ``syr2k`` and the product also on the odd-lda copy (their narrow
+   paths: ``syr2k_tiles``, ``symm_wide`` entry by entry), each path
+   checked and repeated bitwise, timed in turns with each other (and
+   ``syr2k``'s narrow path also on the padded copy);
 4b. the precision levels on the MD pencil at the paper's size: TT, KE and
    KI at ``mixed`` and ``fast`` and TD at ``mixed`` (``on_failure=
    "recover"``), each held to the Table-3 bars on the original pencil and
    the exact spectrum, with its refinement (steps, shifts, residual
    trajectory), recovery rungs and per-instance launch counts (624
    ``house_panel``/``syr2k`` and 15 ``chase_pass``/``replay_pass`` launches
-   of the level's instances in TT); then a fault drill: a transient NaN in
+   of the level's instances in TT; the reduced product's and ``syr2k``'s
+   launches by load path, the TT ``syr2k`` and the Krylov products all on the wide path);
+   then a fault drill: a transient NaN in
    GS2's input through TD (n=1000) recovered by ``transient_retry``, with
    ``info`` JSON-clean;
 5. one JSON line of the kernels (launches on their main path, error
@@ -561,7 +568,9 @@ def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
               f"{p1:.1f} / {p2:.1f} ms (plain on the host CPU), "
               f"torch.matmul {l1:.4f} / {l2:.4f} ms; kernel "
               f"{nbytes / ms / 1e9:.3f} TB/s on the triangle, bound "
-              f"{HBM_BYTES_PER_S / 1e12:.2f}", flush=True)
+              f"{HBM_BYTES_PER_S / 1e12:.2f}; least time "
+              f"{_bound(2.0 * n * n * p, nbytes)['bound_ms']:.4f} ms",
+              flush=True)
         checks.check(f"{label} {key} within gamma_n of plain",
                      bool(torch.all(diff <= bound)),
                      f"max |kernel - plain| / (gamma_n |A||X|) = {ratio!r}, "
@@ -1682,6 +1691,66 @@ def _in_turns(run, plain, reps: int = 1):
     return out_k, out_p, (k1 + k2) / 2, p1
 
 
+def _padded_empty(n: int, dt, dev):
+    """An (n, n) output whose rows start on 16-byte boundaries, laid out
+    as the reduced working copies are (``padded_copy``)."""
+    import torch
+    from repro_torch.core.precision import padded_copy
+    return padded_copy(torch.empty((n, n), dtype=dt, device=dev), dt)
+
+
+def _syr2k_at_path(C, V, W, out, sym: bool, path: str):
+    """The reduced ``syr2k`` (alpha = -1) through syr2k.cu's C entry on
+    ``path`` (``narrow``: ``syr2k_tiles``, any layout; ``wide``:
+    ``syr2k_pairs``), whatever the wrapper would take: no launch
+    counted."""
+    import torch
+    from repro_torch.kernels import _launches
+    from repro_torch.kernels.syr2k import kernel as sk
+
+    n, k = V.shape
+    fn = sk.ENTRY[C.dtype]
+    err = getattr(sk._lib(), fn)(
+        C.data_ptr(), C.stride(0), V.data_ptr(), V.stride(0), W.data_ptr(),
+        W.stride(0), out.data_ptr(), out.stride(0), n, k, -1.0, int(sym),
+        _launches.PATH_CODE[path],
+        torch.cuda.current_stream(C.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} on path {path}: cudaError {err}")
+    return out
+
+
+def _alternating(runs: dict, reps: int = TIMING_REPS, rounds: int = 2):
+    """Device ms a call of each of ``runs`` (name -> fn), the calls queued
+    back to back (``_queued_ms``: the host's enqueue left out), timed in
+    turns, ``rounds`` times over: name -> [ms of each round]."""
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, fn in runs.items():
+            times[name].append(_queued_ms(fn, reps))
+    return times
+
+
+def _unaligned(M, dt):
+    """M in dt with its rows off 16-byte boundaries (the reduced product's
+    and ``syr2k``'s narrow path): the contiguous copy where a row of n entries is no
+    multiple of 16 bytes (the odd lda of MD, C's own layout), else a view
+    one entry into a copy with one more column."""
+    import torch
+    n = M.shape[1]
+    if (n * torch.empty((), dtype=dt).element_size()) % 16:
+        return M.to(dt, copy=True)
+    big = torch.zeros((M.shape[0], n + 1), dtype=dt, device=M.device)
+    view = big[:, 1:]
+    view.copy_(M)
+    return view
+
+
+def _turns(times: dict) -> str:
+    return ", ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+                     for name, ts in times.items())
+
+
 def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     """Each fp32 and bf16 instance against its plain version on the card, at
     the MD main path's shapes; returns a row per instance
@@ -1702,6 +1771,7 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     import torch
     from repro_torch.core.band_storage import clean_band
     from repro_torch.core.linalg_utils import wy_syr2k_panel
+    from repro_torch.core.precision import padded_copy
     from repro_torch.core.sbr import _executed_passes
     from repro_torch.kernels.house_panel import kernel as hk
     from repro_torch.kernels.house_panel import ops as ho
@@ -1722,7 +1792,10 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     for sfx in ("fp32", "bf16"):
         dt = _reduced_dtype(sfx)
         es, us = ESIZE[sfx], U_STORE[sfx]
-        Cd = C.to(dt)
+        # the main path's layout (rows padded to 16 bytes: TT1's working
+        # copy, the Krylov operator) and C's own odd-lda layout
+        Cd = padded_copy(C, dt)
+        Co = _unaligned(C, dt)
         # ---- house_panel: the first TT1 panel, row_start w --------------
         E = Cd[:, :w]
         (V, T), (Vp, Tp), ms, pms = _in_turns(
@@ -1764,31 +1837,71 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
             **_bound(4.0 * n * w * w, es * 2.0 * n * w, FP32_VECTOR_FLOPS))
         # ---- syr2k: the first window, (V, Z) of that panel --------------
         Z = wy_syr2k_panel(Cd, V, T)
-        out = torch.empty_like(Cd)
+        out = _padded_empty(n, dt, dev)
         R, Rp, ms, pms = _in_turns(
             lambda: sk.syr2k(Cd, V, Z, alpha=-1.0, out=out),
             lambda: sr.syr2k_reduced_ref(Cd, V, Z, -1.0), TIMING_REPS)
         same = bool(torch.equal(R, Rp))
         err = float((R.float() - Rp.float()).abs().max())
-        S = sk.syr2k(Cd, V, Z, alpha=-1.0, symmetrize=True)
-        same_sym = bool(torch.equal(S, sr.syr2k_reduced_ref(
-            Cd, V, Z, -1.0, symmetrize=True)))
+        Sp = sr.syr2k_reduced_ref(Cd, V, Z, -1.0, symmetrize=True)
+        S = sk.syr2k(Cd, V, Z, alpha=-1.0, symmetrize=True,
+                     out=_padded_empty(n, dt, dev))
+        same_sym = bool(torch.equal(S, Sp))
+        again = sk.syr2k(Cd, V, Z, alpha=-1.0,
+                         out=_padded_empty(n, dt, dev))
+        checks.check(f"{label} syr2k_{sfx} repeats bitwise",
+                     bool(torch.equal(again, R)), "two calls")
+        del again
+        # the odd-lda copy: the narrow path, the same bits
+        outn = _unaligned(Co, dt)
+        paths = {"padded": sk.update_path(Cd, out),
+                 "odd lda": sk.update_path(Co, outn)}
+        checks.check(f"{label} syr2k_{sfx} paths by layout",
+                     paths == {"padded": "wide", "odd lda": "narrow"},
+                     json.dumps(paths))
+        Rn = sk.syr2k(Co, V, Z, alpha=-1.0, out=outn)
+        Sn = sk.syr2k(Co, V, Z, alpha=-1.0, symmetrize=True,
+                      out=_unaligned(Co, dt))
+        checks.check(f"{label} syr2k_{sfx} narrow path bitwise vs plain",
+                     bool(torch.equal(Rn, Rp) and torch.equal(Sn, Sp)),
+                     f"max |kernel - plain| = "
+                     f"{float((Rn.float() - Rp.float()).abs().max())!r}")
+        del Rn, Sn
+        # in turns: the wide path, and the narrow path (syr2k_tiles) on the
+        # odd-lda copy and on the padded one
+        out0 = _padded_empty(n, dt, dev)
         VW, WV = torch.cat([V, Z], 1), torch.cat([Z, V], 1).mT
-        torch.addmm(Cd, VW, WV, alpha=-1.0)
-        _, lib = _time_cuda(lambda: torch.addmm(Cd, VW, WV, alpha=-1.0),
+        # k = 0: the same walk, staging, epilogue and stores with no
+        # products, the kernel's data movement alone
+        times = _alternating({
+            "wide": lambda: sk.syr2k(Cd, V, Z, alpha=-1.0, out=out),
+            "wide at k=0": lambda: sk.syr2k(Cd, V[:, :0], Z[:, :0],
+                                            alpha=-1.0, out=out0),
+            "narrow (odd lda)": lambda: sk.syr2k(Co, V, Z, alpha=-1.0,
+                                                 out=outn),
+            "narrow (padded)": lambda: _syr2k_at_path(Cd, V, Z, out0,
+                                                       False, "narrow"),
+            "torch.addmm": lambda: torch.addmm(Co, VW, WV, alpha=-1.0)})
+        checks.check(f"{label} syr2k_{sfx} narrow path on the padded copy "
+                     f"bitwise", bool(torch.equal(out0, R)),
+                     "the same plain version")
+        torch.addmm(Co, VW, WV, alpha=-1.0)
+        _, lib = _time_cuda(lambda: torch.addmm(Co, VW, WV, alpha=-1.0),
                             TIMING_REPS)
-        print(f"{label} syr2k_{sfx} (n={n}, k={w}): kernel {ms:.4f} ms, "
-              f"plain {pms:.1f} ms (on the card), torch.addmm {lib:.4f} ms",
-              flush=True)
+        bound = _bound(4.0 * w * n * n, es * (2.0 * n * n + 2 * n * w),
+                       FP32_VECTOR_FLOPS)
+        print(f"{label} syr2k_{sfx} (n={n}, k={w}): kernel {ms:.4f} ms "
+              f"(padded rows, {paths['padded']} path), plain {pms:.1f} ms "
+              f"(on the card), torch.addmm {lib:.4f} ms, least time "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); device "
+              f"ms a call, queued, in turns: {_turns(times)}", flush=True)
         checks.check(f"{label} syr2k_{sfx} bitwise vs plain", same,
                      f"max |kernel - plain| = {err!r}")
         checks.check(f"{label} syr2k_{sfx} symmetrized bitwise vs plain",
                      same_sym, "the TT1 sweep's launch")
         rows[f"syr2k_{sfx}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib,
-            **_bound(4.0 * w * n * n, es * (2.0 * n * n + 2 * n * w),
-                     FP32_VECTOR_FLOPS))
-        del R, Rp, S, out, VW, WV, Z
+            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib, **bound)
+        del R, Rp, S, Sp, out, outn, out0, VW, WV, Z
         torch.cuda.empty_cache()
         # ---- chase_pass: the first and last pass of the MD band ---------
         Wp = padded_band(clean_band(Wb).to(dt), w)
@@ -1875,45 +1988,62 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
             **_bound(6.0 * 1000 * 8, es * (4.0 * 1000 * 8 + 2 * 1000),
                      FP32_VECTOR_FLOPS))
         # ---- symm_block at p = 1 and 4, symv ----------------------------
-        absA = torch.triu(Cd.abs()).float()
-        absA += torch.triu(Cd.abs(), 1).mT.float()
+        absA = torch.triu(Co.abs()).float()
+        absA += torch.triu(Co.abs(), 1).mT.float()
         for name, p in (("symm_block", 1), ("symm_block", 4), ("symv", 1)):
             X = torch.randn((n, p), generator=gen, dtype=torch.float32,
                             device=dev).to(dt)
             if name == "symv":
                 X = X[:, 0].contiguous()
-                run = lambda X=X: yk.symv(Cd, X)          # noqa: E731
-                plain = lambda X=X: yr.symv_upper_ref(Cd, X)  # noqa: E731
-            else:
-                run = lambda X=X: yk.symm_block(Cd, X)    # noqa: E731
-                plain = lambda X=X: yr.symm_block_upper_ref(Cd, X)  # noqa
-            Yk, Yq, ms, pms = _in_turns(run, plain, TIMING_REPS)
-            torch.matmul(Cd, X)
-            _, lib = _time_cuda(lambda X=X: torch.matmul(Cd, X),
-                                TIMING_REPS)
+            key = f"{name} p={p}" if name == "symm_block" else name
+
+            def run(A, X=X, name=name):
+                return (yk.symv(A, X) if name == "symv"
+                        else yk.symm_block(A, X))
+
+            plain = lambda X=X: yr.symm_block_upper_ref(Co, X)  # noqa: E731
+            Yk, Yq, ms, pms = _in_turns(lambda: run(Cd), plain, TIMING_REPS)
             bar = (2 * _gamma32(n) * (absA @ X.float().abs())
                    + 2 * us * Yq.float().abs())
-            gap = (Yk.float() - Yq.float()).abs()
-            key = f"{name} p={p}" if name == "symm_block" else name
-            print(f"{label} {key} {sfx}: kernel {ms:.4f} ms, plain "
-                  f"{pms:.3f} ms (on the card), torch.matmul {lib:.4f} ms",
+            # the main path's padded copy and the odd-lda copy (the wide
+            # and the narrow path)
+            outs = {"padded": Yk, "odd lda": run(Co)}
+            for case, Y in outs.items():
+                gap = (Y.float() - Yq.float()).abs()
+                checks.check(f"{label} {key} {sfx} {case} within the gamma "
+                             f"bar of plain", bool(torch.all(gap <= bar)),
+                             f"max |kernel - plain| = {float(gap.max())!r}, "
+                             f"max ratio {float((gap / bar).max())!r}")
+                again = run(Cd) if case == "padded" else run(Co)
+                checks.check(f"{label} {key} {sfx} {case} repeats bitwise",
+                             bool(torch.equal(again, Y)), "two calls")
+            times = _alternating({
+                "padded": lambda: run(Cd), "odd lda": lambda: run(Co),
+                "torch.matmul": lambda X=X: torch.matmul(Co, X)})
+            torch.matmul(Co, X)
+            _, lib = _time_cuda(lambda X=X: torch.matmul(Co, X),
+                                TIMING_REPS)
+            bound = _bound(2.0 * n * n * p,
+                           es * (n * (n + 1) / 2 + 2 * n * p),
+                           FP32_VECTOR_FLOPS)
+            paths = {"padded": yk.product_path(Cd),
+                     "odd lda": yk.product_path(Co)}
+            print(f"{label} {key} {sfx}: kernel {ms:.4f} ms (padded rows, "
+                  f"{paths['padded']}), plain {pms:.3f} ms (on the card), "
+                  f"torch.matmul {lib:.4f} ms, least time "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+                  f"device ms a call, queued, in turns: {_turns(times)}",
                   flush=True)
-            checks.check(f"{label} {key} {sfx} within the gamma bar of "
-                         f"plain", bool(torch.all(gap <= bar)),
-                         f"max |kernel - plain| = {float(gap.max())!r}, max "
-                         f"ratio {float((gap / bar).max())!r}")
-            again = run()
-            checks.check(f"{label} {key} {sfx} repeats bitwise",
-                         bool(torch.equal(again, Yk)), "two calls")
+            checks.check(f"{label} {key} {sfx} paths by layout",
+                         paths == {"padded": "wide", "odd lda": "narrow"},
+                         json.dumps(paths))
             if p > 1:
                 continue
+            gap = (Yk.float() - Yq.float()).abs()
             rows[f"{name}_{sfx}"] = dict(
                 max_abs_err=float(gap.max()), ms=ms, plain_ms=pms,
-                library_ms=lib,
-                **_bound(2.0 * n * n * p,
-                         es * (n * (n + 1) / 2 + 2 * n * p),
-                         FP32_VECTOR_FLOPS))
-        del absA, Cd
+                library_ms=lib, **bound)
+        del absA, Cd, Co
         torch.cuda.empty_cache()
     return rows
 
@@ -1928,8 +2058,9 @@ def run_precision(md, s: int, checks: Checks) -> dict:
     (an ``escalate_precision`` rerun at fp64 is reported). Checks that
     the reduced instances ran: 624 ``house_panel`` and ``syr2k`` and 15
     ``chase_pass`` and ``replay_pass`` launches of the level's instances
-    for TT, ``symm_block``'s for KE and KI. Returns each solve's launch
-    counts."""
+    for TT, all 624 ``syr2k`` on the wide path, ``symm_block``'s for KE
+    and KI, all on the wide path. Returns each solve's launch
+    counts (``<label>``) and load-path counts (``<label> paths``)."""
     from repro_torch.core.sbr import _executed_passes, _n_panels
 
     n = md.A.shape[0]
@@ -1947,7 +2078,8 @@ def run_precision(md, s: int, checks: Checks) -> dict:
              ("TD", "mixed", dict(variant="TD"))]
     for variant, level, kw in cases:
         label = f"{variant} {level}"
-        res = run_solve(label, md, s, checks, precision=level,
+        paths: dict = {}
+        res = run_solve(label, md, s, checks, paths=paths, precision=level,
                         on_failure="recover", **kw)
         rinfo = res.info["refinement"]
         rungs = [(r["action"], r["outcome"]) for r in res.info["recovery"]]
@@ -1967,11 +2099,24 @@ def run_precision(md, s: int, checks: Checks) -> dict:
             got = {k: counts[k] for k in want}
             checks.check(f"{label} reduced TT launch counts", got == want,
                          f"{json.dumps(got)} (expected {json.dumps(want)})")
+            # the padded TT1 working copy: every window on the wide path
+            wide = {"wide": paths[f"syr2k_{sfx}_wide"],
+                    "narrow": paths[f"syr2k_{sfx}_narrow"]}
+            checks.check(f"{label} syr2k_{sfx} on the wide path",
+                         wide == {"wide": _n_panels(n, TT_W), "narrow": 0},
+                         json.dumps(wide))
         elif variant in ("KE", "KI"):
             checks.check(f"{label} launched symm_block_{sfx}",
                          counts[f"symm_block_{sfx}"] > 0,
                          f"{counts[f'symm_block_{sfx}']} launches (n_matvec "
                          f"{res.info['n_matvec']})")
+            # the padded operator: every product on the wide path
+            wide = {"wide": paths[f"symm_block_{sfx}_wide"],
+                    "narrow": paths[f"symm_block_{sfx}_narrow"]}
+            checks.check(f"{label} symm_block_{sfx} on the wide path",
+                         wide == {"wide": counts[f"symm_block_{sfx}"],
+                                  "narrow": 0}, json.dumps(wide))
+        out[f"{label} paths"] = paths
         out[label] = counts
         del res
     return out
@@ -2068,10 +2213,12 @@ def print_plans(label: str, n: int, s: int, w: int) -> None:
               f"{k} x{v}" for k, v in sorted(panels.items())), flush=True)
 
 
-def run_solve(label: str, prob, s: int, checks: Checks, **kw):
+def run_solve(label: str, prob, s: int, checks: Checks,
+              paths: dict | None = None, **kw):
     """One main-path solve with every launch count set to 0 just before and
     read just after; returns the result (its ``info["kernel_launches"]``
-    checked equal to the counts read)."""
+    checked equal to the counts read). The reduced product's and
+    ``syr2k``'s launches by load path are printed and, where ``paths`` is given, put in it."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import accuracy_report, solve
@@ -2084,6 +2231,9 @@ def run_solve(label: str, prob, s: int, checks: Checks, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    by_path = kernels.path_counts()
+    if paths is not None:
+        paths.update(by_path)
     print(f"main path {label}: solve({prob.name} n={n}, s={s}, "
           f"{', '.join(f'{k}={v!r}' for k, v in kw.items())}) {wall:.2f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
@@ -2097,6 +2247,8 @@ def run_solve(label: str, prob, s: int, checks: Checks, **kw):
         checks.check(f"{label} converged", bool(res.info["converged"]),
                      f"max resid bound {max(res.info['resid_bounds'])!r}")
     print(f"  launches: {json.dumps(launches)}", flush=True)
+    print("  launches by load path: " + json.dumps(
+        {k: v for k, v in by_path.items() if v}), flush=True)
     if "tt1" in res.info:
         print(f"  tt1: {json.dumps(res.info['tt1'])}", flush=True)
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)

@@ -23,7 +23,8 @@ batched path (``lanczos_solve_jit``) comes with that path (ROADMAP.md §1
 item 9).
 
 ``compute_dtype`` (fp32 or bf16) demotes only the operator: its matrices
-are cast once, each block goes in cast and comes out in fp64, and the
+are cast once (the product's matrix into a copy with padded rows,
+``demote_op``), each block goes in cast and comes out in fp64, and the
 basis, T and all restart and convergence math stay fp64. The convergence
 test then also accepts bounds under 8 eps(compute dtype) max|theta|, the
 floor a demoted product can reach; fp64 refinement recovers the rest.
@@ -38,6 +39,7 @@ from .filtering import (chebyshev_filter, estimate_bounds, filter_interval,
                         probe_steps)
 from .linalg_utils import eigh_or_nan
 from .operators import ExplicitC, ImplicitC, apply_op, op_dim
+from .precision import padded_copy
 
 #: seed of the default start block when no generator is given (the
 #: reference's default key of ``lanczos_solve``)
@@ -181,6 +183,17 @@ def _seed_block(v0, n: int, p: int, generator, dtype, device):
     return v0
 
 
+def demote_op(op, compute_dtype):
+    """The operator in ``compute_dtype``: the product's matrix (``C``, or
+    ``A`` of the implicit operator) in a padded copy (``padded_copy``:
+    rows on 16-byte boundaries, for the reduced kernels' 16-byte loads),
+    ``U`` cast as it is (it goes to ``solve_triangular``)."""
+    if isinstance(op, ExplicitC):
+        return ExplicitC(padded_copy(op.C, compute_dtype))
+    return ImplicitC(padded_copy(op.A, compute_dtype),
+                     op.U.to(compute_dtype))
+
+
 def _demoted(op, matvec, compute_dtype, use_kernel: bool):
     """(matvec, resid_floor_rel) with the operator in ``compute_dtype``."""
     if compute_dtype in (None, torch.float64):
@@ -189,7 +202,7 @@ def _demoted(op, matvec, compute_dtype, use_kernel: bool):
         raise ValueError(f"compute_dtype must be float64, float32 or "
                          f"bfloat16, got {compute_dtype!r}")
     if isinstance(op, (ExplicitC, ImplicitC)):
-        op_c = type(op)(*(t.to(compute_dtype) for t in op))
+        op_c = demote_op(op, compute_dtype)
         inner = lambda X: apply_op(op_c, X.to(compute_dtype),  # noqa: E731
                                    use_kernel=use_kernel)
     else:

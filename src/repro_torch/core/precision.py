@@ -71,6 +71,26 @@ def demote(x: torch.Tensor, precision: str) -> torch.Tensor:
     return x.to(compute_dtype(precision))
 
 
+#: the row stride of a reduced working copy is a multiple of this many
+#: bytes: the 16-byte loads of the fp32/bf16 kernels (csrc/symv.cu,
+#: csrc/syr2k.cu) need every row to start on a 16-byte boundary
+ROW_ALIGN = 16
+
+
+def padded_copy(M: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A copy of the (rows, cols) matrix M in ``dtype`` whose row stride is
+    the least multiple of ``ROW_ALIGN`` bytes that holds a row; the
+    returned (rows, cols) view holds the same values as ``M.to(dtype)``.
+    The reduced working copies use it, so that the kernels reading them
+    take their 16-byte loads; float64 copies keep their layout."""
+    rows, cols = M.shape
+    per = ROW_ALIGN // torch.empty((), dtype=dtype).element_size()
+    ld = max(-(-cols // per) * per, 1)
+    out = torch.empty_strided((rows, cols), (ld, 1), dtype=dtype,
+                              device=M.device)
+    return out.copy_(M)
+
+
 def promote(x: torch.Tensor, dtype: torch.dtype = torch.float64
             ) -> torch.Tensor:
     return x.to(dtype)

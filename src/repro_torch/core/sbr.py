@@ -43,7 +43,7 @@ from .band_storage import clean_band, pack_band, unpack_band
 from .instrument import DispatchCounter
 from .linalg_utils import (extract_tridiag, givens, rotate_cols, rotate_rows,
                            symmetrize, wy_syr2k_panel)
-from .precision import matmul_acc
+from .precision import matmul_acc, padded_copy
 
 
 class BandResult(NamedTuple):
@@ -112,7 +112,10 @@ def _reduce_to_band_sweep(C: torch.Tensor, w: int,
     n_panels = _n_panels(n, w)
     if n_panels == 0:
         return BandResult(Wb=pack_band(C, w, symmetrize=True), Q1=Q1)
-    M = C.clone()
+    # below fp64 the working copy's rows start on 16-byte boundaries, so
+    # every window M[o:, o:] (o a multiple of w) takes the reduced syr2k's
+    # 16-byte path; fp64 keeps C's layout
+    M = C.clone() if C.dtype == torch.float64 else padded_copy(C, C.dtype)
     for p0, p1 in _chunk_bounds(n_panels, n_chunks):
         o = p0 * w                 # window origin
         Mt = M[o:, o:]             # views: the window is updated in place

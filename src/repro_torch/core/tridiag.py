@@ -15,7 +15,10 @@ its launches without waiting on the card; CUDA graphs for it come later.
 ``tridiagonalize_blocked`` is the reference's dlatrd-style blocked form:
 per panel the column work is BLAS-2 against the matrix as it stood at
 the panel's start, and the trailing update is one SYR2K per panel (the
-``syr2k`` kernel on the card, in place on the window).
+``syr2k`` kernel on the card, in place on the window). Below fp64 its
+working copy has 16-byte rows (``padded_copy``), so that each window
+``M[c:, c:]`` (c a multiple of the panel) takes the reduced ``syr2k``'s
+wide path.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from repro_torch.kernels.syr2k.ops import syr2k
 
 from .linalg_utils import extract_tridiag, householder_masked
+from .precision import padded_copy
 
 
 class TridiagResult(NamedTuple):
@@ -77,7 +81,8 @@ def tridiagonalize_blocked(C: torch.Tensor, panel: int = 32) -> TridiagResult:
     """
     n = C.shape[0]
     n_cols = max(n - 2, 0)
-    M = C.clone(memory_format=torch.contiguous_format)
+    M = (C.clone(memory_format=torch.contiguous_format)
+         if C.dtype == torch.float64 else padded_copy(C, C.dtype))
     V = torch.zeros_like(C)
     tau = C.new_zeros((n,))
     for c0 in range(0, n_cols, panel):

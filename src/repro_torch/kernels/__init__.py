@@ -2,7 +2,9 @@
 
 ``launch_counts()`` and ``reset_launches()`` cover the wrappers of every
 family, by wrapper name, with the fp32 and bf16 instances counted apart
-(``<name>_fp32``, ``<name>_bf16``: ``_launches.py``).
+(``<name>_fp32``, ``<name>_bf16``: ``_launches.py``); ``path_counts()``
+the load paths of the reduced product and ``syr2k``
+(``<name>_bf16_wide``, ...), which ``reset_launches()`` resets too.
 """
 from .band_mv import kernel as _band_mv
 from .gemm import kernel as _gemm
@@ -22,6 +24,10 @@ def launch_counts() -> dict:
     for mod in _MODULES:
         counts.update(mod.launch_counts())
     return counts
+
+
+def path_counts() -> dict:
+    return {**_symv.path_counts(), **_syr2k.path_counts()}
 
 
 def reset_launches() -> None:

@@ -12,6 +12,12 @@ and adds one to the count of the instance it launched for every product
 
 A and X may be float64, or float32 or bfloat16 (the kernel's reduced
 instances: the scratch and every sum in fp32, Y in the storage dtype).
+float64 runs the 8-byte kernel (``symm_tiles``); float32 and bfloat16
+run the 16-byte kernel (``symm_wide``, the same 64 x 64 tiles and
+scratch) on one of its two paths, which ``_launches.load_path`` picks
+from A's alignment: ``wide`` (16-byte loads) where A's pointer and row
+stride are multiples of 16 bytes, else ``narrow`` (entry by entry). Each
+path counts apart (``path_counts``: ``symm_block_bf16_wide``, ...).
 
 ``plan`` is pure Python, so the CPU tests reach it: the upper tiles (one
 warp each), the columns of X a pass (the kernel's compiled width) and the
@@ -19,9 +25,12 @@ scratch. ``tile_of`` is the Python twin of the kernel's triangle grid:
 warp t takes the tile at position t of the reference's
 ``triangle_indices`` order.
 
-A is read in place through its row stride: it is never copied or padded.
-X may be a column slice of a wider row-major array (the Lanczos basis);
-only an X of another layout is copied, and it is the small operand.
+A is read in place through its row stride: it is never copied or padded
+here. The reduced working copies the solver builds are padded where they
+are made (``core/precision.py::padded_copy``), so the main path takes the
+wide path. X may be a column slice of a wider row-major array (the
+Lanczos basis); only an X of another layout is copied, and it is the
+small operand.
 """
 from __future__ import annotations
 
@@ -40,10 +49,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SYMM = ([_P, _L, _P, _L, _P, _P, _I, _I, _I, _P], _I)
+# the reduced entries take the path (``_launches.PATH_CODE``)
+_SYMM_R = ([_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P], _I)
 _SIGS = {
     "symm_block_upper": _SYMM,
-    "symm_block_upper_fp32": _SYMM,
-    "symm_block_upper_bf16": _SYMM,
+    "symm_block_upper_fp32": _SYMM_R,
+    "symm_block_upper_bf16": _SYMM_R,
     "symv_tile": ([], _I),
 }
 #: the product's C entry point of each instance
@@ -68,11 +79,21 @@ class Plan(NamedTuple):
 
 @functools.cache
 def plan(n: int, p: int) -> Plan:
-    """The launch of an (n, n)(n, p) product. Width: p itself up to 2,
-    else 4 (wider p take passes of 4), the widths symv.cu is compiled
-    for."""
+    """The launch of an (n, n)(n, p) product (either kernel). Width: p
+    itself up to 2, else 4 (wider p take passes of 4), the widths symv.cu
+    is compiled for."""
     nb = -(-n // TILE)
     return Plan(nb, nb * (nb + 1) // 2, p if p <= 2 else 4, (nb + 1, n, p))
+
+
+def product_path(A: torch.Tensor) -> str:
+    """The kernel and path a product on A takes: ``tiles`` (the 8-byte
+    kernel) for float64, else the 16-byte kernel's ``wide`` or ``narrow``
+    path by A's alignment."""
+    if A.dtype == torch.float64:
+        return "tiles"
+    ld = A.stride(0) if A.shape[0] > 1 else A.shape[1]
+    return _launches.load_path(A.element_size(), (A.data_ptr(), ld))
 
 
 def tile_of(t: int, nb: int) -> tuple:
@@ -138,6 +159,24 @@ def _scratch(pl: Plan, A: torch.Tensor) -> torch.Tensor:
     return torch.empty(pl.scratch, dtype=acc, device=A.device)
 
 
+def _product(wrapper, A, lda: int, X, ldx: int, Y, n: int, p: int) -> None:
+    """One product through the instance and path of A's dtype and layout,
+    counted on ``wrapper``."""
+    path = product_path(A)
+    pl = plan(n, p)
+    P = _scratch(pl, A)
+    fn = ENTRY[A.dtype]
+    args = (A.data_ptr(), lda, X.data_ptr(), ldx, P.data_ptr(), Y.data_ptr(),
+            n, p, pl.kc)
+    if A.dtype != torch.float64:
+        args += (_launches.PATH_CODE[path],)
+    err = getattr(_lib(), fn)(*args, current_stream(A.device))
+    _launches.count(wrapper, A.dtype)
+    if path != "tiles":
+        _launches.count_path(wrapper, A.dtype, path)
+    _raise_on(err, fn)
+
+
 def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (n,) = A x from the upper triangle of A (n, n)."""
     n = _check_matrix(A)
@@ -147,18 +186,13 @@ def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y
     if x.stride(0) != 1:
         x = x.contiguous()
-    pl = plan(n, 1)
-    P = _scratch(pl, A)
-    fn = ENTRY[A.dtype]     # the product's instance at p = 1, kc = 1
-    err = getattr(_lib(), fn)(A.data_ptr(), A.stride(0), x.data_ptr(), 1,
-                              P.data_ptr(), y.data_ptr(), n, 1, 1,
-                              current_stream(A.device))
-    _launches.count(symv, A.dtype)
-    _raise_on(err, fn)
+    # the product's instance at p = 1, kc = 1
+    _product(symv, A, A.stride(0), x, 1, y, n, 1)
     return y
 
 
 _launches.with_reduced(symv)
+_launches.with_paths(symv)
 
 
 def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -174,18 +208,12 @@ def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if n > 1 and ((p > 1 and X.stride(1) != 1) or X.stride(0) < p):
         X = X.contiguous()
     ldx = X.stride(0) if n > 1 else p
-    pl = plan(n, p)
-    P = _scratch(pl, A)
-    fn = ENTRY[A.dtype]
-    err = getattr(_lib(), fn)(A.data_ptr(), A.stride(0) if n > 1 else 1,
-                              X.data_ptr(), ldx, P.data_ptr(), Y.data_ptr(),
-                              n, p, pl.kc, current_stream(A.device))
-    _launches.count(symm_block, A.dtype)
-    _raise_on(err, fn)
+    _product(symm_block, A, A.stride(0) if n > 1 else 1, X, ldx, Y, n, p)
     return Y
 
 
 _launches.with_reduced(symm_block)
+_launches.with_paths(symm_block)
 
 #: every kernel wrapper of this module, by name
 WRAPPERS = {"symv": symv, "symm_block": symm_block}
@@ -197,3 +225,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return _launches.read(WRAPPERS)
+
+
+def path_counts() -> dict:
+    return _launches.read_paths(WRAPPERS)

@@ -55,6 +55,40 @@ def _sym(n, seed):
     return 0.5 * (M + M.T)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("n,panel", [(100, 32), (75, 8)])
+def test_blocked_td1_windows_are_16_byte_aligned_below_fp64(monkeypatch,
+                                                            dtype, n, panel):
+    # every window the blocked TD1 hands to syr2k: below fp64 a view of a
+    # padded working copy (row stride a multiple of 16 bytes, each window
+    # on the reduced syr2k's wide path); fp64 keeps the contiguous layout;
+    # the result is the same as on an unpadded copy, bit for bit
+    from repro_torch.core import tridiag
+    from repro_torch.kernels.syr2k import kernel as syr2k_kernel
+    seen = []
+    real = tridiag.syr2k
+
+    def spy(Mw, Vp, Wp, **kw):
+        seen.append((Mw.stride(0), Mw.element_size(),
+                     syr2k_kernel.update_path(Mw, kw["out"])))
+        return real(Mw, Vp, Wp, **kw)
+
+    C = _t(_sym(n, n)).to(dtype)
+    monkeypatch.setattr(tridiag, "syr2k", spy)
+    got = tridiagonalize_blocked(C, panel)
+    assert len({ld for ld, _, _ in seen}) == 1 and len(seen) > 2
+    for ld, es, path in seen:
+        if dtype == torch.float64:
+            assert ld == n and path == "tiles"
+        else:
+            assert ld * es % 16 == 0 and ld - n < 16 // es and path == "wide"
+    monkeypatch.setattr(tridiag, "padded_copy", lambda M, dt: M.clone())
+    plain = tridiagonalize_blocked(C, panel)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("n,block", SIZES)
 def test_cholesky_blocked_matches_reference(n, block):
     B = _spd(n, n)

@@ -22,6 +22,7 @@ from repro_torch.core.tridiag_eig import (_cluster_ids, _pivmin, _scale,
                                           bisect_inputs, normalize_columns,
                                           start_block)
 from repro_torch.core.cholesky import cholesky_blocked, cholesky_upper
+from repro_torch.core.precision import padded_copy
 from repro_torch.core.standard_form import (to_standard_sygst,
                                             to_standard_two_trsm)
 from repro_torch.core.tridiag import tridiagonalize, tridiagonalize_blocked
@@ -1027,3 +1028,165 @@ def test_demoted_solves_on_the_card_launch_the_reduced_instances(cuda,
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
     assert float(acc.relative_residual) <= 1e-12
     assert float(acc.b_orthogonality) <= 1e-12
+
+
+# ---------- the reduced product and syr2k by load path (wide, narrow) --
+
+def _in_layout(M, path):
+    """M on the card in a layout that takes ``path``: a padded copy (rows
+    on 16-byte boundaries) for ``wide``; for ``narrow`` a view one entry
+    into a padded copy of one more column (every row's start off a
+    16-byte boundary)."""
+    rows, cols = M.shape
+    if path == "wide":
+        return padded_copy(M.cuda(), M.dtype)
+    big = padded_copy(torch.zeros((rows, cols + 1), dtype=M.dtype,
+                                  device="cuda"), M.dtype)
+    view = big[:, 1:]
+    view.copy_(M)
+    return view
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("path", ["wide", "narrow"])
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("n,k", [(7, 3), (33, 17), (64, 16), (130, 16),
+                                 (1000, 16), (333, 40), (70, 0)])
+@pytest.mark.parametrize("dt", REDUCED)
+def test_syr2k_pairs_bitwise_vs_plain(cuda, dt, n, k, sym, path, inplace):
+    """The reduced syr2k on either path (wide: syr2k_pairs; narrow:
+    syr2k_tiles), into a new tensor or in place, bitwise against
+    ``syr2k_reduced_ref``, one launch counted on its path."""
+    g = torch.Generator().manual_seed(7 * n + k)
+    C = torch.randn((n, n), generator=g)
+    C = (C + C.mT).to(dt)
+    V, W = (torch.randn((n, k), generator=g).to(dt) for _ in range(2))
+    plain = syr2k_ref.syr2k_reduced_ref(C, V, W, -1.0, sym)
+    Ck = _in_layout(C, path)
+    kernels.reset_launches()
+    got = syr2k_kernel.syr2k(Ck, V.to(cuda), W.to(cuda), -1.0, sym,
+                             out=Ck if inplace else None)
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    # an (n, n) output of its own is contiguous: wide where n entries
+    # fill whole 16-byte vectors
+    want = path if inplace or path == "narrow" else (
+        "wide" if n * C.element_size() % 16 == 0 else "narrow")
+    assert kernels.path_counts()[f"syr2k_{sfx}_{want}"] == 1
+    assert sum(kernels.path_counts().values()) == 1
+    assert torch.equal(got.cpu(), plain)
+    if inplace:
+        assert got.data_ptr() == Ck.data_ptr()
+
+
+@pytest.mark.parametrize("offset,path", [(16, "wide"), (3, "narrow")])
+@pytest.mark.parametrize("dt", REDUCED)
+def test_syr2k_pairs_on_a_tt1_window(cuda, dt, offset, path):
+    """The TT1 sweep's call: in place on a window M[o:, o:] of a padded
+    working copy, symmetrized; o = 16 keeps 16-byte rows (wide), o = 3
+    does not (narrow); bitwise against the plain version, and the entries
+    outside the window untouched."""
+    n, k = 517, 16
+    g = torch.Generator().manual_seed(offset)
+    B = torch.randn((n, n), generator=g)
+    M = padded_copy((B + B.mT).to(dt).cuda(), dt)
+    before = M.clone()
+    win = M[offset:, offset:]
+    m = n - offset
+    V, W = (torch.randn((m, k), generator=g).to(dt) for _ in range(2))
+    plain = syr2k_ref.syr2k_reduced_ref(win.cpu(), V, W, -1.0, True)
+    kernels.reset_launches()
+    syr2k_kernel.syr2k(win, V.to(cuda), W.to(cuda), -1.0, True, out=win)
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    assert kernels.path_counts()[f"syr2k_{sfx}_{path}"] == 1
+    assert torch.equal(win.cpu(), plain)
+    assert torch.equal(M[:offset], before[:offset])
+    assert torch.equal(M[:, :offset], before[:, :offset])
+
+
+@pytest.mark.parametrize("path", ["wide", "narrow"])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("n", [8, 65, 128, 129, 1000, 3001])
+@pytest.mark.parametrize("dt", REDUCED)
+def test_symm_block_16_byte_paths_within_gamma(cuda, dt, n, p, path):
+    """symm_wide on either path: within the reduced product's bar of the
+    plain version (fp32 sums in other orders, then one rounding to the
+    storage dtype), bitwise on a second launch, one launch counted on its
+    path; symv the same at p = 1."""
+    g = torch.Generator().manual_seed(n + 10 * p)
+    A = torch.randn((n, n), generator=g, dtype=torch.float64)
+    A = (A + A.mT + torch.tril(1e3 * torch.ones(n, n), -1)).to(dt)
+    X = torch.randn((n, p), generator=g).to(dt)
+    plain = symv_ref.symm_block_upper_ref(A, X).double()
+    Ak = _in_layout(A, path)
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    kernels.reset_launches()
+    got = symv_kernel.symm_block(Ak, X.to(cuda))
+    assert kernels.path_counts()[f"symm_block_{sfx}_{path}"] == 1
+    Ad = A.double()
+    mag = (torch.triu(Ad).abs() + torch.triu(Ad, 1).abs().mT) @ X.double().abs()
+    bar = 2 * _gamma32(n) * mag + 2 * U_STORE[dt] * plain.abs()
+    assert got.dtype == dt
+    assert torch.all((got.cpu().double() - plain).abs() <= bar)
+    assert torch.equal(symv_kernel.symm_block(Ak, X.to(cuda)), got)
+    if p == 1:
+        y = symv_kernel.symv(Ak, X[:, 0].to(cuda))
+        assert kernels.path_counts()[f"symv_{sfx}_{path}"] == 1
+        assert torch.all((y.cpu().double() - plain[:, 0]).abs() <= bar[:, 0])
+
+
+@pytest.mark.parametrize("path", ["wide", "narrow"])
+@pytest.mark.parametrize("dt", REDUCED)
+def test_symm_block_16_byte_never_reads_the_lower_triangle(cuda, dt, path):
+    """NaN strictly below the diagonal (also inside a 16-byte vector that
+    crosses it) changes no bit of the reduced product on either path."""
+    n = 300
+    g = torch.Generator().manual_seed(8)
+    A = torch.randn((n, n), generator=g).to(dt)
+    X = torch.randn((n, 4), generator=g).to(dt)
+    nan_lower = torch.triu(A) + torch.tril(
+        torch.full((n, n), float("nan")), -1).to(dt)
+    Ak, Nk = _in_layout(A, path), _in_layout(nan_lower, path)
+    for Xk in (X.to(cuda), X[:, :1].to(cuda)):
+        assert torch.equal(symv_kernel.symm_block(Nk, Xk),
+                           symv_kernel.symm_block(Ak, Xk))
+    assert torch.equal(symv_kernel.symv(Nk, X[:, 0].to(cuda)),
+                       symv_kernel.symv(Ak, X[:, 0].to(cuda)))
+
+
+@pytest.mark.parametrize("precision", ["mixed", "fast"])
+def test_demoted_solves_take_the_wide_paths(cuda, precision):
+    """A TT and a KE solve at a demoted level, at an n whose rows are no
+    multiple of 16 bytes, run the reduced syr2k and product on their wide
+    paths only: the working copies are padded."""
+    n = 403
+    prob = md_like(n, device=cuda)
+    sfx = {"mixed": "fp32", "fast": "bf16"}[precision]
+    kernels.reset_launches()
+    solve(prob.A, prob.B, 8, variant="TT", band_width=16,
+          precision=precision, on_failure="recover")
+    paths = kernels.path_counts()
+    assert paths[f"syr2k_{sfx}_wide"] > 0
+    assert paths[f"syr2k_{sfx}_narrow"] == 0
+    kernels.reset_launches()
+    solve(prob.A, prob.B, 8, variant="KE", invert=True, use_kernel=True,
+          precision=precision, on_failure="recover")
+    paths = kernels.path_counts()
+    assert paths[f"symm_block_{sfx}_wide"] > 0
+    assert paths[f"symm_block_{sfx}_narrow"] == 0
+
+
+@pytest.mark.parametrize("precision", ["mixed", "fast"])
+def test_demoted_blocked_td1_takes_the_wide_path(cuda, precision):
+    """The blocked TD1 at a demoted level, at an n whose rows are no
+    multiple of 16 bytes, runs every panel's reduced syr2k on the wide
+    path: its working copy is padded."""
+    n = 403
+    prob = md_like(n, device=cuda)
+    sfx = {"mixed": "fp32", "fast": "bf16"}[precision]
+    kernels.reset_launches()
+    res = solve(prob.A, prob.B, 8, variant="TD", td1="blocked",
+                precision=precision, on_failure="recover")
+    paths = kernels.path_counts()
+    assert paths[f"syr2k_{sfx}_wide"] > 0
+    assert paths[f"syr2k_{sfx}_narrow"] == 0
+    assert torch.isfinite(res.evals).all()

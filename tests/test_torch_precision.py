@@ -205,26 +205,23 @@ def _reference_krylov_starts(n):
                                                                      "cpu")
 
 
-@pytest.mark.parametrize("precision", ["fp64", "mixed", "fast"])
-@pytest.mark.parametrize("problem", ["md_like", "dft_like"])
-@pytest.mark.parametrize("variant", VARIANTS)
-def test_table3_metrics_precision(variant, problem, precision):
-    """The reference's Table-3 cell at N=64, S=6 in both packages, from the
+def _table3_both(variant, problem, precision, n):
+    """The reference's Table-3 cell at (n, S) in both packages, from the
     same random starts: each meets the bars, and the eigenvalues agree
     within 1e-10 max|lambda| (both are refined to the fp64 floor)."""
     gen = md_like if problem == "md_like" else dft_like
-    p = gen(N)
+    p = gen(n)
     tp = problem_from_numpy(p.A, p.B, p.exact_evals, p.name, device="cpu")
     invert = problem == "md_like" and variant in ("KE", "KI")
     kw = dict(variant=variant, which="smallest", band_width=8,
               max_restarts=800, invert=invert, precision=precision)
     ref = j_solve(p.A, p.B, S, **kw)
-    v0, probe = _reference_krylov_starts(N)
-    guard = t_ref.default_guard(S, N)
-    res = solve(tp.A, tp.B, S, x0=start_block_from_numpy(_reference_x0(N, S),
+    v0, probe = _reference_krylov_starts(n)
+    guard = t_ref.default_guard(S, n)
+    res = solve(tp.A, tp.B, S, x0=start_block_from_numpy(_reference_x0(n, S),
                                                          "cpu"),
                 v0=v0, probe_v0=probe,
-                guard0=guard_block_from_numpy(_reference_guard(N, guard),
+                guard0=guard_block_from_numpy(_reference_guard(n, guard),
                                               "cpu"),
                 device="cpu", **kw)
     acc = j_accuracy_report(p.A, p.B, jnp.asarray(res.X.numpy()),
@@ -242,6 +239,51 @@ def test_table3_metrics_precision(variant, problem, precision):
         assert set(rinfo) == set(ref.info["refinement"])
         assert "RF" in res.stage_times
         json.dumps(res.info)
+
+
+@pytest.mark.parametrize("precision", ["fp64", "mixed", "fast"])
+@pytest.mark.parametrize("problem", ["md_like", "dft_like"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_table3_metrics_precision(variant, problem, precision):
+    """The reference's Table-3 cell at N=64, S=6 (``_table3_both``)."""
+    _table3_both(variant, problem, precision, N)
+
+
+@pytest.mark.parametrize("precision", ["mixed", "fast"])
+@pytest.mark.parametrize("variant", ["TT", "KE"])
+def test_padded_working_copies_solve_as_the_reference(variant, precision):
+    """At n=75, where a row of 75 entries is no multiple of 16 bytes, the
+    reduced working copies (TT1's, the Krylov operator's) are padded: the
+    solve still meets the bars and agrees with the reference as at N=64
+    (``_table3_both``)."""
+    _table3_both(variant, "md_like", precision, 75)
+
+
+@pytest.mark.parametrize("precision", ["fp64", "mixed", "fast"])
+@pytest.mark.parametrize("kind", ["explicit", "implicit"])
+def test_demoted_krylov_operator_has_padded_rows(precision, kind):
+    """Below fp64 the operator's product matrix (C, or A of the implicit
+    operator) is a padded copy, rows on 16-byte boundaries, holding the
+    cast values; U is cast as it is; fp64 keeps the operator as given."""
+    from repro_torch.core import lanczos as tl
+    from repro_torch.core.operators import ExplicitC, ImplicitC
+    n = 75
+    M = _t(_sym(n, 5))
+    U = torch.triu(_t(np.random.default_rng(6).standard_normal((n, n))))
+    op = ExplicitC(M) if kind == "explicit" else ImplicitC(M, U)
+    dt = tprec.compute_dtype(precision)
+    if precision == "fp64":
+        assert tl._demoted(op, None, dt, False) == (None, 0.0)
+        return
+    op_c = tl.demote_op(op, dt)
+    Mc = op_c[0]
+    assert Mc.dtype == dt and tuple(Mc.shape) == (n, n)
+    assert Mc.stride(0) * Mc.element_size() % 16 == 0
+    assert Mc.stride(0) - n < 16 // Mc.element_size()
+    assert Mc.data_ptr() % 16 == 0 and torch.equal(Mc, M.to(dt))
+    if kind == "implicit":
+        assert op_c.U.dtype == dt and op_c.U.is_contiguous()
+        assert torch.equal(op_c.U, U.to(dt))
 
 
 @pytest.mark.parametrize("variant,precision", [("TD", "mixed"),

@@ -17,6 +17,9 @@ import torch
 from repro.kernels.symv import ops as j_ops
 from repro.kernels.symv import ref as j_ref
 from repro.kernels.symv.kernel import triangle_indices
+from repro_torch import kernels
+from repro_torch.core.precision import padded_copy
+from repro_torch.kernels import _launches
 from repro_torch.kernels.symv import kernel, ops, ref
 
 TOL = 1e-12
@@ -148,3 +151,53 @@ def test_scratch_slots_are_written_once(n):
         seen[j, i] += 1
         seen[pl.nb if i == j else i, j] += 1
     assert np.all(seen == 1)
+
+
+# ----------------------------------------- the 16-byte kernel's paths, plan --
+
+@pytest.mark.parametrize("esize,views,want", [
+    (2, [(0, 9997)], "narrow"),             # odd row stride (bf16)
+    (2, [(0, 10000)], "wide"),              # 20000 B rows
+    (2, [(2, 10000)], "narrow"),            # pointer off by one entry
+    (2, [(16 * 7, 8)], "wide"),
+    (4, [(0, 9996)], "wide"),
+    (4, [(0, 9998)], "narrow"),             # 39992 B rows: 8 mod 16
+    (4, [(0, 64), (48, 68)], "wide"),
+    (4, [(0, 64), (52, 68)], "narrow"),     # one of two views misaligned
+])
+def test_load_path_rule(esize, views, want):
+    # wide only when every pointer and every row's step in bytes is a
+    # multiple of 16, so each 16-byte vector of a row is aligned
+    assert _launches.load_path(esize, *views) == want
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [5, 75, 128, 129])
+def test_product_path_follows_the_matrix_layout(n, dt):
+    # fp32 and bf16 take the 16-byte kernel, wide on a padded copy and
+    # narrow on a plain one whose row stride or start is not 16-byte
+    # aligned; fp64 keeps the 8-byte kernel whatever the layout
+    A = _t(_inputs(n, 1, n)[0])
+    per = 16 // torch.empty((), dtype=dt).element_size()
+    padded = padded_copy(A, dt)
+    assert padded.stride(0) % per == 0 and torch.equal(padded, A.to(dt))
+    assert kernel.product_path(padded) == "wide"
+    plain = A.to(dt)
+    assert kernel.product_path(plain) == ("wide" if n % per == 0
+                                          else "narrow")
+    big = padded_copy(torch.zeros(n + 1, n + 1), dt)
+    assert kernel.product_path(big[1:, 1:]) == "narrow"   # off a boundary
+    assert kernel.product_path(padded_copy(A, torch.float64)) == "tiles"
+    assert kernel.product_path(A) == "tiles"
+
+
+def test_path_counters_reset_and_read():
+    kernel.symm_block.paths["bf16_wide"] = 5
+    kernel.symv.paths["bf16_narrow"] = 2
+    assert kernel.path_counts()["symm_block_bf16_wide"] == 5
+    assert kernels.path_counts()["symv_bf16_narrow"] == 2
+    kernels.reset_launches()
+    assert kernel.path_counts() == {f"{k}_{s}_{p}": 0
+                                    for k in ("symv", "symm_block")
+                                    for s in ("fp32", "bf16")
+                                    for p in ("wide", "narrow")}

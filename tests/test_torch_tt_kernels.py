@@ -157,6 +157,60 @@ def test_syr2k_symmetrize_and_out_in_place():
     torch.testing.assert_close(out, S, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dt,ld,offset,want", [
+    (torch.float64, 33, 0, "tiles"),
+    (torch.float32, 36, 0, "wide"),
+    (torch.float32, 33, 0, "narrow"),      # 132 B rows
+    (torch.float32, 36, 1, "narrow"),      # a window 4 B past a boundary
+    (torch.float32, 36, 4, "wide"),        # window origin o = 4: o (ld + 1)
+    (torch.bfloat16, 40, 8, "wide"),       # entries from 16-B aligned rows
+    (torch.bfloat16, 40, 4, "narrow"),
+])
+def test_syr2k_update_path_follows_the_window(dt, ld, offset, want):
+    # the reduced update takes the wide path only where both C's and out's
+    # pointers and row strides are 16-byte aligned; a TT1 window M[o:, o:]
+    # of a padded working copy starts o (ld + 1) entries in
+    n = 32
+    M = torch.empty_strided((n, n), (ld, 1), dtype=dt)
+    win = M[offset:, offset:]
+    assert syr2k_kernel.update_path(win, win) == want
+    if want == "wide":
+        other = torch.empty_strided((n - offset, n - offset), (ld + 1, 1),
+                                    dtype=dt)
+        assert syr2k_kernel.update_path(win, other) == "narrow"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("n,w", [(75, 8), (130, 16)])
+def test_tt1_working_copy_rows_are_16_byte_aligned_below_fp64(monkeypatch,
+                                                              dtype, n, w):
+    # every window the sweep hands to syr2k: below fp64 a view of a padded
+    # working copy (row stride a multiple of 16 bytes, each window on the
+    # wide path); fp64 keeps C's own layout; the band is the same as on an
+    # unpadded copy, bit for bit
+    from repro_torch.core import sbr
+    seen = []
+    real = sbr.syr2k
+
+    def spy(Mt, V, Z, **kw):
+        seen.append((Mt.stride(0), Mt.element_size(),
+                     syr2k_kernel.update_path(Mt, kw["out"])))
+        return real(Mt, V, Z, **kw)
+
+    C = _t(_sym(n, n)).to(dtype)
+    monkeypatch.setattr(sbr, "syr2k", spy)
+    band = sbr.reduce_to_band(C, w=w, n_chunks=3)     # windows at o > 0
+    assert len({ld for ld, _, _ in seen}) == 1 and len(seen) > 3
+    for ld, es, path in seen:
+        if dtype == torch.float64:
+            assert ld == n and path == "tiles"
+        else:
+            assert ld * es % 16 == 0 and ld - n < 16 // es and path == "wide"
+    monkeypatch.setattr(sbr, "padded_copy", lambda M, dt: M.clone())
+    assert torch.equal(sbr.reduce_to_band(C, w=w, n_chunks=3).Wb, band.Wb)
+
+
 # ------------------------------------------------------------ rot_apply --
 
 @pytest.mark.parametrize("G,L", [(1, 1), (7, 5), (64, 8), (209, 36)])
