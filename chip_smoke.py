@@ -108,7 +108,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    device time by kernel); ``solve(A, B, 100, variant="TT",
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
    ``chase_pass`` and ``replay_pass``, 6 of ``invit``; the plans the
-   ``replay_pass`` and ``house_panel`` launches took) and TT and TD on
+   ``chase_pass`` and ``replay_pass`` launches take at each level, and
+   those of ``house_panel``) and TT and TD on
    the DFT pencil at the paper's size (n=17243, s=448); each held to the
    Table-3 bars (1e-12) and to the
    generator's exact spectrum; the blocked stages (the paper's Table 4):
@@ -125,9 +126,14 @@ Phases, each printed as it runs; any failed check exits nonzero:
    plain versions on the card, at the MD shapes: ``house_panel`` on the
    first panel (the cooperative kernel's instances), ``syr2k`` on the
    first window (k=16, plain and symmetrized), ``chase_pass`` on the first
-   (b=16) and last (b=2) pass of the MD band (the cooperative chase's
-   instances), ``replay_pass`` of those two tables onto (n, 100) (the
-   sweep kernel's), ``rot_apply`` at G=1000, L=8, and ``symm_block`` at
+   (b=16) and last (b=2) pass of the MD band (the wrapper's cluster kernel
+   and the cooperative kernel forced, the older path, in turns, each
+   bitwise; the cluster at 16 and 8 CTAs in turns, each whole and with
+   its barriers alone, the chain floor), ``replay_pass`` of those two
+   tables onto (n, 100) (the wrapper's slab kernel and the sweep kernel
+   forced, in turns, each bitwise; no table and lane 0 alone, the chain
+   floor; then all 15 passes, slab against sweep, in turns), ``rot_apply``
+   at G=1000, L=8, and ``symm_block`` at
    p=1 and p=4 and ``symv`` on C (the plain chase on a host copy, the
    others on the card); bitwise where the plain version rounds
    at the kernel's points, else within the gamma bars stated in
@@ -145,8 +151,10 @@ Phases, each printed as it runs; any failed check exits nonzero:
    the exact spectrum, with its refinement (steps, shifts, residual
    trajectory), recovery rungs and per-instance launch counts (624
    ``house_panel``/``syr2k`` and 15 ``chase_pass``/``replay_pass`` launches
-   of the level's instances in TT; the reduced product's and ``syr2k``'s
-   launches by load path, the TT ``syr2k`` and the Krylov products all on the wide path);
+   of the level's instances in TT, every chase pass on the cluster kernel
+   and every replay pass on the slab kernel; the reduced product's and
+   ``syr2k``'s launches by load path, the TT ``syr2k`` and the Krylov
+   products all on the wide path);
    then a fault drill: a transient NaN in
    GS2's input through TD (n=1000) recovered by ``transient_retry``, with
    ``info`` JSON-clean;
@@ -1751,6 +1759,193 @@ def _turns(times: dict) -> str:
                      for name, ts in times.items())
 
 
+def reduced_chase(label: str, sfx: str, Wb, w: int, tables: dict,
+                  checks: Checks) -> dict:
+    """The ``sfx`` chase of the MD band Wb pass by pass through the wrapper
+    (its plan's path: the cluster kernel), each pass's table put in
+    ``tables`` (b -> table). Its first and last pass also run through the
+    cooperative kernel forced (the older path) and the plain chase on a host
+    copy, in turns (wrapper, plain, cooperative, wrapper, cooperative), each
+    bitwise against the plain version (band and table); then, on those two
+    passes, the cluster at 16 and at 8 CTAs, each whole and with its
+    barriers alone (``BARRIER_ONLY``: the chain floor of the pass), in
+    turns. Returns the row: the wrapper per launch over the two passes,
+    with the cooperative kernel's time and the plan's chain floor."""
+    import torch
+    from repro_torch.core.band_storage import clean_band
+    from repro_torch.core.sbr import _executed_passes
+    from repro_torch.kernels.rot_apply import kernel as rk
+    from repro_torch.kernels.rot_apply import ref as rr
+    from repro_torch.kernels.rot_apply.schedule import (chase_stagger,
+                                                        padded_band,
+                                                        pass_schedule)
+
+    dt = _reduced_dtype(sfx)
+    n = Wb.shape[1]
+    passes = _executed_passes(n, w)
+    compared = (passes[0], passes[-1])
+    Wp = padded_band(clean_band(Wb).to(dt), w)
+    npad = Wp.shape[1]
+    errs, k_ms, c_ms, p_ms, floors = [], [], [], [], []
+    for b in passes:
+        if b not in compared:
+            tables[b] = rk.chase_pass(Wp, b, w, n)
+            continue
+        plan = rk.chase_plan(
+            npad, w, b, lambda c, m: rk.cluster_capacity(c, m, dt), dt)
+        checks.check(f"{label} chase_pass_{sfx} b={b} plan is the cluster "
+                     f"kernel", plan.path == "cluster", str(plan))
+        Wk, Wk2, Wc, Wc2 = (Wp.clone() for _ in range(4))
+        Wq = Wp.cpu()
+
+        def coop(W, b=b):
+            return rk.chase_launch(W, b, w, n, rk.COOPERATIVE, rk.FULL)
+
+        # the plain chase on a host copy: a host loop of small ops a step,
+        # which the host runs faster than the card's launches
+        CS, k1 = _time_cuda(lambda: rk.chase_pass(Wk, b, w, n))
+        CSq, p1 = _time_host(lambda: rr.chase_pass_lanes_ref(Wq, b, w, n))
+        CSc, c1 = _time_cuda(lambda: coop(Wc))
+        _, k2 = _time_cuda(lambda: rk.chase_pass(Wk2, b, w, n))
+        _, c2 = _time_cuda(lambda: coop(Wc2))
+        for path, W, T in (("wrapper (cluster)", Wk, CS),
+                           ("cooperative", Wc, CSc)):
+            same = torch.equal(W.cpu(), Wq) and torch.equal(T.cpu(), CSq)
+            gap = float((W.cpu().float() - Wq.float()).abs().max())
+            checks.check(f"{label} chase_pass_{sfx} b={b} {path} band and "
+                         f"(c, s) table bitwise vs plain", same,
+                         f"max |kernel - plain| = {gap!r}")
+            errs.append(gap)
+        checks.check(f"{label} chase_pass_{sfx} b={b} repeats bitwise",
+                     bool(torch.equal(Wk, Wk2)), "two calls")
+        sizes = {}
+        for cs in (16, 8):
+            cpc, smem = rk.cluster_share(npad, w, b, cs, rk.CHASE_ENTRY[dt])
+            if smem <= rk.SMEM_MAX and cpc >= w + 3 and \
+                    rk.cluster_capacity(cs, smem, dt) > 0:
+                sizes[cs] = rk.ChasePlan("cluster", cs, cpc, smem)
+        times = {}
+        for _ in range(2):
+            for cs, pl in sizes.items():
+                for mname, mode in (("whole", rk.FULL),
+                                    ("barriers only", rk.BARRIER_ONLY)):
+                    W = Wp.clone()
+                    _, ms = _time_cuda(lambda: rk.chase_launch(
+                        W, b, w, n, pl, mode))
+                    times.setdefault(f"{cs} CTAs {mname}", []).append(ms)
+        steps = pass_schedule(n, b, chase_stagger(b))[1]
+        floor = min(times.get(f"{plan.csize} CTAs barriers only", [0.0]))
+        print(f"{label} chase_pass_{sfx} b={b}: wrapper ({plan.path}, "
+              f"{plan.csize} CTAs of {plan.smem} bytes) {k1:.3f} / "
+              f"{k2:.3f} ms, cooperative kernel (older path) {c1:.3f} / "
+              f"{c2:.3f} ms, plain {p1:.0f} ms (on the host CPU); by "
+              f"cluster size ({steps} steps; ms, in turns; us a step): "
+              + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} "
+                          f"({1e3 * min(v) / steps:.3f})"
+                          for k, v in times.items()), flush=True)
+        k_ms.append((k1 + k2) / 2)
+        c_ms.append((c1 + c2) / 2)
+        p_ms.append(p1)
+        floors.append(floor)
+        tables[b] = CS
+        Wp = Wk
+        del Wk2, Wc, Wc2, Wq, CSq, CSc
+    return dict(max_abs_err=max(errs), ms=sum(k_ms) / 2,
+                plain_ms=sum(p_ms) / 2, library_ms=None,
+                older_path_ms=sum(c_ms) / 2, chain_floor_ms=sum(floors) / 2,
+                **_per_launch(_chase_bound(n, w, compared, ESIZE[sfx],
+                                           FP32_VECTOR_FLOPS), 2))
+
+
+def reduced_replay(label: str, sfx: str, n: int, tables: dict, gen, dev,
+                   checks: Checks) -> dict:
+    """TT4's ``sfx`` replay onto an (n, 100) slab in reverse: the first and
+    last pass's tables through the wrapper (its plan's path: the slab
+    kernel), the plain version on the card and the sweep kernel forced
+    (the older path), in turns (wrapper, plain, sweep, wrapper, sweep), each
+    bitwise against the plain version; the slab kernel's timing variants
+    on those two passes in turns (no table, lane 0 alone: the chain floor);
+    then all the passes (TT4's launches), wrapper against sweep kernel in
+    turns, bitwise. Returns the row: the wrapper per launch over the two
+    passes, with the sweep kernel's time and the chain floor."""
+    import torch
+    from repro_torch.kernels.rot_apply import kernel as rk
+    from repro_torch.kernels.rot_apply import ref as rr
+
+    dt = _reduced_dtype(sfx)
+    bs = sorted(tables)
+    compared = (bs[0], bs[-1])
+    Zs = torch.randn((n, 100), generator=gen, dtype=torch.float32,
+                     device=dev).to(dt)
+
+    def replay(fn, passes=compared):
+        # apply_q2's order: passes b = 2..w, each in reverse
+        def go():
+            Y = Zs.clone()
+            for b in passes:
+                fn(Y, tables[b], b, n, True)
+            return Y
+        return go
+
+    def forced(mode=None):
+        def fn(Y, CS, b, n_, rev):
+            plan = (rk.SWEEP if mode is None
+                    else rk.replay_plan(n_, Y.shape[1], True, dt, b))
+            rk.replay_launch(Y, CS, b, n_, rev, plan,
+                             rk.REPLAY_FULL if mode is None else mode)
+        return fn
+
+    wrapper, sweep = replay(rk.replay_pass), replay(forced())
+    wrapper()                                         # warm-up
+    Y, k1 = _time_cuda(wrapper)
+    Yp, p1 = _time_cuda(replay(rr.replay_pass_ref))
+    Ys, s1 = _time_cuda(sweep)
+    _, k2 = _time_cuda(wrapper)
+    _, s2 = _time_cuda(sweep)
+    for path, got in (("wrapper (slab)", Y), ("sweep kernel", Ys)):
+        checks.check(f"{label} replay_pass_{sfx} {path} bitwise vs plain",
+                     bool(torch.equal(got, Yp)),
+                     f"max |kernel - plain| = "
+                     f"{float((got.float() - Yp.float()).abs().max())!r}")
+    err = float((Y.float() - Yp.float()).abs().max())
+    plans = {b: rk.replay_plan(n, 100, True, dt, b) for b in compared}
+    for b, plan in plans.items():
+        checks.check(f"{label} replay_pass_{sfx} b={b} plan is the slab "
+                     f"kernel", plan.path == "slab", str(plan))
+    times = {}
+    for _ in range(2):
+        for name, fn in (("whole", wrapper),
+                         ("no table (a fixed rotation)",
+                          replay(forced(rk.NO_TABLE))),
+                         ("lane 0 alone", replay(forced(rk.ONE_LANE)))):
+            times.setdefault(name, []).append(_time_cuda(fn)[1])
+    every = {}
+    for _ in range(2):
+        for name, fn in (("wrapper", replay(rk.replay_pass, bs)),
+                         ("sweep kernel", replay(forced(), bs))):
+            out, ms = _time_cuda(fn)
+            every.setdefault(name, []).append(ms)
+            every.setdefault(f"{name} out", out)
+    checks.check(f"{label} replay_pass_{sfx} all {len(bs)} passes, wrapper "
+                 f"bitwise vs sweep kernel",
+                 bool(torch.equal(every.pop("wrapper out"),
+                                  every.pop("sweep kernel out"))),
+                 "the same plain order")
+    print(f"{label} replay_pass_{sfx} (passes b={compared[0]} and "
+          f"b={compared[1]} onto ({n}, 100)): wrapper ("
+          + ", ".join(f"b={b} {p.path}, 2 table slices of {p.stage} bytes, "
+                      f"{p.smem} bytes" for b, p in plans.items())
+          + f") {k1:.3f} / {k2:.3f} ms, sweep kernel (older path) "
+          f"{s1:.3f} / {s2:.3f} ms, plain {p1:.0f} ms (on the card); by "
+          f"part (ms, in turns): {_turns(times)}; all {len(bs)} passes "
+          f"(ms, in turns): {_turns(every)}", flush=True)
+    return dict(max_abs_err=err, ms=(k1 + k2) / 4, plain_ms=p1 / 2,
+                library_ms=None, older_path_ms=(s1 + s2) / 4,
+                chain_floor_ms=min(times["lane 0 alone"]) / 2,
+                **_per_launch(_replay_bound(n, 100, compared, ESIZE[sfx],
+                                            FP32_VECTOR_FLOPS), 2))
+
+
 def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     """Each fp32 and bf16 instance against its plain version on the card, at
     the MD main path's shapes; returns a row per instance
@@ -1769,16 +1964,13 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     ``torch.geqrf`` of the active rows for the fp32 panel (no bf16
     geqrf)."""
     import torch
-    from repro_torch.core.band_storage import clean_band
     from repro_torch.core.linalg_utils import wy_syr2k_panel
     from repro_torch.core.precision import padded_copy
-    from repro_torch.core.sbr import _executed_passes
     from repro_torch.kernels.house_panel import kernel as hk
     from repro_torch.kernels.house_panel import ops as ho
     from repro_torch.kernels.house_panel import ref as hr
     from repro_torch.kernels.rot_apply import kernel as rk
     from repro_torch.kernels.rot_apply import ref as rr
-    from repro_torch.kernels.rot_apply.schedule import padded_band
     from repro_torch.kernels.symv import kernel as yk
     from repro_torch.kernels.symv import ref as yr
     from repro_torch.kernels.syr2k import kernel as sk
@@ -1788,7 +1980,6 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     n = C.shape[0]
     rows = {}
     gen = torch.Generator(device=dev).manual_seed(21)
-    passes = _executed_passes(n, w)
     for sfx in ("fp32", "bf16"):
         dt = _reduced_dtype(sfx)
         es, us = ESIZE[sfx], U_STORE[sfx]
@@ -1903,64 +2094,13 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
             max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib, **bound)
         del R, Rp, S, Sp, out, outn, out0, VW, WV, Z
         torch.cuda.empty_cache()
-        # ---- chase_pass: the first and last pass of the MD band ---------
-        Wp = padded_band(clean_band(Wb).to(dt), w)
-        tables, errs, k_ms, p_ms = {}, [], [], []
-        for b in passes:
-            if b not in (passes[0], passes[-1]):
-                rk.chase_pass(Wp, b, w, n)
-                continue
-            # the plain chase on a host copy: a host loop of small ops a
-            # step, which the host runs faster than the card's launches
-            Wk, Wk2, Wq = Wp.clone(), Wp.clone(), Wp.cpu()
-            CS, k1 = _time_cuda(lambda: rk.chase_pass(Wk, b, w, n))
-            CSq, p1 = _time_host(lambda: rr.chase_pass_lanes_ref(Wq, b, w,
-                                                                 n))
-            _, k2 = _time_cuda(lambda: rk.chase_pass(Wk2, b, w, n))
-            same = (torch.equal(Wk.cpu(), Wq) and torch.equal(CS.cpu(), CSq)
-                    and torch.equal(Wk, Wk2))
-            gap = float((Wk.cpu().float() - Wq.float()).abs().max())
-            print(f"{label} chase_pass_{sfx} b={b} (cooperative instance): "
-                  f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.0f} ms (on "
-                  f"the host CPU)", flush=True)
-            checks.check(f"{label} chase_pass_{sfx} b={b} band and (c, s) "
-                         f"table bitwise vs plain", same,
-                         f"max |kernel - plain| = {gap!r}")
-            errs.append(gap)
-            k_ms.append((k1 + k2) / 2)
-            p_ms.append(p1)
-            tables[b] = CS
-            Wp = Wk
-            del Wq, Wk2, CSq
-        rows[f"chase_pass_{sfx}"] = dict(
-            max_abs_err=max(errs), ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
-            library_ms=None, **_per_launch(_chase_bound(
-                n, w, tables, es, FP32_VECTOR_FLOPS), 2))
-        # ---- replay_pass: those two tables onto (n, 100) ----------------
-        Zs = torch.randn((n, 100), generator=gen, dtype=torch.float32,
-                         device=dev).to(dt)
-
-        def replay(fn, Zs=Zs, tables=tables):
-            Y = Zs.clone()
-            for b in sorted(tables):
-                fn(Y, tables[b], b, n, True)
-            return Y
-
-        Y, Yp, ms, pms = _in_turns(lambda: replay(rk.replay_pass),
-                                   lambda: replay(rr.replay_pass_ref))
-        print(f"{label} replay_pass_{sfx} (passes b={passes[-1]} and "
-              f"b={passes[0]} onto ({n}, 100); sweep instance): kernel "
-              f"{ms:.3f} ms, plain {pms:.0f} ms (on the card)", flush=True)
-        checks.check(f"{label} replay_pass_{sfx} bitwise vs plain",
-                     bool(torch.equal(Y, Yp)),
-                     f"max |kernel - plain| = "
-                     f"{float((Y.float() - Yp.float()).abs().max())!r}")
-        rows[f"replay_pass_{sfx}"] = dict(
-            max_abs_err=float((Y.float() - Yp.float()).abs().max()),
-            ms=ms / 2, plain_ms=pms / 2, library_ms=None,
-            **_per_launch(_replay_bound(n, 100, tables, es,
-                                        FP32_VECTOR_FLOPS), 2))
-        del Wp, tables, Y, Yp, Zs
+        # ---- chase_pass on the MD band, replay_pass of its tables -------
+        tables = {}
+        rows[f"chase_pass_{sfx}"] = reduced_chase(label, sfx, Wb, w, tables,
+                                                  checks)
+        rows[f"replay_pass_{sfx}"] = reduced_replay(label, sfx, n, tables,
+                                                    gen, dev, checks)
+        del tables
         # ---- rot_apply at the chase's widest wavefront ------------------
         pairs = torch.randn((1000, 2, 8), generator=gen, dtype=torch.float32,
                             device=dev).to(dt)
@@ -2105,6 +2245,17 @@ def run_precision(md, s: int, checks: Checks) -> dict:
             checks.check(f"{label} syr2k_{sfx} on the wide path",
                          wide == {"wide": _n_panels(n, TT_W), "narrow": 0},
                          json.dumps(wide))
+            # every pass on the band-on-chip kernels
+            on_chip = {f"{k} {p}": paths[f"{k}_{sfx}_{p}"] for k, p in (
+                ("chase_pass", "cluster"), ("chase_pass", "cooperative"),
+                ("replay_pass", "slab"), ("replay_pass", "sweep"))}
+            checks.check(f"{label} chase_pass_{sfx} on the cluster kernel and "
+                         f"replay_pass_{sfx} on the slab kernel, every pass",
+                         on_chip == {"chase_pass cluster": n_pass,
+                                     "chase_pass cooperative": 0,
+                                     "replay_pass slab": n_pass,
+                                     "replay_pass sweep": 0},
+                         json.dumps(on_chip))
         elif variant in ("KE", "KI"):
             checks.check(f"{label} launched symm_block_{sfx}",
                          counts[f"symm_block_{sfx}"] > 0,
@@ -2191,24 +2342,45 @@ def profile_stage(label: str, fn) -> None:
 
 
 def print_plans(label: str, n: int, s: int, w: int) -> None:
-    """The paths a TT solve at (n, s, w) takes: ``replay_plan`` of TT4's
-    (n, s) slab, and ``house_plan`` of each TT1 panel (panel p has n -
-    (p+1) w active rows), counted by path and cluster size."""
+    """The paths a TT solve at (n, s, w) takes: at each level (fp64,
+    ``mixed``'s fp32, ``fast``'s bf16), ``chase_plan`` of each TT2 pass and
+    ``replay_plan`` of TT4's (n, s) slab at each pass, counted by path and
+    cluster size (with the shared memory a CTA takes); and ``house_plan``
+    of each TT1 panel (panel p has n - (p+1) w active rows), counted by
+    path and cluster size."""
     from collections import Counter
 
-    from repro_torch.core.sbr import _n_panels
+    import torch
+    from repro_torch.core.sbr import _executed_passes, _n_panels
     from repro_torch.kernels.house_panel import kernel as hp
     from repro_torch.kernels.rot_apply import kernel as rk
+    from repro_torch.kernels.rot_apply.schedule import P_LEFT
 
-    rp = rk.replay_plan(n, s)
+    npad = P_LEFT + n + 3 * w + 8
+    for level, dt in (("fp64", torch.float64), ("mixed", torch.float32),
+                      ("fast", torch.bfloat16)):
+        chase, replay, smem = Counter(), Counter(), []
+        for b in _executed_passes(n, w):
+            cp = rk.chase_plan(
+                npad, w, b,
+                lambda c, m, dt=dt: rk.cluster_capacity(c, m, dt), dt)
+            chase[f"{cp.path} of {cp.csize}" if cp.csize else cp.path] += 1
+            smem.append(cp.smem)
+            rp = rk.replay_plan(n, s, True, dt, b)
+            replay[f"{rp.path} ({rp.ctas} CTAs, 2 table slices of "
+                   f"{rp.stage} bytes, {rp.smem} bytes)"] += 1
+        print(f"main path {label} plans at {level}: chase_pass "
+              + ", ".join(f"{k} x{v}" for k, v in sorted(chase.items()))
+              + f" ({min(smem)}-{max(smem)} bytes a CTA); replay_pass "
+              + ", ".join(
+                  f"{k} x{v}" for k, v in sorted(replay.items())),
+              flush=True)
     panels = Counter()
     for p in range(_n_panels(n, w)):
         plan = hp.house_plan(max(n - (p + 1) * w, 0), w, hp.cluster_capacity)
         panels[f"{plan.path} of {plan.csize}" if plan.csize else plan.path] \
             += 1
-    print(f"main path {label} plans: replay_pass {rp.path} ({rp.ctas} CTAs, "
-          f"2 table slices of {rp.stage} bytes, {rp.smem} bytes); "
-          f"house_panel over "
+    print(f"main path {label} plans: house_panel over "
           f"{sum(panels.values())} panels: " + ", ".join(
               f"{k} x{v}" for k, v in sorted(panels.items())), flush=True)
 
@@ -2698,7 +2870,11 @@ def main() -> int:
             "replaces": REPLACES[family], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the reduced chase and replay: the older kernel on the same
+            # passes, and the pass's chain floor
+            **{k: r[k] for k in ("older_path_ms", "chain_floor_ms")
+               if k in r}})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     if checks.failed:
         print("FAILED: " + ", ".join(checks.failed), flush=True)

@@ -66,11 +66,12 @@
 //   chase_cluster_kernel — the band on chip: one thread-block cluster of
 //     up to 16 CTAs (non-portable size) holds the whole padded band in its
 //     distributed shared memory, each CTA a contiguous range of columns
-//     (1.45 MB at MD: 16 x 91 KB; 2.5 MB at n = 17243, w = 16). A CTA
-//     takes the lanes whose plane column it holds, so a footprint is local
-//     but where it straddles two CTAs, and reaches a neighbour's columns
-//     through cluster.map_shared_rank (ld/st.shared::cluster). The barrier
-//     is barrier.cluster.arrive/wait (cluster.sync()), not a global atomic;
+//     (1.45 MB at MD in fp64: 16 x 91 KB; 2.5 MB at n = 17243, w = 16;
+//     0.72 MB at 4 bytes an entry in fp32 and bf16). A CTA takes the lanes
+//     whose plane column it holds, so a footprint is local but where it
+//     straddles two CTAs, and reaches a neighbour's columns through
+//     cluster.map_shared_rank (ld/st.shared::cluster). The barrier is
+//     barrier.cluster.arrive/wait (cluster.sync()), not a global atomic;
 //     the band is read from global memory once at the start and written
 //     back once at the end. The (c, s) table goes to global memory as
 //     before: no lane reads it back within the pass.
@@ -83,7 +84,8 @@
 // with r = j + (k+1) b, and rows never mix columns. Two kernels:
 //   replay_slab_kernel — the slab's columns on chip. A CTA holds one
 //     column, all n rows, in shared memory for the whole pass (78 KB at
-//     n = 9997, 135 KB at n = 17243), read and written back once; a slab
+//     n = 9997 in fp64, 39 KB in fp32, 20 KB in bf16; 135 KB at
+//     n = 17243 in fp64), read and written back once; a slab
 //     wider than the card runs in waves. The pass runs in chunks of
 //     m = b-1 sweeps: within a chunk the rotations of lane k touch only
 //     the b rows [j0 + (k+1) b - 1, j0 + (k+2) b - 1), disjoint across
@@ -98,9 +100,14 @@
 //     cp.async.bulk, behind mbarriers, running ahead of the consumers.
 //     (Sharing each slice across a cluster by .multicast::cluster, so L2
 //     serves it once a cluster, measured slower at the MD and DFT shapes;
-//     PERF.md keeps the numbers.) Rows are kept in shared memory with an
-//     XOR swizzle for even b, so that the lanes of a warp (b rows apart)
-//     fall on distinct banks.
+//     PERF.md keeps the numbers.) The column is laid out so that the
+//     lanes of a warp (b rows apart) fall on distinct banks: an XOR
+//     swizzle for even b at fp64, b rows to a stride at 4 and 2 bytes
+//     (slab_rows). Below fp64 a (c, s) pair is 8 or 4 bytes and a table
+//     row starts j (K0+1) pairs in, mostly off a 16-byte boundary, where
+//     cp.async.bulk needs one: each row's copy starts at the boundary at
+//     or below it, ends at the one at or above, and the consumers read
+//     its pairs past that offset (slab_geom).
 //   replay_pass_kernel — the slab in global memory, for what the slab
 //     kernel cannot take (kernels/rot_apply/kernel.py replay_plan):
 //     blocks of 1024 threads take 4-column chunks and loop over the J
@@ -109,18 +116,23 @@
 //     once.
 // Slots past a sweep's end hold the identity and are skipped.
 //
-// Instances (reduced.cuh). Every kernel has its fp64 instance. The cluster
-// chase and the slab replay size their shared memory for fp64 and stay
-// fp64 only; rot_apply, the cooperative chase and the sweep replay also
-// have fp32 and bf16 instances: stored in fp32 or bf16, computed in fp32
-// (the TPU kernel rotates bf16 tiles in fp32 and rounds at the store).
-// The reduced chase computes each Givens rotation in fp32 from the stored
-// entries and rounds (c, s) to the storage type (its table's type, and
-// the values it rotates with); every rotated entry rounds at its store,
-// and the 2 x 2 block also between its row and its column rotation, as
-// the reference's wavefront stores the rotated rows before it rotates the
-// columns. The plain versions (kernels/rot_apply/ref.py) round at the
-// same points, so every instance is bitwise equal to its plain version.
+// Instances (reduced.cuh). Every kernel has fp64, fp32 and bf16 instances:
+// stored in fp32 or bf16, computed in fp32 (the TPU kernel rotates bf16
+// tiles in fp32 and rounds at the store). Both chase kernels and both
+// replay kernels take every dtype, and the wrapper picks between the two
+// of each by size alone (kernels/rot_apply/kernel.py chase_plan,
+// replay_plan), at every dtype. The reduced chase computes each Givens
+// rotation in fp32 from the stored entries and rounds (c, s) to the
+// storage type (its table's type, and the values it rotates with); every
+// rotated entry rounds at its store, and the 2 x 2 block also between its
+// row and its column rotation, as the reference's wavefront stores the
+// rotated rows before it rotates the columns. The cluster kernel keeps the
+// band on chip as fp32 values rounded at those points. The reduced replay
+// rounds both rows of each rotation, the slab kernel's carried row too.
+// The plain versions (kernels/rot_apply/ref.py, and schedule.py
+// replay_chunked for the slab's order) round at the same points, so every
+// instance is bitwise equal to its plain version; at fp64 every rounding
+// is the identity.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -390,41 +402,54 @@ __device__ __forceinline__ void cluster_wait() {
 
 // The band in the distributed shared memory of one thread-block cluster:
 // CTA ``rank`` holds packed columns [C0, C0 + cpc), column-major with w+2
-// diagonals a column. A lane's footprint reaches at most b+2 columns left
-// of its plane column, and cpc >= w+3 (the wrapper's plan), so an entry
-// lies in this CTA's columns or in the previous CTA's, which it reaches
-// over the SM-to-SM network through cluster.map_shared_rank.
+// diagonals a column, as values of the compute type A. A lane's footprint
+// reaches at most b+2 columns left of its plane column, and cpc >= w+3
+// (the wrapper's plan), so an entry lies in this CTA's columns or in the
+// previous CTA's, which it reaches over the SM-to-SM network through
+// cluster.map_shared_rank.
+template <typename A>
 struct ClusterBand {
-  double* own;    // this CTA's columns
-  double* prev;   // the previous CTA's (rank - 1)
+  A* own;    // this CTA's columns
+  A* prev;   // the previous CTA's (rank - 1)
   int C0, cpc, ldb;
-  __device__ __forceinline__ double* at(int d, int col) const {
+  __device__ __forceinline__ A* at(int d, int col) const {
     return col >= C0 ? own + (col - C0) * ldb + d
                      : prev + (col - C0 + cpc) * ldb + d;
   }
 };
 
-template <int kMode>
+// The band on chip holds compute-type values (A = Acc<S>), each rounded to
+// S wherever the cooperative instance stores to S: the same values the
+// global band would hold, so the same bits. bf16 thus shares fp32's
+// 4-byte layout: a 2-byte one would halve shared memory that no plan is
+// short of (the MD band is 0.72 MB at 4 bytes; 8 CTAs hold it in 90 KB
+// each, and the lanes' slots, not the bytes, keep 4 CTAs from taking it:
+// kernels/rot_apply/kernel.py chase_plan), and would put a conversion on
+// every load of the step's chain instead of one at each store.
+template <typename S, int kMode>
 __global__ void __launch_bounds__(kChaseThreads)
-chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
-                     int64_t npad, double* __restrict__ CS, int n, int b,
-                     int w, int g, int T_pass, int J, int K0, int cpc) {
-  extern __shared__ double band[];  // cpc x (w+2), then the lanes' (c, s)
+chase_cluster_kernel(S* __restrict__ Wp, int64_t sd, int64_t sc,
+                     int64_t npad, S* __restrict__ CS, int n, int b, int w,
+                     int g, int T_pass, int J, int K0, int cpc) {
+  using A = typename Acc<S>::type;
+  // cpc x (w+2) entries, then the lanes' (c, s)
+  extern __shared__ __align__(16) unsigned char chase_smem[];
+  A* band = reinterpret_cast<A*>(chase_smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int rank = (int)cluster.block_rank();
   const int ldb = w + 2;
   const int C0 = rank * cpc;
   const int C1 = C0 + cpc < npad ? C0 + cpc : (int)npad;
-  double* s_cs = band + cpc * ldb;
-  const ClusterBand B{band,
-                      rank > 0 && kMode != kLocalOnly
-                          ? cluster.map_shared_rank(band, rank - 1) : band,
-                      C0, cpc, ldb};
+  A* s_cs = band + cpc * ldb;
+  const ClusterBand<A> B{band,
+                         rank > 0 && kMode != kLocalOnly
+                             ? cluster.map_shared_rank(band, rank - 1) : band,
+                         C0, cpc, ldb};
   constexpr bool kBarrier = kMode != kNoBarrier;
   for (int idx = tid; idx < (C1 - C0) * ldb; idx += blockDim.x) {
     const int lc = idx / ldb, d = idx % ldb;
-    band[idx] = Wp[d * sd + (C0 + lc) * sc];
+    band[idx] = to_acc(Wp[d * sd + (C0 + lc) * sc]);
   }
   // every CTA's columns are in place before any lane reads a neighbour's
   cluster.sync();
@@ -446,13 +471,13 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
     // this CTA's lanes: those whose plane column r + kPLeft it holds, with
     // r = (t+1) b - j D for the lane on column j (core/sbr.py _chase_pass);
     // a lane is live while r <= n-1 (k < K_j)
-    const int A = (t + 1) * b + kPLeft;
-    const int jhi = min(floor_div(A - C0, D), min(t / g, J - 1));
-    const int jlo = max(floor_div(A - C1, D) + 1, 0);
+    const int Apl = (t + 1) * b + kPLeft;
+    const int jhi = min(floor_div(Apl - C0, D), min(t / g, J - 1));
+    const int jlo = max(floor_div(Apl - C1, D) + 1, 0);
     const int nl = max(0, jhi - jlo + 1);
     // ---- addresses of this thread's pairs (phase B), before the wait ----
-    double* q0[kBatch];
-    double* q1[kBatch];
+    A* q0[kBatch];
+    A* q1[kBatch];
     int lane_of[kBatch];
 #pragma unroll
     for (int m = 0; m < kBatch; ++m) {
@@ -475,11 +500,11 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
     }
     // the previous step's writes, in every CTA, are visible past here
     if (kBarrier && t > 0) cluster_wait();
-    double x0[kBatch], x1[kBatch];
+    A x0[kBatch], x1[kBatch];
 #pragma unroll
     for (int m = 0; m < kBatch; ++m) {
-      x0[m] = q0[m] ? *q0[m] : 0.0;
-      x1[m] = q1[m] ? *q1[m] : 0.0;
+      x0[m] = q0[m] ? *q0[m] : A(0);
+      x1[m] = q1[m] ? *q1[m] : A(0);
     }
     // ---- phase A: per lane, the Givens rotation and the 2 x 2 block ------
     for (int li = tid; li < nl; li += kChaseThreads) {
@@ -490,36 +515,43 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
       const int sk = k > 0 ? 1 : 0;
       const int col = r - b - sk + kPLeft;
       const int cb = r - 1 + kPLeft;
-      const double a = *B.at(b - 1 + sk, col);
-      const double bb = *B.at(b + sk, col);
-      double* p11 = B.at(0, cb);
-      double* p21 = B.at(1, cb);
-      double* p22 = B.at(0, cb + 1);
-      const double a11 = *p11, a21 = *p21, a22 = *p22;
-      double c, s;
+      const A a = *B.at(b - 1 + sk, col);
+      const A bb = *B.at(b + sk, col);
+      A* p11 = B.at(0, cb);
+      A* p21 = B.at(1, cb);
+      A* p22 = B.at(0, cb + 1);
+      const A a11 = *p11, a21 = *p21, a22 = *p22;
+      A c, s;
       if (kMode == kNoGivens) {
-        c = 0.6 + 0.0 * a;
-        s = 0.8 + 0.0 * bb;
+        c = A(0.6) + A(0) * a;
+        s = A(0.8) + A(0) * bb;
       } else {
-        const double rr = sqrt(a * a + bb * bb);
-        const bool safe = rr > 0.0;
-        const double den = safe ? rr : 1.0;
-        c = safe ? a / den : 1.0;
-        s = safe ? bb / den : 0.0;
+        const A rr = sqrt(a * a + bb * bb);
+        const bool safe = rr > A(0);
+        const A den = safe ? rr : A(1);
+        // (c, s) at the table's precision
+        c = rnd<S>(safe ? a / den : A(1));
+        s = rnd<S>(safe ? bb / den : A(0));
       }
-      double* slot = CS + ((int64_t)j * (K0 + 1) + k) * 2;
-      slot[0] = c;
-      slot[1] = s;
+      S* slot = CS + ((int64_t)j * (K0 + 1) + k) * 2;
+      slot[0] = from_acc<S>(c);
+      slot[1] = from_acc<S>(s);
       s_cs[2 * li] = c;
       s_cs[2 * li + 1] = s;
-      double r11, r21, r12, r22, n11, n12, n21, n22;
+      // rows, then columns, as the reference's two rot_apply calls, the
+      // rotated rows stored between them
+      A r11, r21, r12, r22, n11, n12, n21, n22;
       rotate(c, s, a11, a21, &r11, &r21);
       rotate(c, s, a21, a22, &r12, &r22);
+      r11 = rnd<S>(r11);
+      r21 = rnd<S>(r21);
+      r12 = rnd<S>(r12);
+      r22 = rnd<S>(r22);
       rotate(c, s, r11, r12, &n11, &n12);
       rotate(c, s, r21, r22, &n21, &n22);
-      *p11 = n11;
-      *p21 = n21;
-      *p22 = n22;
+      *p11 = rnd<S>(n11);
+      *p21 = rnd<S>(n21);
+      *p22 = rnd<S>(n22);
     }
     if (kMode != kNoBlockSync) __syncthreads();
     // ---- phase B: rotate and store the pairs loaded above, then any past
@@ -527,11 +559,11 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
 #pragma unroll
     for (int m = 0; m < kBatch; ++m) {
       if (lane_of[m] < 0) continue;
-      double y0, y1;
+      A y0, y1;
       rotate(s_cs[2 * lane_of[m]], s_cs[2 * lane_of[m] + 1], x0[m], x1[m],
              &y0, &y1);
-      if (q0[m]) *q0[m] = y0;
-      if (q1[m]) *q1[m] = y1;
+      if (q0[m]) *q0[m] = rnd<S>(y0);
+      if (q1[m]) *q1[m] = rnd<S>(y1);
     }
     for (int idx = tid + kBatch * kChaseThreads; idx < nl * pitems;
          idx += kChaseThreads) {
@@ -542,13 +574,13 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
       const bool row = it <= b;
       const int d0 = row ? b + 1 - it : it + 1 - b;
       const int d1 = row ? b + 2 - it : it - b;
-      double* p0 = d0 <= w + 1 ? B.at(d0, row ? c0 + it : c0 + b + 1) : nullptr;
-      double* p1 = d1 <= w + 1 ? B.at(d1, row ? c0 + it : c0 + b + 2) : nullptr;
-      double y0, y1;
-      rotate(s_cs[2 * li], s_cs[2 * li + 1], p0 ? *p0 : 0.0, p1 ? *p1 : 0.0,
-             &y0, &y1);
-      if (p0) *p0 = y0;
-      if (p1) *p1 = y1;
+      A* p0 = d0 <= w + 1 ? B.at(d0, row ? c0 + it : c0 + b + 1) : nullptr;
+      A* p1 = d1 <= w + 1 ? B.at(d1, row ? c0 + it : c0 + b + 2) : nullptr;
+      A y0, y1;
+      rotate(s_cs[2 * li], s_cs[2 * li + 1], p0 ? *p0 : A(0),
+             p1 ? *p1 : A(0), &y0, &y1);
+      if (p0) *p0 = rnd<S>(y0);
+      if (p1) *p1 = rnd<S>(y1);
     }
     // the next step's lanes read what lanes of other CTAs wrote in this
     // one: arrive now, wait once the next step's addresses are computed
@@ -558,11 +590,11 @@ chase_cluster_kernel(double* __restrict__ Wp, int64_t sd, int64_t sc,
   if (kBarrier && T_pass > 0) cluster_wait();
   // no CTA touches another's columns past this point
   cluster.sync();
-  // write the columns back; the annihilated diagonals carry O(eps)
-  // residue: zero them
+  // write the columns back (each value already S's); the annihilated
+  // diagonals carry O(eps) residue: zero them
   for (int idx = tid; idx < (C1 - C0) * ldb; idx += blockDim.x) {
     const int lc = idx / ldb, d = idx % ldb;
-    Wp[d * sd + (C0 + lc) * sc] = d < b ? band[idx] : 0.0;
+    Wp[d * sd + (C0 + lc) * sc] = from_acc<S>(d < b ? band[idx] : A(0));
   }
 }
 
@@ -678,27 +710,116 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" :: "n"(kSlabConsumers) : "memory");
 }
 
-// slot of row r of a slab column: for even b, lanes b rows apart would
-// share banks, so the row's low four bits are XORed with the next four
-__device__ __forceinline__ int slab_pos(int r, int swz) {
-  return r ^ ((r >> 4) & swz);
+// Where row r of a slab column lies in shared memory. fp64 (8-byte
+// entries): rows in order, and for even b the row's low four bits XORed
+// with the next four, so that the lanes of a half-warp (b rows apart) fall
+// on distinct bank pairs. 4- and 2-byte entries: a warp's 32 lanes go
+// through shared memory at once (b = 16 puts 16 lanes on each of two
+// banks unswizzled, and two bf16 rows share a word), and an XOR of the
+// row bits still leaves several lanes on one bank at some b. So the
+// column is stored b rows to a stride instead: row r at (r mod b) S +
+// r / b, S = ceil(n / b).
+// Lane k's row at any step is c + k b for the warp's common c, so the 32
+// lanes take 32 consecutive entries: no conflict at any b or entry size.
+// A lane walks its rows one by one, so the position steps by S and wraps
+// once a window (a cursor, no division in the loop).
+struct XorRows {
+  int swz;
+  struct Cur {
+    int r;
+  };
+  __device__ __forceinline__ Cur at(int r) const { return {r}; }
+  __device__ __forceinline__ int pos(Cur c) const {
+    return c.r ^ ((c.r >> 4) & swz);
+  }
+  __device__ __forceinline__ Cur next(Cur c) const { return {c.r + 1}; }
+  __device__ __forceinline__ Cur prev(Cur c) const { return {c.r - 1}; }
+};
+
+struct StridedRows {
+  int b, S;
+  struct Cur {
+    int q, m;   // r = q b + m
+  };
+  __device__ __forceinline__ Cur at(int r) const { return {r / b, r % b}; }
+  __device__ __forceinline__ int pos(Cur c) const { return c.m * S + c.q; }
+  __device__ __forceinline__ Cur next(Cur c) const {
+    return c.m + 1 == b ? Cur{c.q + 1, 0} : Cur{c.q, c.m + 1};
+  }
+  __device__ __forceinline__ Cur prev(Cur c) const {
+    return c.m == 0 ? Cur{c.q - 1, b - 1} : Cur{c.q, c.m - 1};
+  }
+};
+
+template <typename S>
+using SlabRows =
+    typename std::conditional<sizeof(S) == 8, XorRows, StridedRows>::type;
+
+template <typename S>
+__device__ __forceinline__ SlabRows<S> slab_rows(int n, int b) {
+  if constexpr (sizeof(S) == 8) {
+    return XorRows{(b & 1) ? 0 : 15};
+  } else {
+    return StridedRows{b, (n + b - 1) / b};
+  }
+}
+
+// Entries of a slab column in shared memory (a multiple of 16 bytes): n
+// rounded up to 16 at fp64; b S at 4 and 2 bytes. kernel.py replay_smem
+// keeps the same count.
+template <typename S>
+__host__ __device__ __forceinline__ int64_t slab_entries(int n, int b) {
+  if (sizeof(S) == 8) return (n + 15) & ~15;
+  const int64_t e = (int64_t)b * ((n + b - 1) / b);
+  const int64_t per = 16 / sizeof(S);
+  return (e + per - 1) / per * per;
+}
+
+// A (c, s) pair of the table in S, read from shared memory, in Acc<S>.
+template <typename S>
+struct Rot {
+  typename Acc<S>::type c, s;
+};
+
+template <typename S>
+__device__ __forceinline__ Rot<S> load_pair(const unsigned char* p) {
+  if constexpr (std::is_same_v<S, double>) {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    return {v.x, v.y};
+  } else if constexpr (std::is_same_v<S, float>) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    return {v.x, v.y};
+  } else {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    return {__low2float(v), __high2float(v)};
+  }
 }
 
 // The table staging of a pass, the same in the producer and the consumers:
 // chunks of m = b-1 sweeps; a chunk's slices are lane ranges of L lanes
-// (a multiple of the consumers, or all lanes) by sweep ranges of h sweeps
+// (a multiple of the consumers, or all lanes) by sweep ranges of h sweeps.
+// A slice row (one sweep's L pairs) takes P bytes of the slice: its pairs
+// at 16 bytes a pair (fp64), or, at 8- and 4-byte pairs, its pairs plus 16
+// bytes, for the copy starts at the 16-byte boundary at or below the row's
+// first pair (a table row j starts j (K0+1) pairs in, which is no multiple
+// of 16 bytes on most passes) and ends at the one at or above its last.
+// Its Python twin: kernels/rot_apply/kernel.py slab_geom, slab_slices.
 struct SlabGeom {
-  int m, L, h, nchunks;
+  int m, L, h, nchunks, P;
 };
 
+template <typename S>
 __device__ __forceinline__ SlabGeom slab_geom(int n, int b, int J,
                                               int stage_bytes) {
+  constexpr int pb = 2 * sizeof(S);             // bytes of a (c, s) pair
+  constexpr int pad = pb == 16 ? 0 : 16;
   SlabGeom g;
   g.m = b - 1;
   const int kmax = (n - 1) / b;               // lanes of the first chunk
-  const int L = stage_bytes / 16 / kSlabConsumers * kSlabConsumers;
+  const int L = (stage_bytes - pad) / pb / kSlabConsumers * kSlabConsumers;
   g.L = L < kmax ? L : kmax;
-  const int hmax = max(1, min(g.m, stage_bytes / (16 * g.L)));
+  g.P = ((g.L * pb + 15) & ~15) + pad;
+  const int hmax = max(1, min(g.m, stage_bytes / g.P));
   const int parts = (g.m + hmax - 1) / hmax;
   g.h = (g.m + parts - 1) / parts;
   g.nchunks = (J + g.m - 1) / g.m;
@@ -708,66 +829,79 @@ __device__ __forceinline__ SlabGeom slab_geom(int n, int b, int J,
 // The rotations of the sweeps [i0, i0 + cnt) (chunk-local) of one lane on
 // the slab column: rows base .. base + cnt (base counts from the lane's
 // window start plus i0), the rotation of sweep i0 + u at cs(u); forward in
-// sweep order, or backward with (c, -s), one carried row at a time. (Rows
-// held in a register array, 15 sweeps unrolled and predicated, spilled at
-// 96 registers a thread and ran 10x slower on the card.)
-template <typename CsOf>
-__device__ __forceinline__ void slab_lane(double* col, int base, int cnt,
-                                          int swz, bool reverse, CsOf cs) {
+// sweep order, or backward with (c, -s), one carried row at a time,
+// computed in Acc<S>. Both rows of a rotation round to S (rnd<S>), the one
+// stored and the one carried, as the sweep-by-sweep replay stores and
+// reloads both; at fp64 rnd is the identity. (Rows held in a register
+// array, 15 sweeps unrolled and predicated, spilled at 96 registers a
+// thread and ran 10x slower on the card.)
+template <typename S, typename Rows, typename CsOf>
+__device__ __forceinline__ void slab_lane(S* col, const Rows& rows,
+                                          int base, int cnt, bool reverse,
+                                          CsOf cs) {
+  using A = typename Acc<S>::type;
   // an explicit trip count, not unrolled: nvcc (CUDA 12.8, -O3) ran the
   // form `for (i = i0; i < ie; ++i)` of this loop past ie. (Loading the
   // next step's row and rotation a step ahead measured no faster.)
   if (!reverse) {
-    double carry = col[slab_pos(base, swz)];
+    auto cur = rows.at(base);
+    A carry = to_acc(col[rows.pos(cur)]);
 #pragma unroll 1
     for (int u = 0; u < cnt; ++u) {
-      const double2 r = cs(u);
-      const double x1 = col[slab_pos(base + u + 1, swz)];
-      double y0, y1;
-      rotate(r.x, r.y, carry, x1, &y0, &y1);
-      col[slab_pos(base + u, swz)] = y0;
-      carry = y1;
+      const auto nxt = rows.next(cur);
+      const Rot<S> r = cs(u);
+      const A x1 = to_acc(col[rows.pos(nxt)]);
+      A y0, y1;
+      rotate(r.c, r.s, carry, x1, &y0, &y1);
+      col[rows.pos(cur)] = from_acc<S>(y0);
+      carry = rnd<S>(y1);
+      cur = nxt;
     }
-    col[slab_pos(base + cnt, swz)] = carry;
+    col[rows.pos(cur)] = from_acc<S>(carry);
   } else {
-    double carry = col[slab_pos(base + cnt, swz)];
+    auto cur = rows.at(base + cnt);
+    A carry = to_acc(col[rows.pos(cur)]);
 #pragma unroll 1
     for (int t = 0; t < cnt; ++t) {
       const int u = cnt - 1 - t;
-      const double2 r = cs(u);
-      const double x0 = col[slab_pos(base + u, swz)];
-      double y0, y1;
-      rotate(r.x, r.y * -1.0, x0, carry, &y0, &y1);
-      col[slab_pos(base + u + 1, swz)] = y1;
-      carry = y0;
+      const auto prv = rows.prev(cur);
+      const Rot<S> r = cs(u);
+      const A x0 = to_acc(col[rows.pos(prv)]);
+      A y0, y1;
+      rotate(r.c, r.s * A(-1), x0, carry, &y0, &y1);
+      col[rows.pos(cur)] = from_acc<S>(y1);
+      carry = rnd<S>(y0);
+      cur = prv;
     }
-    col[slab_pos(base, swz)] = carry;
+    col[rows.pos(cur)] = from_acc<S>(carry);
   }
 }
 
 // One pass of CS (J+1, K0+1, 2) onto column blockIdx.x of X (n rows used,
 // row stride ldx). Dynamic shared memory: kSlabSlots table slices of
-// stage_bytes, the slab column (n rounded up to 16), the barriers.
-template <int kMode>
+// stage_bytes, the slab column (slab_entries), the barriers. CS must start
+// on a 16-byte boundary: every copy then starts at or after CS, and ends
+// at most 16 - 2 pb bytes past the end of sweep J-1's row, inside the
+// table's spare row J ((K0 + 1) pb >= 2 pb, K0 >= 1).
+template <typename S, int kMode>
 __global__ void __launch_bounds__(kSlabThreads, 1)
-replay_slab_kernel(double* __restrict__ X, int64_t ldx,
-                   const double* __restrict__ CS, int n, int b, int J, int K0,
-                   int reverse, int stage_bytes) {
+replay_slab_kernel(S* __restrict__ X, int64_t ldx, const S* __restrict__ CS,
+                   int n, int b, int J, int K0, int reverse,
+                   int stage_bytes) {
+  constexpr int pb = 2 * sizeof(S);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
-  const int lds = (n + 15) & ~15;
-  double2* stages = reinterpret_cast<double2*>(smem_raw);
-  const int stage_len = stage_bytes / 16;
-  double* slab = reinterpret_cast<double*>(smem_raw +
-                                           (size_t)kSlabSlots * stage_bytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(slab + lds);
+  unsigned char* stages = smem_raw;
+  S* slab = reinterpret_cast<S*>(smem_raw + (size_t)kSlabSlots * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(slab + slab_entries<S>(n, b));
   uint64_t* empty = full + kSlabSlots;   // the consumers are done
-  double* Xc = X + blockIdx.x;
-  const int swz = (b & 1) ? 0 : 15;
+  S* Xc = X + blockIdx.x;
+  const auto rows = slab_rows<S>(n, b);
   const bool rev = reverse != 0;
+  const unsigned char* table = reinterpret_cast<const unsigned char*>(CS);
 
   for (int r = tid; r < n; r += kSlabThreads)
-    slab[slab_pos(r, swz)] = Xc[(int64_t)r * ldx];
+    slab[rows.pos(rows.at(r))] = Xc[(int64_t)r * ldx];
   if (tid == 0) {
     for (int s = 0; s < kSlabSlots; ++s) {
       mbar_init(&full[s], 1);
@@ -778,7 +912,7 @@ replay_slab_kernel(double* __restrict__ X, int64_t ldx,
   }
   __syncthreads();
 
-  const SlabGeom g = slab_geom(n, b, J, stage_bytes);
+  const SlabGeom g = slab_geom<S>(n, b, J, stage_bytes);
   if (tid >= kSlabConsumers) {
     // ---- the producer: one thread stages the table, slice by slice ------
     if (kMode != kSlabNoTable && tid == kSlabConsumers) {
@@ -796,12 +930,23 @@ replay_slab_kernel(double* __restrict__ X, int64_t ldx,
             const int slot = s % kSlabSlots;
             const unsigned round = s / kSlabSlots;
             if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
-            mbar_expect_tx(&full[slot], (unsigned)(hh * Lc * 16));
-            double2* dst = stages + (size_t)slot * stage_len;
-            for (int i = 0; i < hh; ++i)
-              bulk_load(dst + (size_t)i * g.L,
-                        CS + ((int64_t)(j0 + i0 + i) * (K0 + 1) + k0) * 2,
-                        (unsigned)(Lc * 16), &full[slot]);
+            // row j's pairs k0 .. k0 + Lc - 1 start ``off`` bytes into the
+            // table; the copy runs from the boundary at or below
+            const int64_t off0 = ((int64_t)(j0 + i0) * (K0 + 1) + k0) * pb;
+            const int64_t step = (int64_t)(K0 + 1) * pb;
+            unsigned tx = 0;
+            for (int i = 0; i < hh; ++i) {
+              const int pre = (int)((off0 + i * step) & 15);
+              tx += (unsigned)((pre + Lc * pb + 15) & ~15);
+            }
+            mbar_expect_tx(&full[slot], tx);
+            unsigned char* dst = stages + (size_t)slot * stage_bytes;
+            for (int i = 0; i < hh; ++i) {
+              const int64_t off = off0 + i * step;
+              const int pre = (int)(off & 15);
+              bulk_load(dst + (size_t)i * g.P, table + (off - pre),
+                        (unsigned)((pre + Lc * pb + 15) & ~15), &full[slot]);
+            }
           }
         }
       }
@@ -825,7 +970,11 @@ replay_slab_kernel(double* __restrict__ X, int64_t ldx,
             mbar_wait(&full[slot], (s / kSlabSlots) & 1);
             __syncwarp();   // the threads left the wait's loop apart
           }
-          const double2* st = stages + (size_t)slot * stage_len;
+          const unsigned char* st = stages + (size_t)slot * stage_bytes;
+          // the slice's first row's offset in the table: each row's pairs
+          // sit (offset mod 16) bytes into its slice row (0 at fp64)
+          const int64_t off0 = ((int64_t)(j0 + i0) * (K0 + 1) + k0) * pb;
+          const int64_t step = (int64_t)(K0 + 1) * pb;
           for (int kk = tid; kk < Lc; kk += kSlabConsumers) {
             const int k = k0 + kk;
             if (kMode == kSlabOneLane && k != 0) break;
@@ -834,9 +983,13 @@ replay_slab_kernel(double* __restrict__ X, int64_t ldx,
             const int base = j0 + (k + 1) * b - 1;
             const int cnt = min(i0 + hh, min(mc, n - j0 - (k + 1) * b)) - i0;
             if (cnt <= 0) continue;
-            slab_lane(slab, base + i0, cnt, swz, rev, [&](int u) {
-              return kMode == kSlabNoTable ? make_double2(0.6, 0.8)
-                                           : st[u * g.L + kk];
+            slab_lane(slab, rows, base + i0, cnt, rev, [&](int u) {
+              if (kMode == kSlabNoTable) {
+                using A = typename Acc<S>::type;
+                return Rot<S>{A(0.6), A(0.8)};
+              }
+              const int pre = (int)((off0 + u * step) & 15);
+              return load_pair<S>(st + (size_t)u * g.P + pre + kk * pb);
             });
           }
           if (kMode != kSlabNoTable) {
@@ -853,19 +1006,19 @@ replay_slab_kernel(double* __restrict__ X, int64_t ldx,
     }
     consumers_sync();
     for (int r = tid; r < n; r += kSlabConsumers)
-      Xc[(int64_t)r * ldx] = slab[slab_pos(r, swz)];
+      Xc[(int64_t)r * ldx] = slab[rows.pos(rows.at(r))];
   }
 }
 
-template <int kMode>
+template <typename S, int kMode>
 cudaError_t cluster_config(int csize, int smem, cudaStream_t stream,
-                                  cudaLaunchConfig_t* cfg,
-                                  cudaLaunchAttribute* attr) {
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(
-      chase_cluster_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      chase_cluster_kernel<S, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(chase_cluster_kernel<kMode>,
+  err = cudaFuncSetAttribute(chase_cluster_kernel<S, kMode>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -882,32 +1035,101 @@ cudaError_t cluster_config(int csize, int smem, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <int kMode>
-int launch_slab(double* X, int64_t ldx, int ncols, const double* CS, int n,
-                int b, int J, int K0, int reverse, int stage_bytes, int smem,
+template <typename S, int kMode>
+int launch_slab(S* X, int64_t ldx, int ncols, const S* CS, int n, int b,
+                int J, int K0, int reverse, int stage_bytes, int smem,
                 cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      replay_slab_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      replay_slab_kernel<S, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  replay_slab_kernel<kMode><<<ncols, kSlabThreads, smem, stream>>>(
+  replay_slab_kernel<S, kMode><<<ncols, kSlabThreads, smem, stream>>>(
       X, ldx, CS, n, b, J, K0, reverse, stage_bytes);
   return (int)cudaGetLastError();
 }
 
-template <int kMode>
-int launch_cluster(double* Wp, int64_t sd, int64_t sc, int64_t npad,
-                          double* CS, int n, int b, int w, int g, int T_pass,
-                          int J, int K0, int cpc, int csize, int smem,
-                          cudaStream_t stream) {
+template <typename S, int kMode>
+int launch_cluster(S* Wp, int64_t sd, int64_t sc, int64_t npad, S* CS,
+                   int n, int b, int w, int g, int T_pass, int J, int K0,
+                   int cpc, int csize, int smem, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<kMode>(csize, smem, stream, &cfg, &attr);
+  cudaError_t err = cluster_config<S, kMode>(csize, smem, stream, &cfg,
+                                             &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, chase_cluster_kernel<kMode>, Wp, sd, sc,
+  err = cudaLaunchKernelEx(&cfg, chase_cluster_kernel<S, kMode>, Wp, sd, sc,
                            npad, CS, n, b, w, g, T_pass, J, K0, cpc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of csize CTAs of the S instance with smem bytes of
+// dynamic shared memory each the card can hold at once (0: none; < 0: a
+// CUDA error, negated).
+template <typename S>
+int cluster_capacity(int csize, int smem) {
+  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<S, kFull>(csize, smem, 0, &cfg, &attr);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, chase_cluster_kernel<S, kFull>,
+                                       &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return count;
+}
+
+template <typename S>
+int chase_cluster(S* Wp, int64_t sd, int64_t sc, int64_t npad, S* CS, int n,
+                  int b, int w, int g, int T_pass, int J, int K0, int csize,
+                  int cpc, int smem, int mode, cudaStream_t stream) {
+  if (csize < 1 || csize > kMaxCluster || (int64_t)csize * cpc < npad ||
+      cpc < w + 3)
+    return (int)cudaErrorInvalidValue;
+#define CHASE_CLUSTER(M)                                                   \
+  launch_cluster<S, M>(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J, K0,    \
+                       cpc, csize, smem, stream)
+  switch (mode) {
+    case kBarrierOnly: return CHASE_CLUSTER(kBarrierOnly);
+    case kNoBarrier: return CHASE_CLUSTER(kNoBarrier);
+    case kLocalOnly: return CHASE_CLUSTER(kLocalOnly);
+    case kNoGivens: return CHASE_CLUSTER(kNoGivens);
+    case kNoBlockSync: return CHASE_CLUSTER(kNoBlockSync);
+    default: return CHASE_CLUSTER(kFull);
+  }
+#undef CHASE_CLUSTER
+}
+
+// Bytes of dynamic shared memory of the slab replay of S: two table slices
+// of stage_bytes, a slab column (slab_entries), two mbarriers a slice.
+template <typename S>
+int64_t slab_smem(int n, int b, int stage_bytes) {
+  return (int64_t)kSlabSlots * stage_bytes +
+         (int64_t)sizeof(S) * slab_entries<S>(n, b) + 8 * 2 * kSlabSlots;
+}
+
+template <typename S>
+int replay_slab(S* X, int64_t ldx, int ncols, const S* CS, int n, int b,
+                int J, int K0, int reverse, int stage_bytes, int mode,
+                cudaStream_t stream) {
+  if (ncols <= 0 || J <= 0) return 0;
+  constexpr int pb = 2 * sizeof(S);
+  const int64_t smem = slab_smem<S>(n, b, stage_bytes);
+  if (stage_bytes % 16 != 0 ||
+      stage_bytes < pb * kSlabConsumers + (pb == 16 ? 0 : 16) ||
+      smem > 232448 || b < 2 || ((uintptr_t)CS & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+#define REPLAY_SLAB(M)                                                     \
+  launch_slab<S, M>(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,  \
+                    (int)smem, stream)
+  switch (mode) {
+    case kSlabNoTable: return REPLAY_SLAB(kSlabNoTable);
+    case kNoBarrier: return REPLAY_SLAB(kNoBarrier);
+    case kSlabOneLane: return REPLAY_SLAB(kSlabOneLane);
+    default: return REPLAY_SLAB(kFull);
+  }
+#undef REPLAY_SLAB
 }
 
 template <typename S>
@@ -1016,50 +1238,51 @@ int chase_pass_coop_bf16(__nv_bfloat16* Wp, int64_t sd, int64_t sc,
                     mode, stream);
 }
 
-// How many clusters of csize CTAs with smem bytes of dynamic shared memory
-// each the card can hold at once (0: none; < 0: a CUDA error, negated).
-int chase_cluster_capacity(int csize, int smem) {
-  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<kFull>(csize, smem, 0, &cfg, &attr);
-  if (err != cudaSuccess) return -(int)err;
-  int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, chase_cluster_kernel<kFull>,
-                                       &cfg);
-  if (err != cudaSuccess) return -(int)err;
-  return count;
+// How many clusters of csize CTAs of the fp64, fp32 or bf16 cluster chase
+// with smem bytes of dynamic shared memory each the card can hold at once
+// (0: none; < 0: a CUDA error, negated).
+int chase_cluster_capacity_fp64(int csize, int smem) {
+  return cluster_capacity<double>(csize, smem);
+}
+
+int chase_cluster_capacity_fp32(int csize, int smem) {
+  return cluster_capacity<float>(csize, smem);
+}
+
+int chase_cluster_capacity_bf16(int csize, int smem) {
+  return cluster_capacity<__nv_bfloat16>(csize, smem);
 }
 
 // The same pass with the whole band in the distributed shared memory of
 // one cluster of csize CTAs, each holding cpc columns (the wrapper's plan:
-// csize cpc >= npad) and smem bytes (cpc (w+2) doubles and the (c, s) of
-// its lanes). ``mode`` as above.
+// csize cpc >= npad) and smem bytes (cpc (w+2) entries of the compute type
+// and the (c, s) of its lanes). ``mode`` as above, or a timing variant of
+// the cluster kernel (kLocalOnly, kNoGivens, kNoBlockSync).
 int chase_pass_cluster_fp64(double* Wp, int64_t sd, int64_t sc, int64_t npad,
                             double* CS, int n, int b, int w, int g,
                             int T_pass, int J, int K0, int csize, int cpc,
                             int smem, int mode, cudaStream_t stream) {
-  if (csize < 1 || csize > kMaxCluster || (int64_t)csize * cpc < npad ||
-      cpc < w + 3)
-    return (int)cudaErrorInvalidValue;
-  if (mode == kBarrierOnly)
-    return launch_cluster<kBarrierOnly>(Wp, sd, sc, npad, CS, n, b, w, g,
-                                        T_pass, J, K0, cpc, csize, smem, stream);
-  if (mode == kNoBarrier)
-    return launch_cluster<kNoBarrier>(Wp, sd, sc, npad, CS, n, b, w, g,
-                                      T_pass, J, K0, cpc, csize, smem, stream);
-  if (mode == kLocalOnly)
-    return launch_cluster<kLocalOnly>(Wp, sd, sc, npad, CS, n, b, w, g,
-                                      T_pass, J, K0, cpc, csize, smem, stream);
-  if (mode == kNoGivens)
-    return launch_cluster<kNoGivens>(Wp, sd, sc, npad, CS, n, b, w, g,
-                                     T_pass, J, K0, cpc, csize, smem, stream);
-  if (mode == kNoBlockSync)
-    return launch_cluster<kNoBlockSync>(Wp, sd, sc, npad, CS, n, b, w, g,
-                                        T_pass, J, K0, cpc, csize, smem,
-                                        stream);
-  return launch_cluster<kFull>(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J,
-                               K0, cpc, csize, smem, stream);
+  return chase_cluster(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J, K0,
+                       csize, cpc, smem, mode, stream);
+}
+
+// The same on an fp32 band, and on a bf16 band (computed in fp32, its
+// entries held in fp32 on chip); CS in the band's type.
+int chase_pass_cluster_fp32(float* Wp, int64_t sd, int64_t sc, int64_t npad,
+                            float* CS, int n, int b, int w, int g, int T_pass,
+                            int J, int K0, int csize, int cpc, int smem,
+                            int mode, cudaStream_t stream) {
+  return chase_cluster(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J, K0,
+                       csize, cpc, smem, mode, stream);
+}
+
+int chase_pass_cluster_bf16(__nv_bfloat16* Wp, int64_t sd, int64_t sc,
+                            int64_t npad, __nv_bfloat16* CS, int n, int b,
+                            int w, int g, int T_pass, int J, int K0,
+                            int csize, int cpc, int smem, int mode,
+                            cudaStream_t stream) {
+  return chase_cluster(Wp, sd, sc, npad, CS, n, b, w, g, T_pass, J, K0,
+                       csize, cpc, smem, mode, stream);
 }
 
 // One pass of CS (J+1, K0+1, 2) applied in place to the rows of X
@@ -1085,36 +1308,47 @@ int replay_pass_bf16(__nv_bfloat16* X, int64_t ldx, int ncols,
   return replay_sweeps(X, ldx, ncols, CS, n, b, J, K0, reverse, stream);
 }
 
-// Bytes of dynamic shared memory of the slab replay: two table slices of
-// stage_bytes, a slab column of n rows (rounded up to 16), two mbarriers
-// a slice.
-int64_t replay_slab_smem(int n, int stage_bytes) {
-  return (int64_t)kSlabSlots * stage_bytes + 8 * (int64_t)((n + 15) & ~15) +
-         8 * 2 * kSlabSlots;
+// Bytes of dynamic shared memory of the slab replay with entries of
+// esize bytes (8, 4 or 2) at pass b: two table slices of stage_bytes, a
+// slab column, two mbarriers a slice (kernel.py replay_smem); -1 for
+// another esize.
+int64_t replay_slab_smem(int n, int b, int esize, int stage_bytes) {
+  switch (esize) {
+    case 8: return slab_smem<double>(n, b, stage_bytes);
+    case 4: return slab_smem<float>(n, b, stage_bytes);
+    case 2: return slab_smem<__nv_bfloat16>(n, b, stage_bytes);
+    default: return -1;
+  }
 }
 
 // The same pass with the slab's columns in shared memory: one CTA a
-// column, two table slices of stage_bytes (a multiple of 16, at least
-// 16 x 512) in flight; CS must be 16-byte aligned. ``mode`` is kFull or a
-// timing variant (kSlabNoTable, kNoBarrier, kSlabOneLane).
+// column, two table slices of stage_bytes (a multiple of 16, at least 512
+// pairs, plus 16 bytes below fp64) in flight; CS must be 16-byte aligned.
+// ``mode`` is kFull or a timing variant (kSlabNoTable, kNoBarrier,
+// kSlabOneLane).
 int replay_slab_fp64(double* X, int64_t ldx, int ncols, const double* CS,
                      int n, int b, int J, int K0, int reverse,
                      int stage_bytes, int mode, cudaStream_t stream) {
-  if (ncols <= 0 || J <= 0) return 0;
-  const int64_t smem = replay_slab_smem(n, stage_bytes);
-  if (stage_bytes % 16 != 0 || stage_bytes < 16 * kSlabConsumers ||
-      smem > 232448 || b < 2 || ((uintptr_t)CS & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-#define REPLAY_SLAB(M)                                                     \
-  launch_slab<M>(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,     \
-                 (int)smem, stream)
-  switch (mode) {
-    case kSlabNoTable: return REPLAY_SLAB(kSlabNoTable);
-    case kNoBarrier: return REPLAY_SLAB(kNoBarrier);
-    case kSlabOneLane: return REPLAY_SLAB(kSlabOneLane);
-    default: return REPLAY_SLAB(kFull);
-  }
-#undef REPLAY_SLAB
+  return replay_slab(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,
+                     mode, stream);
+}
+
+// The same on fp32 rows, and on bf16 rows (rotated in fp32); CS in the
+// rows' type, its rows at any offset (the copies start on the 16-byte
+// boundary at or below each).
+int replay_slab_fp32(float* X, int64_t ldx, int ncols, const float* CS,
+                     int n, int b, int J, int K0, int reverse,
+                     int stage_bytes, int mode, cudaStream_t stream) {
+  return replay_slab(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,
+                     mode, stream);
+}
+
+int replay_slab_bf16(__nv_bfloat16* X, int64_t ldx, int ncols,
+                     const __nv_bfloat16* CS, int n, int b, int J, int K0,
+                     int reverse, int stage_bytes, int mode,
+                     cudaStream_t stream) {
+  return replay_slab(X, ldx, ncols, CS, n, b, J, K0, reverse, stage_bytes,
+                     mode, stream);
 }
 
 }  // extern "C"

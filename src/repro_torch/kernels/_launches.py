@@ -10,7 +10,9 @@ The reduced product and ``syr2k`` have two load paths, which
 loads (``csrc/symv.cu``'s ``symm_wide``, ``csrc/syr2k.cu``'s
 ``syr2k_pairs``), and ``narrow``, entry by entry (``symm_wide``'s other
 instance, ``syr2k_tiles``). Each path counts apart in ``fn.paths``
-(``<name>_<fp32|bf16>_<wide|narrow>``, read by ``read_paths``).
+(``<name>_<fp32|bf16>_<wide|narrow>``, read by ``read_paths``). The
+reduced chase and replay count their launches by kernel the same way
+(``cluster``/``cooperative``, ``slab``/``sweep``: their plans' paths).
 """
 from __future__ import annotations
 
@@ -59,11 +61,10 @@ def count(fn, dtype: torch.dtype) -> None:
         fn.reduced[SUFFIX[dtype]] += 1
 
 
-def with_paths(fn) -> None:
-    """Give wrapper ``fn`` a count per load path of its fp32 and bf16
-    instances."""
-    fn.paths = {f"{sfx}_{p}": 0 for sfx in SUFFIX.values()
-                for p in (WIDE, NARROW)}
+def with_paths(fn, paths=(WIDE, NARROW)) -> None:
+    """Give wrapper ``fn`` a count per path (by default the load paths) of
+    its fp32 and bf16 instances."""
+    fn.paths = {f"{sfx}_{p}": 0 for sfx in SUFFIX.values() for p in paths}
 
 
 def count_path(fn, dtype: torch.dtype, path: str) -> None:

@@ -92,30 +92,37 @@ def replay_chunked(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
     (backward with (c, -s) in reverse), one lane after another, carrying
     one row as the kernel's thread does. ``lane_order(lanes)`` may permute
     a chunk's lanes (the kernel runs them in no fixed order). The
-    arithmetic is ``rotate``'s, so the result is the sequential replay's
-    bits. For tests: the main path never calls it."""
+    arithmetic is ``rotate``'s in ``ref.acc_dtype``, both rows of each
+    rotation rounded to the storage dtype (the stored one and the carried
+    one, as the sweep-by-sweep replay stores and reloads both), so the
+    result is the sequential replay's bits. For tests: the main path never
+    calls it."""
+    from .ref import acc_dtype
+
     J = CS.shape[0] - 1
     m = b - 1
+    dt = Xp.dtype
+    acc = acc_dtype(dt)
     nchunks = -(-J // m)
     for ci in range(nchunks):
         j0 = (nchunks - 1 - ci if reverse else ci) * m
         lanes = chunk_lanes(n, b, j0, min(m, J - j0))
         for k, w, cnt in (lane_order(lanes) if lane_order else lanes):
             if not reverse:
-                carry = Xp[w].clone()
+                carry = Xp[w].to(acc, copy=True)
                 for i in range(cnt):
-                    c, s = CS[j0 + i, k]
-                    x1 = Xp[w + i + 1]
+                    c, s = CS[j0 + i, k].to(acc)
+                    x1 = Xp[w + i + 1].to(acc)
                     Xp[w + i] = c * carry + s * x1
-                    carry = -s * carry + c * x1
+                    carry = (-s * carry + c * x1).to(dt).to(acc)
                 Xp[w + cnt] = carry
             else:
-                carry = Xp[w + cnt].clone()
+                carry = Xp[w + cnt].to(acc, copy=True)
                 for i in range(cnt - 1, -1, -1):
-                    c, s = CS[j0 + i, k]
+                    c, s = CS[j0 + i, k].to(acc)
                     s = s * -1.0
-                    x0 = Xp[w + i]
+                    x0 = Xp[w + i].to(acc)
                     Xp[w + i + 1] = -s * x0 + c * carry
-                    carry = c * x0 + s * carry
+                    carry = (c * x0 + s * carry).to(dt).to(acc)
                 Xp[w] = carry
     return Xp

@@ -49,6 +49,9 @@ from repro_torch.kernels.trsm import ref as trsm_ref
 
 pytestmark = pytest.mark.cuda
 
+#: the reduced storage dtypes (the fp32 and bf16 instances)
+REDUCED = [torch.float32, torch.bfloat16]
+
 
 @pytest.fixture
 def cuda():
@@ -546,6 +549,19 @@ def test_replay_pass_every_path_bitwise_vs_plain(cuda, n, w, ncols):
                 assert torch.equal(got[name].cpu(), want), (name, b, reverse)
 
 
+@pytest.mark.parametrize("dt", [torch.float64, *REDUCED])
+def test_replay_smem_is_the_kernels(cuda, dt):
+    """The plan's shared memory (``replay_smem``) is what the slab kernel
+    takes (``replay_slab_smem``), at each entry size, n and b."""
+    esize = torch.empty((), dtype=dt).element_size()
+    lib = rot_kernel._lib()
+    for n in (9, 97, 1001, 9997, 17243):
+        for b in (2, 3, 7, 16):
+            for stage in (0, 8208, 96208):
+                assert lib.replay_slab_smem(n, b, esize, stage) == \
+                    rot_kernel.replay_smem(n, stage, dt, b)
+
+
 def test_replay_pass_counts_one_launch_a_pass(cuda):
     n, b = 500, 5
     (CS,) = _random_tables(n, [b], cuda, 3)
@@ -880,7 +896,6 @@ def test_blocked_stages_on_the_card_launch_their_kernels(cuda):
 
 # ---------------------------------------------- the fp32 and bf16 instances --
 
-REDUCED = [torch.float32, torch.bfloat16]
 #: unit roundoff of fp32 (the reduced instances' compute dtype) and of each
 #: storage dtype
 U32 = 2.0 ** -24
@@ -958,31 +973,84 @@ def test_rot_apply_reduced_bitwise_vs_plain(cuda, dt, G, L):
 
 
 @pytest.mark.parametrize("dt", REDUCED)
-@pytest.mark.parametrize("n,w", [(9, 7), (97, 16), (500, 16)])
+@pytest.mark.parametrize("n,w", [(9, 7), (97, 16), (500, 16), (1001, 16)])
 def test_chase_and_replay_reduced_bitwise_vs_plain(cuda, dt, n, w):
-    """The cooperative chase's and the sweep replay's reduced instances,
-    pass by pass, bitwise against the plain versions (the same rounding
-    points), with one count of the dtype's instance a pass."""
+    """The reduced chase through both its kernels (the wrapper's plan, the
+    cluster kernel; the cooperative kernel forced) and the reduced replay
+    through both of its (the wrapper's plan, the slab kernel; the slab with
+    its smallest table slices; the sweep kernel forced), pass by pass,
+    forward and reverse, bitwise against the plain versions (the same
+    rounding points), with one count of the dtype's instance a pass on the
+    plan's path. Most passes' table rows here are not 16-byte aligned
+    (pairs of 8 or 4 bytes, K0+1 pairs a row)."""
     prob = md_like(n)
     C = to_standard_two_trsm(prob.A, cholesky_upper(prob.B))
     Wb = sbr.reduce_to_band(C, w=w).Wb.to(dt).cpu()
     Wk = rot_sched.padded_band(Wb, w).to(cuda)
+    Wc = Wk.clone()
     Wq = rot_sched.padded_band(Wb, w)
     passes = sbr._executed_passes(n, w)
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    esize = Wb.element_size()
+    assert any(((pass_k0 + 1) * 2 * esize) % 16 for pass_k0 in (
+        rot_sched.pass_schedule(n, b)[4] for b in passes))
+    for b in passes:
+        assert rot_kernel.chase_plan(Wk.shape[1], w, b,
+                                     dtype=dt).path == "cluster"
     kernels.reset_launches()
     tk = [rot_kernel.chase_pass(Wk, b, w, n) for b in passes]
-    tq = [rot_ref.chase_pass_lanes_ref(Wq, b, w, n) for b in passes]
-    sfx = "fp32" if dt == torch.float32 else "bf16"
     assert kernels.launch_counts()[f"chase_pass_{sfx}"] == len(passes)
-    assert torch.equal(Wk.cpu(), Wq)
+    assert kernels.path_counts()[f"chase_pass_{sfx}_cluster"] == len(passes)
+    tc = [rot_kernel.chase_launch(Wc, b, w, n, rot_kernel.COOPERATIVE,
+                                  rot_kernel.FULL) for b in passes]
+    tq = [rot_ref.chase_pass_lanes_ref(Wq, b, w, n) for b in passes]
+    assert torch.equal(Wk.cpu(), Wq) and torch.equal(Wc.cpu(), Wq)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(tk, tq))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tc, tq))
     Z = torch.randn((n, 7), generator=torch.Generator().manual_seed(n)).to(dt)
-    Yk, Yq = Z.to(cuda), Z.clone()
-    for b, CSk, CSq in zip(reversed(passes), reversed(tk), reversed(tq)):
-        rot_kernel.replay_pass(Yk, CSk, b, n, True)
-        rot_ref.replay_pass_ref(Yq, CSq, b, n, True)
-    assert kernels.launch_counts()[f"replay_pass_{sfx}"] == len(passes)
-    assert torch.equal(Yk.cpu(), Yq)
+    for reverse in (True, False):
+        order = list(zip(passes, tk, tq))
+        if reverse:
+            order = order[::-1]
+        kernels.reset_launches()
+        Yk, Yq = Z.to(cuda), Z.clone()
+        Ys, Yl = Z.to(cuda), Z.to(cuda)
+        for b, CSk, CSq in order:
+            assert rot_kernel.replay_plan(n, 7, True, dt, b).path == "slab"
+            small = 2 * esize * rot_kernel.REPLAY_CONSUMERS \
+                + rot_kernel.slice_pad(esize)
+            least = rot_kernel.ReplayPlan(
+                "slab", 7, small, rot_kernel.replay_smem(n, small, dt, b))
+            rot_kernel.replay_pass(Yk, CSk, b, n, reverse)
+            rot_kernel.replay_launch(Ys, CSk, b, n, reverse, rot_kernel.SWEEP,
+                                     rot_kernel.REPLAY_FULL)
+            rot_kernel.replay_launch(Yl, CSk, b, n, reverse, least,
+                                     rot_kernel.REPLAY_FULL)
+            rot_ref.replay_pass_ref(Yq, CSq, b, n, reverse)
+            for Y in (Yk, Ys, Yl):
+                assert torch.equal(Y.cpu(), Yq), (b, reverse)
+        assert kernels.launch_counts()[f"replay_pass_{sfx}"] == len(passes)
+        assert kernels.path_counts()[f"replay_pass_{sfx}_slab"] == \
+            len(passes)
+
+
+@pytest.mark.parametrize("precision", ["mixed", "fast"])
+def test_reduced_tt_solve_takes_the_cluster_and_slab_paths(cuda, precision):
+    """A TT solve at a demoted level (n = 400, w = 16: 15 passes) runs all
+    its chase passes on the cluster kernel and all its replay passes on the
+    slab kernel, counted by path."""
+    prob = md_like(400, device=cuda)
+    sfx = {"mixed": "fp32", "fast": "bf16"}[precision]
+    n_pass = len(sbr._executed_passes(400, 16))
+    assert n_pass == 15
+    kernels.reset_launches()
+    solve(prob.A, prob.B, 8, variant="TT", band_width=16,
+          precision=precision, on_failure="recover")
+    paths = kernels.path_counts()
+    assert paths[f"chase_pass_{sfx}_cluster"] == n_pass
+    assert paths[f"chase_pass_{sfx}_cooperative"] == 0
+    assert paths[f"replay_pass_{sfx}_slab"] == n_pass
+    assert paths[f"replay_pass_{sfx}_sweep"] == 0
 
 
 @pytest.mark.parametrize("dt", REDUCED)

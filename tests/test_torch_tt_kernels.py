@@ -432,6 +432,129 @@ def test_replay_chunk_windows_disjoint_and_cover_each_touched_row_once(n):
             assert rotations == sum(cnt for _, _, cnt in lanes)
 
 
+REDUCED = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", REDUCED)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", [20, 37, 101])
+def test_replay_chunk_order_reduced_bitwise_vs_plain(dtype, reverse, n):
+    """Below fp64 the slab kernel's order, computed in fp32 with both rows
+    of each rotation rounded to the storage dtype (the carried row too),
+    gives the sweep-by-sweep replay's bits, b = 2..16, on tables that are
+    rotations rounded to the dtype. (Rotating in the storage dtype, as the
+    order's emulation did before it rounded, differs in bf16.)"""
+    for b in range(2, 17):
+        if n - b <= 0:
+            continue
+        CS = _random_table(n, b, n * 19 + b).to(dtype)
+        X = _t(np.random.default_rng(b).standard_normal((n + 3, 4))).to(dtype)
+        want = rot_ref.replay_pass_ref(X.clone(), CS, b, n, reverse)
+        got = rot_sched.replay_chunked(X.clone(), CS, b, n, reverse,
+                                       lane_order=_shuffled(n + b))
+        assert got.dtype == dtype
+        assert torch.equal(got, want), (n, b, reverse)
+        assert torch.equal(got[n:], X[n:])
+
+
+#: the paper's two TT4 shapes: (n, s) of MD and DFT
+TT_SHAPES = [(9997, 100), (17243, 448)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, *REDUCED])
+@pytest.mark.parametrize("n,s", TT_SHAPES)
+def test_chase_and_replay_plans_by_dtype(n, s, dtype):
+    """At the MD and DFT shapes (w = 16) every dtype's band takes the
+    cluster chase and its slab the slab replay, on every pass. The chase
+    sizes its band at 8 bytes an entry in fp64 and 4 below (bf16 entries
+    held as rounded fp32: ``CHASE_ENTRY``); the replay its column at the
+    storage dtype's 8, 4 or 2 bytes, stored b rows to a stride below fp64,
+    and its table slices with 16 bytes a row for the aligned-down copies."""
+    w = 16
+    esize = torch.empty((), dtype=dtype).element_size()
+    npad = rot_sched.P_LEFT + n + 3 * w + 8
+    for b in range(w, 1, -1):
+        plan = rot_kernel.chase_plan(npad, w, b, dtype=dtype)
+        assert plan.path == "cluster"
+        assert plan.csize == rot_kernel.CLUSTER_SIZES[0]
+        cpc, smem = rot_kernel.cluster_share(npad, w, b, plan.csize,
+                                             rot_kernel.CHASE_ENTRY[dtype])
+        assert (plan.cpc, plan.smem) == (cpc, smem) and cpc >= w + 3
+        wide = rot_kernel.cluster_share(npad, w, b, plan.csize)[1]
+        assert smem == (wide if esize == 8 else wide // 2)
+        assert smem <= rot_kernel.SMEM_MAX
+        rp = rot_kernel.replay_plan(n, s, True, dtype, b)
+        assert (rp.path, rp.ctas) == ("slab", s)
+        assert rp.smem == rot_kernel.replay_smem(n, rp.stage, dtype, b)
+        assert rp.smem <= rot_kernel.SMEM_MAX
+        assert rot_kernel.SMEM_MAX - rp.smem < 16 * rot_kernel.REPLAY_SLOTS
+        column = rot_kernel.replay_smem(n, 0, dtype, b) \
+            - 16 * rot_kernel.REPLAY_SLOTS
+        if esize == 8:
+            assert column == 8 * (-(-n // 16) * 16)
+        else:
+            # b rows to a stride: b ceil(n / b) entries, 16-byte multiple
+            assert column % 16 == 0
+            assert n * esize <= column < (n + b) * esize + 16
+        assert rp.stage >= 2 * esize * rot_kernel.REPLAY_CONSUMERS \
+            + rot_kernel.slice_pad(esize)
+        # a table that does not start on a 16-byte boundary: the sweep path
+        assert rot_kernel.replay_plan(n, s, False, dtype, b) == \
+            rot_kernel.SWEEP
+    if esize != 8:
+        with pytest.raises(ValueError, match="depends on b"):
+            rot_kernel.replay_smem(n, 0, dtype)
+
+
+@pytest.mark.parametrize("dtype", REDUCED)
+@pytest.mark.parametrize("n", [97, 500, 9997])
+def test_reduced_table_staging_reads_each_slot_once_in_bounds(n, dtype):
+    """The slab replay's table staging below fp64 (``slab_slices``, the
+    twin of the kernel's index arithmetic), every pass b = 16..2, at the
+    plan's slice size and, for n <= 500, at the smallest (512 lanes): each
+    cp.async.bulk starts on a 16-byte boundary of the table at or after its
+    start, moves a multiple of 16 bytes, ends inside the table (the spare
+    row J is the slack) and inside its slice row; the consumers read sweep
+    j's pair k from the stage byte that holds it; and the slices read each
+    live slot (k < K_j) exactly once. Most passes' rows are not 16-byte
+    aligned (pairs of 8 or 4 bytes, rows of K0+1 pairs)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    pb = 2 * esize
+    unaligned = 0
+    for b in range(16, 1, -1):
+        _, _, _, J, K0 = rot_sched.pass_schedule(n, b)
+        table = (J + 1) * (K0 + 1) * pb
+        unaligned += ((K0 + 1) * pb) % 16 != 0
+        plan = rot_kernel.replay_plan(n, 100, True, dtype, b)
+        stages = [plan.stage]
+        if n <= 500:
+            stages.append(pb * rot_kernel.REPLAY_CONSUMERS
+                          + rot_kernel.slice_pad(esize))
+        live = (np.arange(K0 + 1)[None, :]
+                < ((n - 1 - np.arange(J) - b) // b + 1)[:, None])
+        for stage in stages:
+            P = rot_kernel.slab_geom(n, b, J, stage, esize).P
+            for reverse in ((False, True) if n <= 500 else (False,)):
+                seen = np.zeros((J, K0 + 1), dtype=np.int8)
+                for j0, i0, hh, k0, Lc, copies, reads in \
+                        rot_kernel.slab_slices(n, b, K0, stage, esize,
+                                               reverse):
+                    assert hh * P <= stage
+                    for u, ((dst, src, nbytes), at) in enumerate(
+                            zip(copies, reads)):
+                        assert dst == u * P and src % 16 == 0
+                        assert nbytes % 16 == 0 and nbytes <= P
+                        assert 0 <= src and src + nbytes <= table
+                        # pairs k0 .. k0 + Lc - 1 of sweep j, where read
+                        j = j0 + i0 + u
+                        assert dst <= at and at + Lc * pb <= dst + nbytes
+                        assert src + (at - dst) == (j * (K0 + 1) + k0) * pb
+                    seen[j0 + i0: j0 + i0 + hh, k0: k0 + Lc] += 1
+                assert (seen[live] == 1).all(), (b, stage, reverse)
+    if n == 9997:               # MD: rows off 16 bytes on most passes
+        assert unaligned == {4: 10, 2: 12}[esize]
+
+
 @pytest.mark.parametrize("n,ncols,aligned,path,ctas", [
     (9997, 100, True, "slab", 100),       # MD TT4: (9997, 100)
     (17243, 448, True, "slab", 448),      # DFT TT4: in waves
