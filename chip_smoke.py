@@ -108,8 +108,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    device time by kernel); ``solve(A, B, 100, variant="TT",
    band_width=16)`` (624 ``house_panel`` and ``syr2k`` launches, 15 of
    ``chase_pass`` and ``replay_pass``, 6 of ``invit``; the plans the
-   ``chase_pass`` and ``replay_pass`` launches take at each level, and
-   those of ``house_panel``) and TT and TD on
+   ``chase_pass``, ``replay_pass`` and ``house_panel`` launches take at
+   each level) and TT and TD on
    the DFT pencil at the paper's size (n=17243, s=448); each held to the
    Table-3 bars (1e-12) and to the
    generator's exact spectrum; the blocked stages (the paper's Table 4):
@@ -124,7 +124,11 @@ Phases, each printed as it runs; any failed check exits nonzero:
    ``rot_apply``, ``gemm``, ``trsm`` (the BT1 shape) and ``band_mv``;
 3d. the fp32 and bf16 instances (``_fp32``, ``_bf16``) against their
    plain versions on the card, at the MD shapes: ``house_panel`` on the
-   first panel (the cooperative kernel's instances), ``syr2k`` on the
+   first panel (the wrapper's cluster kernel and the cooperative instance
+   forced, the older path, in turns, each within the panel's bar and
+   bitwise on repeat; each path's device time; the cluster at 16, 8 and 4
+   CTAs, its barriers alone and without cross-CTA sums, queued in turns),
+   ``syr2k`` on the
    first window (k=16, plain and symmetrized), ``chase_pass`` on the first
    (b=16) and last (b=2) pass of the MD band (the wrapper's cluster kernel
    and the cooperative kernel forced, the older path, in turns, each
@@ -151,8 +155,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    the exact spectrum, with its refinement (steps, shifts, residual
    trajectory), recovery rungs and per-instance launch counts (624
    ``house_panel``/``syr2k`` and 15 ``chase_pass``/``replay_pass`` launches
-   of the level's instances in TT, every chase pass on the cluster kernel
-   and every replay pass on the slab kernel; the reduced product's and
+   of the level's instances in TT, every panel and every chase pass on the
+   cluster kernels and every replay pass on the slab kernel; the reduced product's and
    ``syr2k``'s launches by load path, the TT ``syr2k`` and the Krylov
    products all on the wide path);
    then a fault drill: a transient NaN in
@@ -707,8 +711,8 @@ def _house_run(E, row_start: int, plan, mode: int):
     import torch
     from repro_torch.kernels.house_panel import kernel
     rows, b = E.shape
-    V = torch.empty((rows, b), dtype=torch.float64, device=E.device)
-    T = torch.empty((b, b), dtype=torch.float64, device=E.device)
+    V = torch.empty((rows, b), dtype=E.dtype, device=E.device)
+    T = torch.empty((b, b), dtype=E.dtype, device=E.device)
     kernel.house_launch(E, row_start, V, T, plan, mode)
     return V, T
 
@@ -1946,6 +1950,123 @@ def reduced_replay(label: str, sfx: str, n: int, tables: dict, gen, dev,
                                             FP32_VECTOR_FLOPS), 2))
 
 
+def reduced_panel(label: str, sfx: str, E, row_start: int, checks: Checks,
+                  E64=None):
+    """The ``sfx`` panel E[row_start:, :] (the first TT1 panel of the
+    padded working copy) through the wrapper (its plan's path: the cluster
+    kernel) and the cooperative instance forced (the older path), each
+    against the plain version (factored in fp32 on the host, rounded to
+    bf16 at the store) within the panel's bar (``PANEL_C``) and bitwise on
+    repeat; the bar checked to reject a bf16-computed panel and a V zeroed
+    below its pivots. Timed in turns (wrapper, plain, cooperative, wrapper,
+    cooperative: CUDA events a call), each path's device time
+    (``torch.profiler``), and, queued back to back in turns, the cluster
+    kernel at 16, 8 and 4 CTAs (each also held to the bar), its barriers
+    alone and without cross-CTA sums, the cooperative instance and, given
+    ``E64`` (the same panel in fp64), fp64's wrapper; ``torch.geqrf`` of
+    the active rows for fp32 (no bf16 geqrf). Returns the wrapper's row
+    and its (V, T)."""
+    import torch
+    from repro_torch.kernels.house_panel import kernel as hk
+    from repro_torch.kernels.house_panel import ops as ho
+    from repro_torch.kernels.house_panel import ref as hr
+
+    dt = _reduced_dtype(sfx)
+    n, w = E.shape
+    active = n - row_start
+    es, us = ESIZE[sfx], U_STORE[sfx]
+    plan = hk.house_plan(active, w, hk.cluster_capacity, dt)
+    checks.check(f"{label} house_panel_{sfx} plans the cluster",
+                 plan.path == "cluster", repr(plan))
+    run = {"cluster": lambda: hk.house_panel(E, row_start),
+           "cooperative": lambda: _house_run(E, row_start, hk.COOPERATIVE,
+                                             hk.FULL)}
+    for fn in run.values():
+        fn()                                          # warm-up
+    out = {k: [] for k in run}
+    ms = {k: [] for k in run}
+
+    def turn(k):
+        o, t = _time_cuda(run[k], TIMING_REPS)
+        out[k].append(o)
+        ms[k].append(t)
+
+    turn("cluster")
+    (Vp, Tp), pms = _time_cuda(lambda: ho.house_panel(E.cpu(), row_start))
+    for k in ("cooperative", "cluster", "cooperative"):
+        turn(k)
+    ratio = {}
+    for k, ((V, T), (V2, T2)) in out.items():
+        ratio[k] = max(_panel_ratio(V, Vp, n, us), _panel_ratio(T, Tp, n, us))
+        checks.check(f"{label} house_panel_{sfx} {k} V, T vs plain",
+                     ratio[k] <= 1.0, f"max gap / bar {ratio[k]!r} (c = "
+                     f"{PANEL_C}; one unit of {sfx} at the store reads up "
+                     f"to 1)")
+        checks.check(f"{label} house_panel_{sfx} {k} repeats bitwise",
+                     bool(torch.equal(V, V2) and torch.equal(T, T2)),
+                     "two turns")
+    V, T = out["cluster"][0]
+    err = max(float((V.cpu().double() - Vp.double()).abs().max()),
+              float((T.cpu().double() - Tp.double()).abs().max()))
+    # what the bar must reject: the panel computed in bf16 arithmetic
+    # (the plain version without its fp32 upcast), V zeroed below the
+    # pivots
+    Vc, Tc = hr.house_panel_ref(E.cpu().to(torch.bfloat16), row_start)
+    bad_c = min(_panel_ratio(Vc, Vp, n, us), _panel_ratio(Tc, Tp, n, us))
+    Vz = V.cpu().clone()
+    Vz[row_start + w + 1:] = 0
+    bad_z = _panel_ratio(Vz, Vp, n, us)
+    del Vc, Tc, Vz
+    checks.check(f"{label} house_panel_{sfx} bar rejects a bf16-computed "
+                 f"panel and a zeroed V tail", bad_c > 1.0 and bad_z > 1.0,
+                 f"min gap / bar {bad_c!r} (bf16-computed V or T), "
+                 f"{bad_z!r} (V zeroed below row {row_start + w})")
+    device = {k: _device_ms(fn) for k, fn in run.items()}
+    # the cluster at each size, the plan's timing variants, in turns
+    sizes = {c: hk.cluster_at(active, w, c, dt) for c in (16, 8, 4)}
+    for c, p in sizes.items():
+        Vs, Ts = _house_run(E, row_start, p, hk.FULL)
+        r = max(_panel_ratio(Vs, Vp, n, us), _panel_ratio(Ts, Tp, n, us))
+        checks.check(f"{label} house_panel_{sfx} at {c} CTAs vs plain",
+                     r <= 1.0, f"max gap / bar {r!r} ({p.rpc} rows, "
+                     f"{p.smem} bytes a CTA)")
+    queued = _alternating({
+        **{f"{c} CTAs ({p.rpc} rows)": (
+            lambda p=p: _house_run(E, row_start, p, hk.FULL))
+           for c, p in sizes.items()},
+        "barriers only": lambda: _house_run(E, row_start, plan,
+                                            hk.BARRIER_ONLY),
+        "no cross-CTA sums": lambda: _house_run(E, row_start, plan,
+                                                hk.NO_SUMS),
+        "cooperative": run["cooperative"],
+        **({} if E64 is None else {
+            "fp64 wrapper": lambda: hk.house_panel(E64, row_start)})})
+    lib = None
+    if dt == torch.float32:
+        act = E[row_start:].contiguous()
+        torch.geqrf(act)
+        _, lib = _time_cuda(lambda: torch.geqrf(act), TIMING_REPS)
+    bound = _bound(4.0 * n * w * w, es * 2.0 * n * w, FP32_VECTOR_FLOPS)
+    print(f"{label} house_panel_{sfx} ({n} x {w}, row_start {row_start}; "
+          f"plan {plan.path} of {plan.csize} CTAs, {plan.rpc} rows, "
+          f"{plan.smem} bytes): a call in turns (CUDA events, "
+          f"{TIMING_REPS} in a window) cluster "
+          f"{ms['cluster'][0]:.4f} / {ms['cluster'][1]:.4f} ms, cooperative "
+          f"{ms['cooperative'][0]:.4f} / {ms['cooperative'][1]:.4f} ms; "
+          f"device (torch.profiler) cluster {_ms(device['cluster'])}, "
+          f"cooperative {_ms(device['cooperative'])}; plain {pms:.1f} ms "
+          f"(host CPU); torch.geqrf "
+          f"{'not run (no bf16 geqrf)' if lib is None else f'{lib:.4f} ms'}"
+          f"; least time {bound['bound_ms']:.5f} ms ({bound['bound_by']}); "
+          f"device ms a call, queued, in turns: {_turns(queued)}",
+          flush=True)
+    row = dict(max_abs_err=err, ms=sum(ms["cluster"]) / 2, plain_ms=pms,
+               library_ms=lib, **bound,
+               older_path_ms=sum(ms["cooperative"]) / 2,
+               device_ms=device["cluster"])
+    return row, (V, T)
+
+
 def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     """Each fp32 and bf16 instance against its plain version on the card, at
     the MD main path's shapes; returns a row per instance
@@ -1953,7 +2074,8 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
 
     Bars: ``syr2k``, ``rot_apply``, ``chase_pass`` and ``replay_pass`` are
     bitwise (their plain versions round at the kernels' points, no FMA on
-    either side); ``house_panel`` within the panel's bar (``PANEL_C``),
+    either side); ``house_panel`` (``reduced_panel``: the cluster kernel
+    and the cooperative instance) within the panel's bar (``PANEL_C``),
     which a bf16-computed panel and a V zeroed below its pivots must fail;
     ``symm_block`` and ``symv`` within
     2 gamma_n(fp32) |sym(triu A)||X| + 2 u_store |Y| (fp32 sums in other
@@ -1966,9 +2088,6 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     import torch
     from repro_torch.core.linalg_utils import wy_syr2k_panel
     from repro_torch.core.precision import padded_copy
-    from repro_torch.kernels.house_panel import kernel as hk
-    from repro_torch.kernels.house_panel import ops as ho
-    from repro_torch.kernels.house_panel import ref as hr
     from repro_torch.kernels.rot_apply import kernel as rk
     from repro_torch.kernels.rot_apply import ref as rr
     from repro_torch.kernels.symv import kernel as yk
@@ -1988,44 +2107,8 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
         Cd = padded_copy(C, dt)
         Co = _unaligned(C, dt)
         # ---- house_panel: the first TT1 panel, row_start w --------------
-        E = Cd[:, :w]
-        (V, T), (Vp, Tp), ms, pms = _in_turns(
-            lambda: hk.house_panel(E, w),
-            lambda: ho.house_panel(E.cpu(), w), TIMING_REPS)
-        err = max(float((V.cpu().double() - Vp.double()).abs().max()),
-                  float((T.cpu().double() - Tp.double()).abs().max()))
-        ratio = max(_panel_ratio(V, Vp, n, us), _panel_ratio(T, Tp, n, us))
-        # what the bar must reject: the panel computed in bf16 arithmetic
-        # (the plain version without its fp32 upcast), V zeroed below the
-        # pivots
-        Vc, Tc = hr.house_panel_ref(E.cpu().to(torch.bfloat16), w)
-        bad_c = min(_panel_ratio(Vc, Vp, n, us), _panel_ratio(Tc, Tp, n, us))
-        Vz = V.cpu().clone()
-        Vz[2 * w + 1:] = 0
-        bad_z = _panel_ratio(Vz, Vp, n, us)
-        del Vc, Tc, Vz
-        lib = None
-        if dt == torch.float32:
-            act = E[w:].contiguous()
-            torch.geqrf(act)
-            _, lib = _time_cuda(lambda: torch.geqrf(act), TIMING_REPS)
-        print(f"{label} house_panel_{sfx} ({n} x {w}, row_start {w}; "
-              f"cooperative instance): kernel {ms:.4f} ms a call, plain "
-              f"{pms:.1f} ms (host CPU), torch.geqrf "
-              f"{'not run (no bf16 geqrf)' if lib is None else f'{lib:.4f} ms'}",
-              flush=True)
-        checks.check(f"{label} house_panel_{sfx} V, T vs plain",
-                     ratio <= 1.0, f"max |kernel - plain| = {err!r}, max "
-                     f"gap / bar {ratio!r} (c = {PANEL_C}; one unit of "
-                     f"{sfx} at the store reads up to 1)")
-        checks.check(f"{label} house_panel_{sfx} bar rejects a bf16-computed "
-                     f"panel and a zeroed V tail",
-                     bad_c > 1.0 and bad_z > 1.0,
-                     f"min gap / bar {bad_c!r} (bf16-computed V or T), "
-                     f"{bad_z!r} (V zeroed below row {2 * w})")
-        rows[f"house_panel_{sfx}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib,
-            **_bound(4.0 * n * w * w, es * 2.0 * n * w, FP32_VECTOR_FLOPS))
+        rows[f"house_panel_{sfx}"], (V, T) = reduced_panel(
+            label, sfx, Cd[:, :w], w, checks, E64=C[:, :w])
         # ---- syr2k: the first window, (V, Z) of that panel --------------
         Z = wy_syr2k_panel(Cd, V, T)
         out = _padded_empty(n, dt, dev)
@@ -2198,7 +2281,8 @@ def run_precision(md, s: int, checks: Checks) -> dict:
     (an ``escalate_precision`` rerun at fp64 is reported). Checks that
     the reduced instances ran: 624 ``house_panel`` and ``syr2k`` and 15
     ``chase_pass`` and ``replay_pass`` launches of the level's instances
-    for TT, all 624 ``syr2k`` on the wide path, ``symm_block``'s for KE
+    for TT, all 624 panels on the cluster kernel, all 624 ``syr2k`` on the
+    wide path, ``symm_block``'s for KE
     and KI, all on the wide path. Returns each solve's launch
     counts (``<label>``) and load-path counts (``<label> paths``)."""
     from repro_torch.core.sbr import _executed_passes, _n_panels
@@ -2245,6 +2329,13 @@ def run_precision(md, s: int, checks: Checks) -> dict:
             checks.check(f"{label} syr2k_{sfx} on the wide path",
                          wide == {"wide": _n_panels(n, TT_W), "narrow": 0},
                          json.dumps(wide))
+            # every panel on the cluster kernel
+            panels = {p: paths[f"house_panel_{sfx}_{p}"]
+                      for p in ("cluster", "cooperative")}
+            checks.check(f"{label} house_panel_{sfx} on the cluster kernel, "
+                         f"every panel", panels == {
+                             "cluster": _n_panels(n, TT_W),
+                             "cooperative": 0}, json.dumps(panels))
             # every pass on the band-on-chip kernels
             on_chip = {f"{k} {p}": paths[f"{k}_{sfx}_{p}"] for k, p in (
                 ("chase_pass", "cluster"), ("chase_pass", "cooperative"),
@@ -2345,9 +2436,9 @@ def print_plans(label: str, n: int, s: int, w: int) -> None:
     """The paths a TT solve at (n, s, w) takes: at each level (fp64,
     ``mixed``'s fp32, ``fast``'s bf16), ``chase_plan`` of each TT2 pass and
     ``replay_plan`` of TT4's (n, s) slab at each pass, counted by path and
-    cluster size (with the shared memory a CTA takes); and ``house_plan``
-    of each TT1 panel (panel p has n - (p+1) w active rows), counted by
-    path and cluster size."""
+    cluster size (with the shared memory a CTA takes); and, at each level,
+    ``house_plan`` of each TT1 panel (panel p has n - (p+1) w active rows),
+    counted by path and cluster size."""
     from collections import Counter
 
     import torch
@@ -2375,14 +2466,19 @@ def print_plans(label: str, n: int, s: int, w: int) -> None:
               + ", ".join(
                   f"{k} x{v}" for k, v in sorted(replay.items())),
               flush=True)
-    panels = Counter()
-    for p in range(_n_panels(n, w)):
-        plan = hp.house_plan(max(n - (p + 1) * w, 0), w, hp.cluster_capacity)
-        panels[f"{plan.path} of {plan.csize}" if plan.csize else plan.path] \
-            += 1
-    print(f"main path {label} plans: house_panel over "
-          f"{sum(panels.values())} panels: " + ", ".join(
-              f"{k} x{v}" for k, v in sorted(panels.items())), flush=True)
+    for level, dt in (("fp64", torch.float64), ("mixed", torch.float32),
+                      ("fast", torch.bfloat16)):
+        panels, smem = Counter(), []
+        for p in range(_n_panels(n, w)):
+            plan = hp.house_plan(max(n - (p + 1) * w, 0), w,
+                                 hp.cluster_capacity, dt)
+            panels[f"{plan.path} of {plan.csize}" if plan.csize
+                   else plan.path] += 1
+            smem.append(plan.smem)
+        print(f"main path {label} plans at {level}: house_panel over "
+              f"{sum(panels.values())} panels: " + ", ".join(
+                  f"{k} x{v}" for k, v in sorted(panels.items()))
+              + f" ({min(smem)}-{max(smem)} bytes a CTA)", flush=True)
 
 
 def run_solve(label: str, prob, s: int, checks: Checks,
@@ -2871,10 +2967,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            # the reduced chase and replay: the older kernel on the same
-            # passes, and the pass's chain floor
-            **{k: r[k] for k in ("older_path_ms", "chain_floor_ms")
-               if k in r}})
+            # the reduced panel, chase and replay: the older kernel on the
+            # same input, the pass's chain floor, the panel's device time
+            **{k: r[k] for k in ("older_path_ms", "chain_floor_ms",
+                                 "device_ms") if k in r}})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     if checks.failed:
         print("FAILED: " + ", ".join(checks.failed), flush=True)

@@ -26,7 +26,8 @@
 // factorization. Two kernels:
 //   house_cluster_kernel — the active rows E[row_start:] in the
 //     distributed shared memory of one thread-block cluster of up to 16
-//     CTAs (non-portable size; 16 x 80 KB at 9997 x 16), one cluster
+//     CTAs (non-portable size; 16 x 80 KB at 9997 x 16 in fp64, half that
+//     in fp32 and bf16), one cluster
 //     barrier (barrier.cluster.arrive/wait) a reflector, partials read
 //     from the peers through map_shared_rank (its note below).
 //   house_panel_kernel — up to one block per SM, one cooperative launch,
@@ -44,13 +45,20 @@
 //     per-reflector slots, so no slot is reused within a launch.
 // Every sum runs in a fixed order, so a result repeats bitwise.
 //
-// Instances (reduced.cuh). The cluster kernel sizes its shared memory for
-// fp64 and has the fp64 instance only. The cooperative kernel also has an
-// fp32 instance (panel, partials and T in fp32) and a bf16 one: the panel
-// is read from bf16 and factored in fp32, as the TPU kernel's bf16 path
-// computes in fp32 (its reflector norms and taus cancel too hard for
-// bf16), and V and T are rounded to bf16 at the store; the T recurrence
-// runs on an fp32 copy of T that block 0 rounds out at the end.
+// Instances (reduced.cuh). Both kernels have an fp64, an fp32 and a bf16
+// instance; each computes in Acc<S>: fp64 in fp64, fp32 and bf16 in fp32.
+// The TPU kernel's bf16 path computes in fp32 (its reflector norms and taus
+// cancel too hard for bf16), so a bf16 panel is read from bf16, factored in
+// fp32, and V and T are rounded to bf16 once, at the store. The cluster
+// kernel sizes its shared memory in entries of the compute type
+// (cluster_extra_entries): 8 bytes for fp64, 4 for fp32 and for bf16,
+// which shares fp32's layout, as the reduced chase does (rot_apply.cu); at
+// 4 bytes the rows take half of fp64's room, so a cluster holds panels
+// twice as tall. Its T recurrence runs on rank 0's Ts in the compute type,
+// which is the working T. The cooperative kernel keeps its reduced
+// instances for panels no cluster holds (b = 128 at n = 9997 is ~397 KB a
+// CTA at 4 bytes); its bf16 instance runs the T recurrence on an fp32 copy
+// of T that block 0 rounds out at the end.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -296,16 +304,18 @@ __device__ __forceinline__ void cluster_wait() {
 
 // sum of v over the first 16 lanes of a warp (lanes past them give 0), by
 // a fixed butterfly: every lane gets the same bits
-__device__ __forceinline__ double tree16(double v) {
+template <typename A>
+__device__ __forceinline__ A tree16(A v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Doubles of the cluster kernel's shared memory besides the rows: T, two
-// slots of published partials and of the pivot row, the block reduction,
-// and the cluster's sums, pivot row and projections.
-__host__ __device__ __forceinline__ int cluster_extra_doubles(int b) {
+// Entries of the compute type A in the cluster kernel's shared memory
+// besides the rows: T, two slots of published partials and of the pivot
+// row, the block reduction, and the cluster's sums, pivot row and
+// projections.
+__host__ __device__ __forceinline__ int cluster_extra_entries(int b) {
   int cw = 1;
   while (cw < b) cw <<= 1;
   return b * b + 4 * b + kClusterWarps * cw + 3 * b;
@@ -328,12 +338,18 @@ __host__ __device__ __forceinline__ int cluster_extra_doubles(int b) {
 // runs the T recurrence once at the end, a thread a row of T. Two slots alternate: a CTA
 // overwrites slot j&1 only after the barrier of reflector j+1, which every
 // CTA passes after reading slot j&1.
-template <int kMode>
+//
+// Every value on chip and every sum is in the compute type A: E is read
+// through to_acc, and V and T are rounded to the storage type S once, at
+// the store. So a bf16 panel is factored in fp32 in fp32's layout, and
+// rank 0's Ts is its working T.
+template <typename S, int kMode>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-house_cluster_kernel(const double* __restrict__ E, int64_t lde,
-                     double* __restrict__ V, double* __restrict__ T, int rows,
-                     int b, int rs, int rpc) {
-  extern __shared__ double sm[];
+house_cluster_kernel(const S* __restrict__ E, int64_t lde,
+                     S* __restrict__ V, S* __restrict__ T, int rows, int b,
+                     int rs, int rpc) {
+  using A = typename Acc<S>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
@@ -348,14 +364,14 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
   const int G = kClusterThreads / cw;           // row groups
   const int gc = tid & (cw - 1);                // this thread's column
   const int gg = tid / cw;                      // and row group
-  double* P = sm;                               // (nr, b), this CTA's rows
-  double* Ts = P + (size_t)rpc * b;             // (b, b)
-  double* part = Ts + b * b;                    // [2][b] published partials
-  double* pivr = part + 2 * b;                  // [2][b] published pivot row
-  double* red = pivr + 2 * b;                   // block reduction
-  double* sums = red + kClusterWarps * cw;      // [b] D over the cluster
-  double* prow = sums + b;                      // [b] the pivot row
-  double* proj = prow + b;                      // [b] v^T P
+  A* P = reinterpret_cast<A*>(smem_raw);        // (nr, b), this CTA's rows
+  A* Ts = P + (size_t)rpc * b;                  // (b, b)
+  A* part = Ts + b * b;                         // [2][b] published partials
+  A* pivr = part + 2 * b;                       // [2][b] published pivot row
+  A* red = pivr + 2 * b;                        // block reduction
+  A* sums = red + kClusterWarps * cw;           // [b] D over the cluster
+  A* prow = sums + b;                           // [b] the pivot row
+  A* proj = prow + b;                           // [b] v^T P
 
   if (kMode == kBarrierOnly) {
     for (int j = 0; j <= b; ++j) {
@@ -365,14 +381,14 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
     return;
   }
   for (int idx = tid; idx < nr * b; idx += kClusterThreads)
-    P[idx] = E[(int64_t)(rs + a0 + idx / b) * lde + idx % b];
-  for (int idx = tid; idx < b * b; idx += kClusterThreads) Ts[idx] = 0.0;
+    P[idx] = to_acc(E[(int64_t)(rs + a0 + idx / b) * lde + idx % b]);
+  for (int idx = tid; idx < b * b; idx += kClusterThreads) Ts[idx] = A(0);
   __syncthreads();
 
   // D[c] over this CTA's rows below pivot j, into slot j&1, in a fixed
   // order; and the pivot row, by its owner
   auto publish = [&](int j) {
-    double acc = 0.0;
+    A acc = A(0);
     if (gc < b)
       for (int i = max(0, j + 1 - a0) + gg; i < nr; i += G)
         acc += P[i * b + j] * P[i * b + gc];
@@ -389,7 +405,7 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
     if (pl >= 0 && pl < nr && tid < b) pivr[(j & 1) * b + tid] = P[pl * b + tid];
     __syncthreads();
     for (int c = warp; c < b; c += kClusterWarps) {
-      const double t = tree16(lane < groups ? red[lane * cw + c] : 0.0);
+      const A t = tree16(lane < groups ? red[lane * cw + c] : A(0));
       if (lane == 0) part[(j & 1) * b + c] = t;
     }
   };
@@ -401,7 +417,7 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
     // every CTA's partials of reflector j are published past here
     cluster_wait();
     for (int c = warp; c < b; c += kClusterWarps) {
-      double v = 0.0;
+      A v = A(0);
       if (lane < csize && (kMode != kNoSums || lane == rank))
         v = cluster.map_shared_rank(part, lane)[slot + c];
       v = tree16(v);
@@ -409,26 +425,26 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
     }
     const int owner = j < active ? j / rpc : -1;
     if (tid < b)
-      prow[tid] = owner < 0 ? 0.0
+      prow[tid] = owner < 0 ? A(0)
                   : cluster.map_shared_rank(pivr, kMode == kNoSums ? rank
                                                                    : owner)
                         [slot + tid];
     __syncthreads();
-    const double alpha = prow[j];
-    double sigma = (alpha * alpha + sums[j]) - alpha * alpha;
-    sigma = sigma < 0.0 ? 0.0 : sigma;   // max(., 0), NaN passes through
-    const bool safe = sigma > 0.0;
-    const double norm_x = sqrt(alpha * alpha + sigma);
-    const double sgn = alpha >= 0.0 ? 1.0 : -1.0;
-    const double beta = safe ? -sgn * norm_x : alpha;
-    const double denom = safe ? alpha - beta : 1.0;
-    const double tau = safe ? (beta - alpha) / beta : 0.0;
+    const A alpha = prow[j];
+    A sigma = (alpha * alpha + sums[j]) - alpha * alpha;
+    sigma = sigma < A(0) ? A(0) : sigma;   // max(., 0), NaN passes through
+    const bool safe = sigma > A(0);
+    const A norm_x = sqrt(alpha * alpha + sigma);
+    const A sgn = alpha >= A(0) ? A(1) : A(-1);
+    const A beta = safe ? -sgn * norm_x : alpha;
+    const A denom = safe ? alpha - beta : A(1);
+    const A tau = safe ? (beta - alpha) / beta : A(0);
     if (tid < b) proj[tid] = safe ? sums[tid] / denom + prow[tid] : prow[tid];
     // v into column j: 0 above the pivot, 1 at it, x / denom below
     for (int i = tid; i < nr; i += kClusterThreads) {
       const int a = a0 + i;
-      P[i * b + j] = a < j ? 0.0 : a == j ? 1.0
-                     : safe ? P[i * b + j] / denom : 0.0;
+      P[i * b + j] = a < j ? A(0) : a == j ? A(1)
+                     : safe ? P[i * b + j] / denom : A(0);
     }
     __syncthreads();
     // T's recurrence waits for the end: keep z = proj[:j] in row j below
@@ -445,39 +461,42 @@ house_cluster_kernel(const double* __restrict__ E, int64_t lde,
     cluster_arrive();
   }
   for (int idx = tid; idx < nr * b; idx += kClusterThreads)
-    V[(int64_t)(rs + a0) * b + idx] = P[idx];
+    V[(int64_t)(rs + a0) * b + idx] = from_acc<S>(P[idx]);
   for (int64_t idx = (int64_t)rank * kClusterThreads + tid;
        idx < (int64_t)rs * b; idx += (int64_t)csize * kClusterThreads)
-    V[idx] = 0.0;
+    V[idx] = from_acc<S>(A(0));
   if (rank == 0) {
     // T[r][j] = -tau_j sum_k T[r][k] z_j[k], k < j: row r needs only its
     // own earlier entries, so a thread a row, columns in order
     if (tid < b)
       for (int j = tid + 1; j < b; ++j) {
-        double t = 0.0;
+        A t = A(0);
         for (int k = tid; k < j; ++k) t += Ts[tid * b + k] * Ts[j * b + k];
         Ts[tid * b + j] = -Ts[j * b + j] * t;
       }
     __syncthreads();
     for (int idx = tid; idx < b * b; idx += kClusterThreads)
-      T[idx] = idx % b >= idx / b ? Ts[idx] : 0.0;
+      T[idx] = from_acc<S>(idx % b >= idx / b ? Ts[idx] : A(0));
   }
   // no CTA leaves while another may still read its partials
   cluster_wait();
 }
 
-template <int kMode>
+// every instance sets both attributes once, at its first launch or
+// capacity query: the largest dynamic shared memory, and the
+// non-portable cluster size that 16 CTAs need
+template <typename S, int kMode>
 cudaError_t cluster_launch_config(int csize, int smem, cudaStream_t stream,
                                   cudaLaunchConfig_t* cfg,
                                   cudaLaunchAttribute* attr) {
-  static bool set = false;   // once a kernel instance: the largest size
+  static bool set = false;   // once a kernel instance
   if (!set) {
     cudaError_t err = cudaFuncSetAttribute(
-        house_cluster_kernel<kMode>,
+        house_cluster_kernel<S, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxClusterSmem);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(
-        house_cluster_kernel<kMode>,
+        house_cluster_kernel<S, kMode>,
         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     set = true;
@@ -496,19 +515,65 @@ cudaError_t cluster_launch_config(int csize, int smem, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <int kMode>
-int launch_cluster(const double* E, int64_t lde, double* V, double* T,
-                   int rows, int b, int rs, int csize, int rpc, int smem,
+template <typename S, int kMode>
+int launch_cluster(const S* E, int64_t lde, S* V, S* T, int rows, int b,
+                   int rs, int csize, int rpc, int smem,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err =
-      cluster_launch_config<kMode>(csize, smem, stream, &cfg, &attr);
+      cluster_launch_config<S, kMode>(csize, smem, stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, house_cluster_kernel<kMode>, E, lde, V, T,
-                           rows, b, rs, rpc);
+  err = cudaLaunchKernelEx(&cfg, house_cluster_kernel<S, kMode>, E, lde, V,
+                           T, rows, b, rs, rpc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// the checked launch of every cluster instance: rpc active rows a CTA
+// (csize rpc >= rows - row_start), smem bytes of dynamic shared memory,
+// at least rpc b and cluster_extra_entries(b) entries of the compute type
+template <typename S>
+int cluster_entry(const S* E, int64_t lde, S* V, S* T, int rows, int b,
+                  int row_start, int csize, int rpc, int smem, int mode,
+                  cudaStream_t stream) {
+  const int64_t esize = sizeof(typename Acc<S>::type);
+  const int64_t active = rows > row_start ? rows - row_start : 0;
+  if (b < 1 || b > kMaxB || rows < 1 || row_start < 0 || csize < 1 ||
+      csize > kMaxCluster || rpc < 1 || (int64_t)csize * rpc < active ||
+      smem > kMaxClusterSmem ||
+      (int64_t)smem < esize * ((int64_t)rpc * b + cluster_extra_entries(b)))
+    return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case kBarrierOnly:
+      return launch_cluster<S, kBarrierOnly>(E, lde, V, T, rows, b, row_start,
+                                             csize, rpc, smem, stream);
+    case kNoSums:
+      return launch_cluster<S, kNoSums>(E, lde, V, T, rows, b, row_start,
+                                        csize, rpc, smem, stream);
+    case kFull:
+      return launch_cluster<S, kFull>(E, lde, V, T, rows, b, row_start,
+                                      csize, rpc, smem, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// clusters of csize CTAs of the kFull instance for S, with smem bytes
+// each, that the card holds at once (0: none; < 0: a CUDA error, negated)
+template <typename S>
+int cluster_capacity(int csize, int smem) {
+  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_launch_config<S, kFull>(csize, smem, 0, &cfg, &attr);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, house_cluster_kernel<S, kFull>,
+                                       &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return count;
 }
 
 template <typename S, int kMode>
@@ -604,44 +669,45 @@ int house_panel_bf16(const __nv_bfloat16* E, int64_t lde, __nv_bfloat16* V,
 
 // The same with the panel in the distributed shared memory of one cluster
 // of csize CTAs (the wrapper's plan), rpc active rows a CTA (csize rpc >=
-// rows - row_start), smem bytes of dynamic shared memory: rpc b doubles
-// and cluster_extra_doubles(b). ``mode``: kFull, kBarrierOnly or
-// kNoSums.
+// rows - row_start), smem bytes of dynamic shared memory: rpc b entries
+// and cluster_extra_entries(b), 8 bytes an entry for fp64 and 4 (fp32,
+// the compute type) for fp32 and bf16. ``mode``: kFull, kBarrierOnly or
+// kNoSums. The bf16 instance reads E and writes V and T in bf16.
 int house_cluster_fp64(const double* E, int64_t lde, double* V, double* T,
                        int rows, int b, int row_start, int csize, int rpc,
                        int smem, int mode, cudaStream_t stream) {
-  const int64_t active = rows > row_start ? rows - row_start : 0;
-  if (b < 1 || b > kMaxB || rows < 1 || row_start < 0 || csize < 1 ||
-      csize > kMaxCluster || rpc < 1 || (int64_t)csize * rpc < active ||
-      smem > kMaxClusterSmem ||
-      (int64_t)smem < 8 * ((int64_t)rpc * b + cluster_extra_doubles(b)))
-    return (int)cudaErrorInvalidValue;
-  switch (mode) {
-    case kBarrierOnly:
-      return launch_cluster<kBarrierOnly>(E, lde, V, T, rows, b, row_start,
-                                          csize, rpc, smem, stream);
-    case kNoSums:
-      return launch_cluster<kNoSums>(E, lde, V, T, rows, b, row_start, csize,
-                                     rpc, smem, stream);
-    default:
-      return launch_cluster<kFull>(E, lde, V, T, rows, b, row_start, csize,
-                                   rpc, smem, stream);
-  }
+  return cluster_entry<double>(E, lde, V, T, rows, b, row_start, csize, rpc,
+                               smem, mode, stream);
+}
+
+int house_cluster_fp32(const float* E, int64_t lde, float* V, float* T,
+                       int rows, int b, int row_start, int csize, int rpc,
+                       int smem, int mode, cudaStream_t stream) {
+  return cluster_entry<float>(E, lde, V, T, rows, b, row_start, csize, rpc,
+                              smem, mode, stream);
+}
+
+int house_cluster_bf16(const __nv_bfloat16* E, int64_t lde, __nv_bfloat16* V,
+                       __nv_bfloat16* T, int rows, int b, int row_start,
+                       int csize, int rpc, int smem, int mode,
+                       cudaStream_t stream) {
+  return cluster_entry<__nv_bfloat16>(E, lde, V, T, rows, b, row_start, csize,
+                                      rpc, smem, mode, stream);
 }
 
 // How many clusters of csize CTAs with smem bytes each the card holds at
-// once (0: none; < 0: a CUDA error, negated).
-int house_cluster_capacity(int csize, int smem) {
-  if (csize < 1 || csize > kMaxCluster) return -(int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_launch_config<kFull>(csize, smem, 0, &cfg, &attr);
-  if (err != cudaSuccess) return -(int)err;
-  int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, house_cluster_kernel<kFull>,
-                                       &cfg);
-  if (err != cudaSuccess) return -(int)err;
-  return count;
+// once, asked of the instance that will run (registers differ between
+// instances): 0 none, < 0 a CUDA error, negated.
+int house_cluster_capacity_fp64(int csize, int smem) {
+  return cluster_capacity<double>(csize, smem);
+}
+
+int house_cluster_capacity_fp32(int csize, int smem) {
+  return cluster_capacity<float>(csize, smem);
+}
+
+int house_cluster_capacity_bf16(int csize, int smem) {
+  return cluster_capacity<__nv_bfloat16>(csize, smem);
 }
 
 }  // extern "C"

@@ -4,9 +4,9 @@
 family, by wrapper name, with the fp32 and bf16 instances counted apart
 (``<name>_fp32``, ``<name>_bf16``: ``_launches.py``); ``path_counts()``
 the load paths of the reduced product and ``syr2k``
-(``<name>_bf16_wide``, ...) and the kernels the reduced chase and replay
-took (``chase_pass_fp32_cluster``, ``replay_pass_bf16_slab``, ...), which
-``reset_launches()`` resets too.
+(``<name>_bf16_wide``, ...) and the kernels the reduced panel, chase and
+replay took (``house_panel_fp32_cluster``, ``chase_pass_fp32_cluster``,
+``replay_pass_bf16_slab``, ...), which ``reset_launches()`` resets too.
 """
 from .band_mv import kernel as _band_mv
 from .gemm import kernel as _gemm
@@ -30,7 +30,7 @@ def launch_counts() -> dict:
 
 def path_counts() -> dict:
     return {**_symv.path_counts(), **_syr2k.path_counts(),
-            **_rot_apply.path_counts()}
+            **_house_panel.path_counts(), **_rot_apply.path_counts()}
 
 
 def reset_launches() -> None:

@@ -11,8 +11,9 @@ loads (``csrc/symv.cu``'s ``symm_wide``, ``csrc/syr2k.cu``'s
 ``syr2k_pairs``), and ``narrow``, entry by entry (``symm_wide``'s other
 instance, ``syr2k_tiles``). Each path counts apart in ``fn.paths``
 (``<name>_<fp32|bf16>_<wide|narrow>``, read by ``read_paths``). The
-reduced chase and replay count their launches by kernel the same way
-(``cluster``/``cooperative``, ``slab``/``sweep``: their plans' paths).
+reduced panel, chase and replay count their launches by kernel the same
+way (``cluster``/``cooperative``, ``slab``/``sweep``: their plans'
+paths).
 """
 from __future__ import annotations
 

@@ -10,7 +10,9 @@ the host clock to the synchronize (the wall, and the solve's
 time by kernel. Idle share: 1 - device time / the median wall of the
 timed calls. KE and KI run ``invert=True, use_kernel=True``, TT at
 ``--band-width``; every solve ``on_failure="recover"``. One JSON line a
-precision.
+precision. ``--match`` sums the device time and launches of the kernels
+whose names hold each given string (``--match house_`` is the TT1 panel's
+kernels, cluster and cooperative, at any level).
 
 To profile another tree's kernels, run this file with that tree's ``src``
 first on PYTHONPATH:
@@ -37,7 +39,7 @@ def _device_ms(ev) -> float:
 
 
 def profile_solve(prob, s: int, variant: str, precision: str, repeats: int,
-                  band_width: int = 16, top: int = 6) -> dict:
+                  band_width: int = 16, top: int = 6, match=()) -> dict:
     kw = dict(variant=variant, precision=precision, on_failure="recover")
     if variant in ("KE", "KI"):
         kw.update(invert=True, use_kernel=True)
@@ -64,12 +66,16 @@ def profile_solve(prob, s: int, variant: str, precision: str, repeats: int,
                      reverse=True)
     device_ms = sum(k[0] for k in kernels)
     wall_ms = 1e3 * statistics.median(walls)
+    matched = {m: dict(ms=round(sum(k[0] for k in kernels if m in k[2]), 3),
+                       count=sum(k[1] for k in kernels if m in k[2]))
+               for m in match}
     return dict(variant=variant, precision=precision, n=prob.A.shape[0], s=s,
                 wall_ms=[round(1e3 * w, 2) for w in walls],
                 stage_times_s=stages, device_ms=round(device_ms, 2),
                 idle_share=round(1.0 - device_ms / wall_ms, 4),
                 kernels=[dict(name=name[:60], ms=round(ms, 3), count=count)
-                         for ms, count, name in kernels[:top]])
+                         for ms, count, name in kernels[:top]],
+                matched=matched)
 
 
 def main(argv=None) -> None:
@@ -84,6 +90,9 @@ def main(argv=None) -> None:
     ap.add_argument("--band-width", type=int, default=16)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--tag", default="", help="a label for the lines")
+    ap.add_argument("--match", nargs="*", default=[],
+                    help="sum the device time of the kernels whose names "
+                         "hold each of these strings")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +102,7 @@ def main(argv=None) -> None:
         args.n, device=torch.device("cuda"))
     for precision in args.precision:
         out = profile_solve(prob, args.s, args.variant, precision,
-                            args.repeats, args.band_width)
+                            args.repeats, args.band_width, match=args.match)
         print(json.dumps(dict(tag=args.tag, **out)), flush=True)
 
 

@@ -936,22 +936,45 @@ def test_syr2k_reduced_bitwise_vs_plain(cuda, dt, n, k, sym):
 
 
 @pytest.mark.parametrize("dt", REDUCED)
-@pytest.mark.parametrize("rows,b,row_start", [(24, 4, 3), (1000, 16, 16),
-                                              (9997, 16, 16)])
-def test_house_panel_reduced_vs_plain(cuda, dt, rows, b, row_start):
-    """The cooperative instance against the plain panel factored in fp32
-    (rounded to bf16 at the store): within the panel's bar
+@pytest.mark.parametrize("rows,b,row_start,csize", [
+    (24, 4, 3, 1), (1000, 16, 16, 2), (9997, 16, 16, 16), (500, 64, 20, 1),
+    (700, 64, 10, 2), (3000, 32, 7, 8)])
+def test_house_panel_reduced_vs_plain(cuda, dt, rows, b, row_start, csize):
+    """The wrapper's plan (the cluster kernel, at ``csize`` CTAs) and the
+    cooperative instance forced, each against the plain panel factored in
+    fp32 (rounded to bf16 at the store): within the panel's bar
     (``_panel_ratio``), which the panel computed in bf16 arithmetic and a V
-    zeroed below its pivots fail."""
+    zeroed below its pivots fail; each bitwise on repeat. The wrapper
+    counts one launch of the dtype's instance, on the cluster path."""
     from repro_torch.kernels.house_panel import ops as hp_ops
     E = torch.randn((rows, b), generator=torch.Generator().manual_seed(rows),
                     dtype=torch.float64).to(dt)
     Vp, Tp = hp_ops.house_panel(E, row_start)
-    V, T = hp_kernel.house_panel(E.to(cuda), row_start)
-    assert V.dtype == dt and T.dtype == dt
+    Ek = E.to(cuda)
+    plan = hp_kernel.house_plan(max(rows - row_start, 0), b,
+                                hp_kernel.cluster_capacity, dt)
+    assert (plan.path, plan.csize) == ("cluster", csize)
     us = U_STORE[dt]
-    assert _panel_ratio(V, Vp, rows, us) <= 1.0
-    assert _panel_ratio(T, Tp, rows, us) <= 1.0
+    first = {}
+    for p in (plan, hp_kernel.COOPERATIVE):
+        for _ in range(2):
+            V = torch.full((rows, b), float("nan"), dtype=dt, device=cuda)
+            T = torch.full((b, b), float("nan"), dtype=dt, device=cuda)
+            hp_kernel.house_launch(Ek, row_start, V, T, p, hp_kernel.FULL)
+            assert _panel_ratio(V, Vp, rows, us) <= 1.0, p
+            assert _panel_ratio(T, Tp, rows, us) <= 1.0, p
+            V0, T0 = first.setdefault(p.path, (V, T))
+            assert torch.equal(V, V0) and torch.equal(T, T0), p
+    sfx = "fp32" if dt == torch.float32 else "bf16"
+    kernels.reset_launches()
+    V, T = hp_kernel.house_panel(Ek, row_start)
+    assert V.dtype == dt and T.dtype == dt
+    assert kernels.launch_counts()[f"house_panel_{sfx}"] == 1
+    paths = kernels.path_counts()
+    assert paths[f"house_panel_{sfx}_cluster"] == 1
+    assert paths[f"house_panel_{sfx}_cooperative"] == 0
+    assert torch.equal(V, first["cluster"][0])
+    assert torch.equal(T, first["cluster"][1])
     if rows > 100:
         Vc, Tc = hp_ref.house_panel_ref(E.to(torch.bfloat16), row_start)
         assert _panel_ratio(Vc, Vp, rows, us) > 1.0
@@ -1036,9 +1059,9 @@ def test_chase_and_replay_reduced_bitwise_vs_plain(cuda, dt, n, w):
 
 @pytest.mark.parametrize("precision", ["mixed", "fast"])
 def test_reduced_tt_solve_takes_the_cluster_and_slab_paths(cuda, precision):
-    """A TT solve at a demoted level (n = 400, w = 16: 15 passes) runs all
-    its chase passes on the cluster kernel and all its replay passes on the
-    slab kernel, counted by path."""
+    """A TT solve at a demoted level (n = 400, w = 16: 24 panels, 15
+    passes) runs all its panels and chase passes on the cluster kernels and
+    all its replay passes on the slab kernel, counted by path."""
     prob = md_like(400, device=cuda)
     sfx = {"mixed": "fp32", "fast": "bf16"}[precision]
     n_pass = len(sbr._executed_passes(400, 16))
@@ -1047,6 +1070,8 @@ def test_reduced_tt_solve_takes_the_cluster_and_slab_paths(cuda, precision):
     solve(prob.A, prob.B, 8, variant="TT", band_width=16,
           precision=precision, on_failure="recover")
     paths = kernels.path_counts()
+    assert paths[f"house_panel_{sfx}_cluster"] == sbr._n_panels(400, 16)
+    assert paths[f"house_panel_{sfx}_cooperative"] == 0
     assert paths[f"chase_pass_{sfx}_cluster"] == n_pass
     assert paths[f"chase_pass_{sfx}_cooperative"] == 0
     assert paths[f"replay_pass_{sfx}_slab"] == n_pass

@@ -585,31 +585,80 @@ def test_replay_plan_by_size(n, ncols, aligned, path, ctas):
         assert plan == rot_kernel.SWEEP
 
 
-@pytest.mark.parametrize("active,b,path,csize,rpc", [
-    (9981, 16, "cluster", 16, 624),       # the first MD panel
-    (17227, 16, "cluster", 16, 1077),     # the first DFT panel
-    (17211, 32, "cooperative", 0, 0),     # w=32 at DFT: 4.4 MB
-    (9997, 128, "cooperative", 0, 0),     # b=128
-    (640, 16, "cluster", 1, 640),         # the edge of one CTA
-    (641, 16, "cluster", 2, 321),
-    (16, 16, "cluster", 1, 16),           # the last, short panels
-    (0, 16, "cluster", 1, 1),
-    (200, 64, "cluster", 1, 200),
-    (28432, 16, "cluster", 16, 1777),     # the largest that 16 CTAs hold
-    (28433, 16, "cooperative", 0, 0)])
-def test_house_plan_by_panel_size(active, b, path, csize, rpc):
+_F64 = torch.float64
+#: the 4-byte entries: fp32, and bf16 held as fp32 values
+_FOUR = (torch.float32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,active,b,path,csize,rpc", [
+    (_F64, 9981, 16, "cluster", 16, 624),       # the first MD panel
+    (_F64, 17227, 16, "cluster", 16, 1077),     # the first DFT panel
+    (_F64, 17211, 32, "cooperative", 0, 0),     # w=32 at DFT: 4.4 MB
+    (_F64, 9997, 128, "cooperative", 0, 0),     # b=128
+    (_F64, 640, 16, "cluster", 1, 640),         # the edge of one CTA
+    (_F64, 641, 16, "cluster", 2, 321),
+    (_F64, 16, 16, "cluster", 1, 16),           # the last, short panels
+    (_F64, 0, 16, "cluster", 1, 1),
+    (_F64, 200, 64, "cluster", 1, 200),
+    (_F64, 28432, 16, "cluster", 16, 1777),     # the largest 16 CTAs hold
+    (_F64, 28433, 16, "cooperative", 0, 0)] + [
+    (dt, *case) for dt in _FOUR for case in (
+        (9981, 16, "cluster", 16, 624),          # the first MD panel
+        (17227, 16, "cluster", 16, 1077),        # the first DFT panel
+        (17211, 32, "cluster", 16, 1076),        # w=32 at DFT: 2.2 MB
+        (9997, 128, "cooperative", 0, 0),        # b=128: ~397 KB a CTA
+        (57488, 16, "cluster", 16, 3593),        # the largest 16 CTAs hold
+        (57489, 16, "cooperative", 0, 0))])
+def test_house_plan_by_panel_size(dtype, active, b, path, csize, rpc):
     """The cluster path where the active rows fit 16 CTAs' shared memory
-    (rows and T, partial slots and sums): the fewest CTAs holding at most
-    640 rows each, else 16; the cooperative kernel past that."""
-    plan = hp_kernel.house_plan(active, b)
+    (rows and T, partial slots and sums, at 8 bytes an entry for fp64 and
+    4 for fp32 and bf16): the fewest CTAs holding at most 640 rows each,
+    else 16; the cooperative kernel past that."""
+    plan = hp_kernel.house_plan(active, b, dtype=dtype)
     assert (plan.path, plan.csize, plan.rpc) == (path, csize, rpc)
     if path == "cluster":
+        esize = hp_kernel.HOUSE_ENTRY[dtype]
+        assert esize == (8 if dtype == _F64 else 4)
         assert plan.csize * plan.rpc >= active
-        assert plan.smem == 8 * (rpc * b + hp_kernel.cluster_extra_doubles(b))
+        assert plan.smem == esize * (
+            rpc * b + hp_kernel.cluster_extra_entries(b))
         assert plan.smem <= hp_kernel.SMEM_MAX
         # a card that runs no cluster of 16
-        small = hp_kernel.house_plan(active, b, lambda c: c < 16)
+        small = hp_kernel.house_plan(active, b, lambda c, dt: c < 16, dtype)
         assert small.path == ("cluster" if csize < 16 else "cooperative")
+    else:
+        assert hp_kernel.cluster_at(active, b, 16, dtype).smem > \
+            hp_kernel.SMEM_MAX
+
+
+@pytest.mark.parametrize("dtype", _FOUR)
+def test_house_plan_takes_the_cluster_on_every_md_panel(dtype):
+    """Every one of the 624 TT1 panels of MD (n=9997, w=16; panel p has
+    n - (p+1) w active rows) plans the cluster at 4 bytes an entry."""
+    from repro_torch.core import sbr
+    n, w = 9997, 16
+    panels = sbr._n_panels(n, w)
+    assert panels == 624
+    for p in range(panels):
+        plan = hp_kernel.house_plan(max(n - (p + 1) * w, 0), w, dtype=dtype)
+        assert plan.path == "cluster", (p, plan)
+        assert plan.smem <= hp_kernel.SMEM_MAX
+
+
+@pytest.mark.parametrize("dtype", [_F64, *_FOUR])
+def test_house_plan_asks_the_capacity_of_its_instance(dtype):
+    """The capacity question goes to the instance that will run (its
+    registers, and so its occupancy, differ from the others')."""
+    asked = []
+
+    def capacity(csize, dt):
+        asked.append((csize, dt))
+        return 1
+
+    plan = hp_kernel.house_plan(9981, 16, capacity, dtype)
+    assert plan.path == "cluster"
+    assert asked and all(dt == dtype for _, dt in asked)
+    assert asked[-1][0] == plan.csize
 
 
 # ------------------------------------------------------------- dispatch --
