@@ -162,9 +162,31 @@ Phases, each printed as it runs; any failed check exits nonzero:
    then a fault drill: a transient NaN in
    GS2's input through TD (n=1000) recovered by ``transient_retry``, with
    ``info`` JSON-clean;
-5. one JSON line of the kernels (launches on their main path, error
-   against the plain version, times, bound), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+4c. batched buckets and the router: ``solve_batched`` (one CUDA graph
+   per piece of a bucket's program) at the serving engine's size limit,
+   ``md_like(1024)`` with s=10 and batch 8 through TD, TT (w=16), KE and
+   KI (invert, the kernel product) at fp64 and TT and KE at ``mixed``,
+   and ``dft_like(1024)`` with s=27 through TD and TT; and TT at MD
+   n=9997, s=100, batch 2. Each bucket: every pencil against an eager
+   ``solve`` of it at the same level (1e-10 max|lambda| at fp64, 1e-12
+   below), the Table-3 bars, converged and healthy, a second call a cache
+   hit with compile_s 0, and for TD/TT its launches a replay equal to
+   batch x the eager counts; printed: compile_s, the graphs and their
+   replays, the warm call's wall and pencils/s against the eager loop's,
+   timed in turns, and the call's span on its stream by CUDA events (idle
+   gaps included: ``launch/solve_profile.py --batch`` reads the device
+   time). Then
+   ``solve(variant="auto", machine=MachineParams.h100())`` at MD
+   (invert) and DFT (clustered), each held to the bars; KE and KI at DFT
+   once each (clustered, a restart budget; not a check); the predicted
+   totals of the four variants beside this run's measured ones; whether
+   the MD choice is the measured fastest fp64 variant; and
+   ``MachineParams.from_measurements`` of this run's MD fp64 stage times
+   beside ``h100()``;
+5. one JSON line of the kernels (launches on their main path, launches
+   in phase 4c's warm calls, error against the plain version, times,
+   bound), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 ``--md-n`` / ``--dft-n`` / ``--wide-n`` / ``--chase-n`` shrink the
 matrices for a quick rehearsal; the defaults are the sizes above.
@@ -2546,6 +2568,246 @@ def run_solve(label: str, prob, s: int, checks: Checks,
     return res
 
 
+# ---- phase 4c: batched buckets and the router --------------------------------
+
+BUCKET_N = 1024          # the serving engine's max_batched_n (its buckets)
+BUCKET_BATCH = 8
+BUCKET_MD_S = 10         # s/n ~ 1%: the MD ratio (100 / 9997)
+BUCKET_DFT_S = 27        # s/n ~ 2.6%: the DFT ratio (448 / 17243)
+#: restart budgets of KE and KI at the DFT paper size (never run there
+#: before; a run that does not converge within its budget is reported)
+DFT_KRYLOV_RESTARTS = {"KE": 40, "KI": 12}
+
+
+def _bucket_stacks(gen, n: int, batch: int, seed0: int, dev):
+    import torch
+    probs = [gen(n, seed=seed0 + i, device=dev) for i in range(batch)]
+    return (probs, torch.stack([p.A for p in probs]),
+            torch.stack([p.B for p in probs]))
+
+
+def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
+               **kw) -> dict:
+    """One bucket through ``solve_batched`` on the card, cold then warm:
+    each pencil against an eager ``solve`` of it at the same level (the
+    gap within 1e-10 max|lambda| at fp64, the Table-3 scale 1e-12
+    max|lambda| below), the Table-3 bars, converged and healthy, the
+    warm call a cache hit with compile_s 0 and (TD/TT) batch x the eager
+    launches in its graphs; then the warm call and the eager loop timed
+    in turns (loop, call, call, loop; the first loop's solves are the
+    comparison), and the call's span by CUDA events around it (idle gaps
+    included) beside its wall."""
+    import torch
+    from repro_torch.core import accuracy_report, batched, solve
+
+    batch, n = A.shape[0], A.shape[1]
+    precision = kw.get("precision", "fp64")
+    variant = kw["variant"]
+    batched.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cold = batched.solve_batched(A, B, s, **kw)
+    warm = batched.solve_batched(A, B, s, **kw)
+    info = warm.info
+    ekw = {k: v for k, v in kw.items() if k != "refine_steps"}
+
+    def loop(keep=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in probs:
+            one = solve(p.A, p.B, s, **ekw)
+            if keep is not None:
+                keep.append(one)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def call():
+        return batched.solve_batched(A, B, s, **kw).info["wall_s"]
+
+    # the eager loop, the warm call, the call, the loop: timed in turns;
+    # the first loop's results are the comparison
+    eager: list = []
+    walls = [loop(eager), call(), call(), loop()]
+    checks.check(f"{label} runs as CUDA graphs", info["path"] ==
+                 "cuda_graphs" and cold.info["cache_hit"] is False and
+                 cold.info["compile_s"] > 0.0,
+                 f"path {info['path']}, graphs {info['graphs']}, cold "
+                 f"compile_s {cold.info['compile_s']:.3f}")
+    checks.check(f"{label} warm call is a cache hit", info["cache_hit"] is
+                 True and info["compile_s"] == 0.0,
+                 f"cache_hit {info['cache_hit']}, compile_s "
+                 f"{info['compile_s']}")
+    checks.check(f"{label} converged and healthy",
+                 bool(warm.converged.all() and warm.healthy.all()),
+                 f"converged {warm.converged.tolist()}, healthy "
+                 f"{warm.healthy.tolist()}")
+    bar = EVAL_BAR if precision == "fp64" else TABLE3
+    gaps, rr, bo = [], [], []
+    for i, (p, one) in enumerate(zip(probs, eager)):
+        scale = float(p.exact_evals.abs().max())
+        gaps.append(float((warm.evals[i] - one.evals).abs().max()) / scale)
+        acc = accuracy_report(p.A, p.B, warm.X[i], warm.evals[i])
+        rr.append(float(acc.relative_residual))
+        bo.append(float(acc.b_orthogonality))
+    checks.check(f"{label} eigenvalues vs eager solves", max(gaps) <= bar,
+                 f"max gap / max|lambda| {max(gaps)!r} (bar {bar})")
+    checks.check(f"{label} Table-3 bars", max(rr) <= TABLE3 and
+                 max(bo) <= TABLE3, f"max relative_residual {max(rr)!r}, "
+                 f"max b_orthogonality {max(bo)!r} (bar {TABLE3})")
+    if variant in ("TD", "TT"):
+        want = {k: sum(one.info["kernel_launches"][k] for one in eager)
+                for k in info["kernel_launches"]}
+        checks.check(f"{label} launches a replay = batch x eager",
+                     info["kernel_launches"] == want,
+                     json.dumps({k: v for k, v in want.items() if v}))
+    else:
+        checks.check(f"{label} kernels ran in the graphs",
+                     sum(info["kernel_launches"].values()) > 0,
+                     f"restarts {info['restarts']}, per replay "
+                     f"{json.dumps(info['graph_launches'])}")
+    del eager
+    call_s, loop_s = min(walls[1], walls[2]), min(walls[0], walls[3])
+    _, span_ms = _time_cuda(lambda: batched.solve_batched(A, B, s, **kw))
+    row = {"compile_s": cold.info["compile_s"], "graphs": info["graphs"],
+           "wall_s": call_s, "pencils_per_s": batch / call_s,
+           "eager_pencils_per_s": batch / loop_s,
+           "span_ms": span_ms, "restarts": info.get("restarts"),
+           "launches": info["kernel_launches"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"bucket {label} (n={n}, s={s}, batch={batch}): compile_s "
+          f"{row['compile_s']:.3f}, graphs {row['graphs']} "
+          f"({', '.join(f'{k} x{v}' for k, v in info['graph_replays'].items())}), "
+          f"warm wall {1e3 * call_s:.2f} ms = {row['pencils_per_s']:.2f} "
+          f"pencils/s; eager loop {1e3 * loop_s:.2f} ms = "
+          f"{row['eager_pencils_per_s']:.2f} pencils/s (in turns, loop, "
+          f"call, call, loop: "
+          f"{', '.join(f'{1e3 * w:.2f}' for w in walls)} ms); the call's "
+          f"span {span_ms:.2f} ms (CUDA events, idle gaps included); peak "
+          f"memory "
+          f"{row['peak_gib']:.2f} GiB", flush=True)
+    batched.clear_pipeline_cache()
+    return row
+
+
+def run_buckets(md_paper, checks: Checks, dev) -> dict:
+    """Phase 4c's buckets at the engine's size limit (MD and DFT at their
+    s/n ratios, batch 8), and TT at the MD paper size, batch 2."""
+    from repro_torch.data.problems import dft_like, md_like
+
+    rows = {}
+    probs, A, B = _bucket_stacks(md_like, BUCKET_N, BUCKET_BATCH, 700, dev)
+    krylov = dict(invert=True, use_kernel=True)
+    for label, kw in (("TD", dict(variant="TD")),
+                      ("TT", dict(variant="TT", band_width=TT_W)),
+                      ("KE", dict(variant="KE", **krylov)),
+                      ("KI", dict(variant="KI", **krylov)),
+                      ("TT mixed", dict(variant="TT", band_width=TT_W,
+                                        precision="mixed")),
+                      ("KE mixed", dict(variant="KE", precision="mixed",
+                                        **krylov))):
+        rows[f"MD {label}"] = run_bucket(f"MD {label}", probs, A, B,
+                                         BUCKET_MD_S, checks, **kw)
+    probs, A, B = _bucket_stacks(dft_like, BUCKET_N, BUCKET_BATCH, 800, dev)
+    for label, kw in (("TD", dict(variant="TD")),
+                      ("TT", dict(variant="TT", band_width=TT_W))):
+        rows[f"DFT {label}"] = run_bucket(f"DFT {label}", probs, A, B,
+                                          BUCKET_DFT_S, checks, **kw)
+    del probs, A, B
+    # the paper size: TT at MD n=9997, s=100, batch 2
+    import torch
+    torch.cuda.empty_cache()
+    n = md_paper.A.shape[0]
+    probs = [md_paper, md_like(n, seed=n + 1, device=dev)]
+    A = torch.stack([p.A for p in probs])
+    B = torch.stack([p.B for p in probs])
+    rows["MD paper TT"] = run_bucket("MD paper TT", probs, A, B, 100, checks,
+                                     variant="TT", band_width=TT_W)
+    del probs, A, B
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_router(md, dft, s_md: int, s_dft: int, measured: dict,
+               checks: Checks) -> dict:
+    """``solve(variant="auto", machine=MachineParams.h100())`` at MD
+    (invert) and DFT (clustered), each held to the bars; the predicted
+    stage totals of the four variants beside this run's measured ones;
+    whether the MD choice is the measured fastest fp64 variant; KE and KI
+    at DFT once each (clustered, their restart budgets); and
+    ``from_measurements`` fitted to this run's MD fp64 stage times beside
+    ``h100()``."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis.variant_model import (VARIANTS, MachineParams,
+                                                    predict_stage_times)
+    from repro_torch.core import solve
+
+    h100 = MachineParams.h100()
+    out = {}
+    auto_md = run_solve("auto MD", md, s_md, checks, variant="auto",
+                        machine=h100, invert=True, use_kernel=True)
+    out["MD choice"] = auto_md.info["router"]["variant"]
+    print(f"  router MD: {json.dumps(auto_md.info['router'])}", flush=True)
+    del auto_md
+    torch.cuda.empty_cache()
+    auto_dft = run_solve("auto DFT", dft, s_dft, checks, variant="auto",
+                         machine=h100, clustered=True, use_kernel=True)
+    out["DFT choice"] = auto_dft.info["router"]["variant"]
+    print(f"  router DFT: {json.dumps(auto_dft.info['router'])}", flush=True)
+    del auto_dft
+    torch.cuda.empty_cache()
+    # KE and KI at DFT, fp64, as the router prices them (clustered)
+    for v, budget in DFT_KRYLOV_RESTARTS.items():
+        t0 = time.perf_counter()
+        r = solve(dft.A, dft.B, s_dft, variant=v, clustered=True,
+                  use_kernel=True, max_restarts=budget)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        measured[f"DFT {v}"] = dict(r.stage_times, n_matvec=r.info[
+            "n_matvec"])
+        print(f"DFT {v} fp64 (clustered, max_restarts={budget}): "
+              f"converged {r.info['converged']}, n_matvec "
+              f"{r.info['n_matvec']}, n_restart {r.info['n_restart']}, "
+              f"{wall:.2f} s; stage_times_s " + json.dumps(
+                  {k: round(x, 4) for k, x in r.stage_times.items()}),
+              flush=True)
+        del r
+        torch.cuda.empty_cache()
+    for label, n, s, kw in (("MD", md.A.shape[0], s_md, {}),
+                            ("DFT", dft.A.shape[0], s_dft,
+                             dict(clustered=True))):
+        parts = []
+        for v in VARIANTS:
+            vk = dict(kw, filter_degree=16) if (
+                v in ("KE", "KI") and kw) else kw
+            pred = predict_stage_times(v, n, s, machine=h100, band_width=TT_W,
+                                       **vk)["Tot."]
+            meas = measured.get(f"{label} {v}", {}).get("Tot.")
+            parts.append(f"{v} predicted {pred:.4f} s, measured "
+                         + (f"{meas:.4f} s" if meas is not None
+                            else "not measured"))
+        print(f"router {label} (h100): " + "; ".join(parts), flush=True)
+    fp64 = {v: measured[f"MD {v}"]["Tot."] for v in VARIANTS}
+    fastest = min(fp64, key=fp64.get)
+    print(f"router MD choice {out['MD choice']} is the measured fastest fp64 "
+          f"variant ({fastest}, {json.dumps(fp64)}): "
+          f"{out['MD choice'] == fastest}", flush=True)
+    out["MD fastest"] = fastest
+    records = {"n": md.A.shape[0], "s": s_md, "n_devices": 1, "measured": [
+        dict({"variant": v, "stage_times_s": {
+            k: x for k, x in measured[f"MD {v}"].items()
+            if k not in ("Tot.", "n_matvec")}},
+             **({"band_width": TT_W} if v == "TT" else {}),
+             **({"n_matvec": measured[f"MD {v}"]["n_matvec"]}
+                if v in ("KE", "KI") else {})) for v in VARIANTS]}
+    base = dataclasses.replace(h100, t_dispatch=0.0, t_loop_step=0.0)
+    fit = MachineParams.from_measurements(records, base=base)
+    print("from_measurements (this run, MD fp64): " + json.dumps(
+        dataclasses.asdict(fit)) + "; h100(): " + json.dumps(
+        dataclasses.asdict(h100)), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
@@ -2770,6 +3032,8 @@ def main() -> int:
     phase_done("3c (band_mv, gemm, trsm)")
 
     # ---- phase 4: the main paths -----------------------------------------
+    # each solve's stage times, for the router's lines (phase 4c)
+    measured = {}
     td_res = run_solve("TD", md, args.md_s, checks, variant="TD")
     td = td_res.info["kernel_launches"]
     ke_res = run_solve("KE", md, args.md_s, checks, variant="KE",
@@ -2777,6 +3041,9 @@ def main() -> int:
     ke = ke_res.info["kernel_launches"]
     ki_res = run_solve("KI", md, args.md_s, checks, variant="KI",
                        invert=True, use_kernel=True)
+    measured["MD TD"] = dict(td_res.stage_times)
+    for v, r in (("KE", ke_res), ("KI", ki_res)):
+        measured[f"MD {v}"] = dict(r.stage_times, n_matvec=r.info["n_matvec"])
     ke4_res = run_solve("KE p=4", md, args.md_s, checks, variant="KE",
                         invert=True, use_kernel=True, krylov_block=4)
     ki = ki_res.info["kernel_launches"]
@@ -2799,18 +3066,25 @@ def main() -> int:
     profile_stage("KE solve", lambda: solve(md.A, md.B, args.md_s,
                                             variant="KE", invert=True,
                                             use_kernel=True))
-    tt = run_solve("TT", md, args.md_s, checks, variant="TT",
-                   band_width=TT_W).info["kernel_launches"]
+    tt_res = run_solve("TT", md, args.md_s, checks, variant="TT",
+                       band_width=TT_W)
+    measured["MD TT"] = dict(tt_res.stage_times)
+    tt = tt_res.info["kernel_launches"]
+    del tt_res
     print_plans("TT", args.md_n, args.md_s, TT_W)
     # the paper's second experiment at its size: TT, then TD
     dft = dft_like(args.dft_n, device=dev)
-    tt_dft = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
-                       band_width=TT_W).info["kernel_launches"]
+    tt_dft_res = run_solve("TT DFT", dft, args.dft_s, checks, variant="TT",
+                           band_width=TT_W)
+    measured["DFT TT"] = dict(tt_dft_res.stage_times)
+    tt_dft = tt_dft_res.info["kernel_launches"]
+    del tt_dft_res
     print_plans("TT DFT", args.dft_n, args.dft_s, TT_W)
     torch.cuda.empty_cache()
-    td_dft = run_solve("TD DFT", dft, args.dft_s, checks,
-                       variant="TD").info["kernel_launches"]
-    del dft
+    td_dft_res = run_solve("TD DFT", dft, args.dft_s, checks, variant="TD")
+    measured["DFT TD"] = dict(td_dft_res.stage_times)
+    td_dft = td_dft_res.info["kernel_launches"]
+    del td_dft_res
     torch.cuda.empty_cache()
     # the paper's Table 4: the blocked GS1/GS2/TD1 against the fused ones
     tdb_res = run_solve("TD blocked", md, args.md_s, checks, variant="TD",
@@ -2840,6 +3114,13 @@ def main() -> int:
     prec = run_precision(md, args.md_s, checks)
     fault_drill(checks, dev)
     phase_done("4b (precision, fault drill)")
+    # ---- phase 4c: batched buckets and the router -------------------------
+    buckets = run_buckets(md, checks, dev)
+    phase_done("4c (batched buckets)")
+    run_router(md, dft, args.md_s, args.dft_s, measured, checks)
+    del dft
+    torch.cuda.empty_cache()
+    phase_done("4c (router)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),
@@ -2967,6 +3248,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # launches a warm call of phase 4c's buckets ran, all buckets
+            "batched_launches": sum(b["launches"].get(name, 0)
+                                    for b in buckets.values()),
             # the reduced panel, chase and replay: the older kernel on the
             # same input, the pass's chain floor, the panel's device time
             **{k: r[k] for k in ("older_path_ms", "chain_floor_ms",

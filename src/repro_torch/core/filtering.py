@@ -26,8 +26,8 @@ def probe_steps(s: int, n: int) -> int:
     return int(min(max(2 * s, 12), n - 1))
 
 
-def estimate_bounds(matvec, v: torch.Tensor, k: int):
-    """k-step single-vector Lanczos probe -> (theta (k,) ascending, beta_k).
+def probe_matrix(matvec, v: torch.Tensor, k: int):
+    """The k-step probe up to its ``eigh``: (T_k symmetrized, beta_k).
 
     ``matvec`` takes (n, p) blocks (p=1 here)."""
     from .lanczos import _segment_impl  # late import: lanczos imports us
@@ -37,8 +37,14 @@ def estimate_bounds(matvec, v: torch.Tensor, k: int):
     V[:, 0] = v / torch.linalg.vector_norm(v)
     T = torch.zeros((k + 1, k + 1), dtype=v.dtype, device=v.device)
     V, T, B_q = _segment_impl(matvec, V, T, 0, p=1)
-    theta, _ = eigh_or_nan(0.5 * (T[:k, :k] + T[:k, :k].mT))
-    return theta, torch.abs(B_q[0, 0])
+    return 0.5 * (T[:k, :k] + T[:k, :k].mT), torch.abs(B_q[0, 0])
+
+
+def estimate_bounds(matvec, v: torch.Tensor, k: int):
+    """k-step single-vector Lanczos probe -> (theta (k,) ascending, beta_k)."""
+    Tk, beta_k = probe_matrix(matvec, v, k)
+    theta, _ = eigh_or_nan(Tk)
+    return theta, beta_k
 
 
 def filter_interval(theta: torch.Tensor, beta_k: torch.Tensor, s: int,
@@ -83,5 +89,5 @@ def chebyshev_filter(matvec, X: torch.Tensor, degree: int, a, b, a0):
     return Y
 
 
-__all__ = ["probe_steps", "estimate_bounds", "filter_interval",
-           "chebyshev_filter"]
+__all__ = ["probe_steps", "probe_matrix", "estimate_bounds",
+           "filter_interval", "chebyshev_filter"]

@@ -39,6 +39,12 @@ tridiagonalization at a panel of 32 (``trsm``, ``gemm`` and ``syr2k`` on
 the card); the defaults are the fused library factorization, the two
 triangular solves and the unblocked TD1.
 
+``variant="auto"`` asks the cost model's router
+(``analysis.variant_model.choose_variant``, on ``machine``; ``None`` is
+the reference's multicore regime, ``MachineParams.h100()`` the card) for
+the variant it predicts fastest, and records the decision in
+``info['router']``.
+
 ``which='smallest'|'largest'`` selects the end of the spectrum;
 ``invert=True`` applies the paper's MD trick (solve the inverse pair
 (B, A) for its largest eigenpairs — valid when A is also SPD — and map
@@ -82,10 +88,6 @@ VARIANTS = ("TD", "TT", "KE", "KI")
 #: seed of the default start blocks: TD2's inverse iteration, and the
 #: Lanczos start block and filter probe (the reference's key)
 SOLVE_SEED = 20120520
-
-_NOT_PORTED = {
-    "auto": "ROADMAP.md §1 item 11 (analysis: the variant router)",
-}
 
 #: the kernel families of the TT1 sweep, whose launches (of the instance
 #: of the compute dtype) ``info['tt1']`` reports
@@ -134,9 +136,6 @@ def _gs2_sygst_fused(A, U, block):
 
 def _check_options(variant: str, which: str, gs1: str, gs2: str,
                    td1: str) -> None:
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"variant={variant!r} is not ported yet ({_NOT_PORTED[variant]})")
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if which not in ("smallest", "largest"):
@@ -389,7 +388,7 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           refine: bool | None = None, refine_tol: float = REFINE_TOL,
           refine_max_steps: int = 60, guard0: torch.Tensor | None = None,
           on_failure: str = "warn", max_retries: int = 2,
-          device=None) -> GSyEigResult:
+          machine=None, device=None) -> GSyEigResult:
     """GSYEIG with failure containment, on ``device`` (``None`` = the card;
     without CUDA it raises unless ``device="cpu"`` is passed).
 
@@ -400,6 +399,12 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     block size p (``None`` = 1), ``filter`` the Chebyshev start-filter
     degree (``None`` = 16 when ``clustered``, else off). ``info['krylov']``
     records p and the degree.
+
+    ``variant="auto"`` picks the variant with the least predicted time
+    under the cost model on ``machine`` (a ``MachineParams``; ``None`` =
+    the reference's default), at the Krylov knobs resolved above and this
+    ``precision``; ``info['router']`` holds the decision and the table of
+    predicted totals.
 
     ``gs1="blocked"``, ``gs2="sygst"`` and ``td1="blocked"`` pick the
     blocked stages; ``block`` is the block of the first two (the
@@ -442,6 +447,18 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     """
     validate_on_failure(on_failure)
     dev = resolve_device(device)
+    router = None
+    if variant == "auto":
+        from repro_torch.analysis.variant_model import choose_variant
+        choice = choose_variant(
+            int(A.shape[0]), s, band_width=band_width, m=m,
+            clustered=clustered, machine=machine,
+            krylov_block=krylov_block if krylov_block is not None else 1,
+            filter_degree=(filter if filter is not None
+                           else 16 if clustered else 0),
+            precision=precision)
+        variant = choice.variant
+        router = choice.as_json_dict()
     recovery: list = []
     kw: Dict[str, Any] = dict(
         variant=variant, which=which, invert=invert, gs1=gs1, gs2=gs2,
@@ -532,4 +549,6 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     launches1 = _kernels.launch_counts()
     res.info["kernel_launches"] = {k: launches1[k] - launches0[k]
                                    for k in launches1}
+    if router is not None:
+        res.info["router"] = router
     return res

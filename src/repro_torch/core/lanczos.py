@@ -18,9 +18,18 @@ Random starts are explicit: ``v0`` is the (n, p) start block and
 ``probe_v0`` the filter probe's (n,) vector (the reference draws them as
 ``normal(key, (n, p))`` and ``normal(fold_in(key, 2), (n,))``; torch
 cannot replay threefry, so parity runs pass in what JAX drew). Without
-them both are drawn from ``generator``. The fully jitted variant of the
-batched path (``lanczos_solve_jit``) comes with that path (ROADMAP.md §1
-item 9).
+them both are drawn from ``generator``.
+
+``lanczos_solve_jit`` is the reference's fixed-trip driver (its
+``lax.while_loop``): a ``KrylovStack`` of one lane, the loop that
+``core.batched`` runs over a bucket's lanes. The state of one pencil
+lives in the preallocated buffers of a ``KrylovLane``, a restart is the
+segment (``_segment_impl``) and the restart math (``_restart_post``), and
+a done flag (converged, unhealthy or out of restarts) freezes the Ritz
+pairs, the verdicts and the restart count by ``torch.where`` (a later
+segment still writes a done lane's basis, which no result reads). Only the
+``eigh`` of each restart and the host's read of the done flag leave the
+device; ``core.batched`` captures everything between them in CUDA graphs.
 
 ``compute_dtype`` (fp32 or bf16) demotes only the operator: its matrices
 are cast once (the product's matrix into a copy with padded rows,
@@ -36,8 +45,8 @@ from typing import NamedTuple
 import torch
 
 from .filtering import (chebyshev_filter, estimate_bounds, filter_interval,
-                        probe_steps)
-from .linalg_utils import eigh_or_nan
+                        probe_matrix, probe_steps)
+from .linalg_utils import eigh_input, eigh_or_nan, eigh_output
 from .operators import ExplicitC, ImplicitC, apply_op, op_dim
 from .precision import padded_copy
 
@@ -114,8 +123,21 @@ def _restart_math(V: torch.Tensor, T: torch.Tensor, B_q: torch.Tensor,
     restart keeps the leading ``keep`` Ritz vectors plus the (n, p)
     residual block, with the coupling ``B_q S[m-p:m, :keep]`` in the
     arrowhead of the new T."""
-    Tm = 0.5 * (T[:m, :m] + T[:m, :m].mT)
-    theta, S = eigh_or_nan(Tm)            # ascending
+    theta, S = eigh_or_nan(restart_matrix(T, m))      # ascending
+    return _restart_post(V, B_q, theta, S, tol_eff, s, keep, m, p, which,
+                         resid_floor_rel)
+
+
+def restart_matrix(T: torch.Tensor, m: int) -> torch.Tensor:
+    """The restart's ``eigh`` operand: the leading m x m block of T,
+    symmetrized."""
+    return 0.5 * (T[:m, :m] + T[:m, :m].mT)
+
+
+def _restart_post(V: torch.Tensor, B_q: torch.Tensor, theta: torch.Tensor,
+                  S: torch.Tensor, tol_eff: float, s: int, keep: int, m: int,
+                  p: int, which: str, resid_floor_rel: float = 0.0):
+    """``_restart_math`` after its ``eigh`` (theta ascending, S)."""
     if which == "LA":  # want the largest: reorder descending, wanted first
         theta = torch.flip(theta, (0,))
         S = torch.flip(S, (1,))
@@ -133,8 +155,8 @@ def _restart_math(V: torch.Tensor, T: torch.Tensor, B_q: torch.Tensor,
     V_restart = torch.zeros_like(V)
     V_restart[:, :keep] = V[:, :m] @ S[:, :keep]
     V_restart[:, keep:keep + p] = V[:, m:m + p]
-    T_new = torch.zeros_like(T)
-    idx = torch.arange(keep, device=T.device)
+    T_new = V.new_zeros((m + p, m + p))
+    idx = torch.arange(keep, device=V.device)
     T_new[idx, idx] = theta[:keep]
     T_new[keep:keep + p, :keep] = b[:, :keep]
     T_new[:keep, keep:keep + p] = b[:, :keep].mT
@@ -237,7 +259,6 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
         n = op_dim(op)
         M = op.C if isinstance(op, ExplicitC) else op.A
         dtype, device = M.dtype, M.device
-        matvec = lambda X: apply_op(op, X, use_kernel=use_kernel)  # noqa: E731
     elif callable(op):
         if n is None:
             if v0 is None:
@@ -247,14 +268,13 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
         device = (v0.device if isinstance(v0, torch.Tensor)
                   else generator.device if generator is not None
                   else torch.device("cpu"))
-        matvec = op
     else:
         raise TypeError(f"op must be an Operator or a matvec callable: {op!r}")
     if dtype != torch.float64:
         raise ValueError(
             f"the Lanczos state is float64 and so is the operator it is "
             f"given, got {dtype}; compute_dtype= demotes the operator")
-    matvec, resid_floor_rel = _demoted(op, matvec, compute_dtype, use_kernel)
+    matvec, resid_floor_rel = krylov_matvec(op, use_kernel, compute_dtype)
     if m is None:
         m = default_subspace(s, n, p)
     if m % p or m + p > n + (1 if p == 1 else 0):
@@ -316,5 +336,250 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
                          resid[:s])
 
 
-__all__ = ["LanczosResult", "lanczos_solve", "default_subspace",
-           "restart_schedule", "START_SEED"]
+class KrylovLane:
+    """One pencil's fixed-trip thick-restart state, in buffers allocated
+    once and updated in place, so that a CUDA graph captured over its
+    methods replays on the same memory (``core.batched``).
+
+    The reference's ``lax.while_loop`` state: the basis V, T, the last
+    coupling B_q, the restart count ``k``, ``converged``, ``healthy``, the
+    Ritz pair ``(evals, evecs)`` of the last restart and ``done`` (out of
+    restarts, converged or unhealthy: the loop's negated condition). None
+    of the methods reads a value back to the host; each ``eigh`` is the
+    caller's, between ``segment`` (or ``probe``) and ``restart`` (or
+    ``begin``)."""
+
+    def __init__(self, n: int, s: int, m: int, p: int, which: str,
+                 max_restarts: int, resid_floor_rel: float, device):
+        f64 = torch.float64
+        self.s, self.m, self.p, self.which = s, m, p, which
+        self.max_restarts = max_restarts
+        self.keep = restart_schedule(s, m, p)[0]
+        self.resid_floor_rel = resid_floor_rel
+        self.V = torch.zeros((n, m + p), dtype=f64, device=device)
+        self.T = torch.zeros((m + p, m + p), dtype=f64, device=device)
+        self.B_q = torch.zeros((p, p), dtype=f64, device=device)
+        self.k = torch.zeros((), dtype=torch.int64, device=device)
+        self.converged = torch.zeros((), dtype=torch.bool, device=device)
+        self.healthy = torch.ones((), dtype=torch.bool, device=device)
+        self.done = torch.zeros((), dtype=torch.bool, device=device)
+        self.finite = torch.ones((), dtype=torch.bool, device=device)
+        self.beta = torch.zeros((), dtype=f64, device=device)
+        self.evals = torch.zeros((s,), dtype=f64, device=device)
+        self.evecs = torch.zeros((n, s), dtype=f64, device=device)
+
+    def probe(self, matvec, v: torch.Tensor, k: int) -> torch.Tensor:
+        """The filter probe up to its ``eigh``; returns the operand."""
+        Tk, beta = probe_matrix(matvec, v, k)
+        self.beta.copy_(beta)
+        finite, Tk = eigh_input(Tk)
+        self.finite.copy_(finite)
+        return Tk
+
+    def begin(self, matvec, X0: torch.Tensor, filter_degree: int = 0,
+              w: torch.Tensor | None = None) -> None:
+        """Reset the state to the start block X0 (n, p), Chebyshev-filtered
+        first when ``filter_degree > 0`` from the probe's eigenvalues w
+        (the ``eigh`` of ``probe``'s operand)."""
+        if filter_degree > 0:
+            theta, _ = eigh_output(self.finite, w, None)
+            a, b, a0 = filter_interval(theta, self.beta, self.s, self.which)
+            X0 = chebyshev_filter(matvec, X0, filter_degree, a, b, a0)
+        Q0, _ = _qr_posdiag(X0)
+        self.V.zero_()
+        self.V[:, :self.p] = Q0
+        self.T.zero_()
+        for t in (self.k, self.evals, self.evecs):
+            t.zero_()
+        self.converged.fill_(False)
+        self.done.fill_(False)
+        self.healthy.fill_(True)
+
+    def segment(self, matvec, first: bool) -> torch.Tensor:
+        """The block steps of one restart (from block 0 on the first, from
+        ``keep / p`` after a thick restart); returns the ``eigh`` operand."""
+        j0 = 0 if first else self.keep // self.p
+        _, _, B_q = _segment_impl(matvec, self.V, self.T, j0, self.p)
+        self.B_q.copy_(B_q)
+        finite, Tm = eigh_input(restart_matrix(self.T, self.m))
+        self.finite.copy_(finite)
+        return Tm
+
+    def restart(self, w: torch.Tensor, S: torch.Tensor) -> None:
+        """The restart math from the ``eigh`` (w, S) of ``segment``'s
+        operand, applied where the lane is not done."""
+        theta, S = eigh_output(self.finite, w, S)
+        m, s = self.m, self.s
+        theta, S, _, V_restart, T_new, conv, healthy = _restart_post(
+            self.V, self.B_q, theta, S, torch.finfo(torch.float64).eps, s,
+            self.keep, m, self.p, self.which, self.resid_floor_rel)
+        live = ~self.done
+        self.evecs.copy_(torch.where(live, self.V[:, :m] @ S[:, :s],
+                                     self.evecs))
+        self.evals.copy_(torch.where(live, theta[:s], self.evals))
+        self.V.copy_(torch.where(live, V_restart, self.V))
+        self.T.copy_(torch.where(live, T_new, self.T))
+        self.converged.copy_(torch.where(live, conv, self.converged))
+        self.healthy.copy_(torch.where(live, healthy, self.healthy))
+        self.k.add_(live.to(torch.int64))
+        self.done.copy_((self.k >= self.max_restarts) | self.converged
+                        | ~self.healthy)
+
+    def result(self):
+        """(evals (s,), evecs (n, s) orthonormalized, k, converged,
+        healthy): ``lanczos_solve_jit``'s outputs."""
+        q, _ = torch.linalg.qr(self.evecs)
+        return self.evals, q, self.k, self.converged, self.healthy
+
+
+def krylov_matvec(op, use_kernel: bool, compute_dtype):
+    """(matvec, resid_floor_rel) on (n, p) blocks of an ``ExplicitC``/
+    ``ImplicitC`` operator or a block-matvec callable, demoted to
+    ``compute_dtype`` (None, a torch dtype or its name) when it is below
+    float64."""
+    if isinstance(compute_dtype, str):
+        compute_dtype = getattr(torch, compute_dtype)
+    if isinstance(op, (ExplicitC, ImplicitC)):
+        base = lambda X: apply_op(op, X, use_kernel=use_kernel)  # noqa: E731
+    else:
+        base = op
+    return _demoted(op, base, compute_dtype, use_kernel)
+
+
+def eigh_stack(M: torch.Tensor, w: torch.Tensor, V: torch.Tensor) -> None:
+    """One batched ``eigh`` of the (b, k, k) stack M into (w, V), in place.
+    A matrix that is not finite gives NaN (JAX's answer; the library
+    raises), so that a poisoned lane reaches its health verdict and not an
+    exception. ``torch.linalg.eigh`` reads its ``info`` on the host, so in
+    ``core.batched`` each such call is a split point between two graphs."""
+    finite = torch.isfinite(M).flatten(1).all(1)
+    w_, V_ = torch.linalg.eigh(torch.where(finite[:, None, None], M, 0.0))
+    w.copy_(torch.where(finite[:, None], w_, float("nan")))
+    V.copy_(torch.where(finite[:, None, None], V_, float("nan")))
+
+
+class KrylovStack:
+    """``lanczos_solve_jit``'s loop over a stack of lanes, one pencil each:
+    the reference's ``lax.while_loop`` under ``vmap``, which runs until
+    every lane is done while each done lane stays frozen.
+
+    Its pieces (``pieces()``: ``krylov_init``, ``krylov_filter`` with a
+    filter, ``krylov_restart``, ``krylov_segment``) run every lane in turn
+    and read nothing back to the host. ``drive`` runs them by name through
+    ``run`` around the batched ``eigh``s and the one host read of a
+    restart, so that ``core.batched`` can replay each piece from a CUDA
+    graph. ``operator(i)`` gives lane i's (matvec, resid_floor_rel) inside
+    ``krylov_init``; ``v0`` (b, n, p) and ``probe_v0`` (b, n) hold the
+    starts, read when the pieces run."""
+
+    def __init__(self, lanes, operator, v0: torch.Tensor,
+                 probe_v0: torch.Tensor | None, filter_degree: int):
+        b, n, m = len(lanes), v0.shape[1], lanes[0].m
+        f64 = dict(dtype=torch.float64, device=v0.device)
+        self.lanes, self.operator = lanes, operator
+        self.v0, self.probe_v0 = v0, probe_v0
+        self.filter_degree = filter_degree
+        self.matvec: list = [None] * b
+        self.kb = probe_steps(lanes[0].s, n)
+        if filter_degree > 0:
+            self.Tk = torch.zeros((b, self.kb, self.kb), **f64)
+            self.wk = torch.zeros((b, self.kb), **f64)
+            self.Sk = torch.zeros_like(self.Tk)
+        self.Tm = torch.zeros((b, m, m), **f64)
+        self.wm = torch.zeros((b, m), **f64)
+        self.Sm = torch.zeros_like(self.Tm)
+        self.all_done = torch.zeros((), dtype=torch.bool, device=v0.device)
+        self.restarts = 0
+
+    def pieces(self) -> dict:
+        out = {"krylov_init": self.init}
+        if self.filter_degree > 0:
+            out["krylov_filter"] = self.filter
+        out.update(krylov_restart=self.restart, krylov_segment=self.segment)
+        return out
+
+    def init(self) -> None:
+        for i, lane in enumerate(self.lanes):
+            self.matvec[i], lane.resid_floor_rel = self.operator(i)
+            if self.filter_degree > 0:
+                self.Tk[i].copy_(lane.probe(self.matvec[i],
+                                            self.probe_v0[i], self.kb))
+            else:
+                lane.begin(self.matvec[i], self.v0[i])
+                self.Tm[i].copy_(lane.segment(self.matvec[i], True))
+
+    def filter(self) -> None:
+        for i, lane in enumerate(self.lanes):
+            lane.begin(self.matvec[i], self.v0[i], self.filter_degree,
+                       self.wk[i])
+            self.Tm[i].copy_(lane.segment(self.matvec[i], True))
+
+    def restart(self) -> None:
+        for i, lane in enumerate(self.lanes):
+            lane.restart(self.wm[i], self.Sm[i])
+        self.all_done.copy_(torch.stack([lane.done
+                                         for lane in self.lanes]).all())
+
+    def segment(self) -> None:
+        for i, lane in enumerate(self.lanes):
+            self.Tm[i].copy_(lane.segment(self.matvec[i], False))
+
+    def drive(self, run, segment_once: bool = False) -> None:
+        """Run the loop; ``run(name)`` runs a piece. The host reads the
+        all-done flag after each restart and stops on it, with
+        ``segment_once`` not before one ``krylov_segment`` has run (a
+        capture's warm-up runs every piece; a segment and restart of done
+        lanes change none of their results)."""
+        run("krylov_init")
+        if self.filter_degree > 0:
+            eigh_stack(self.Tk, self.wk, self.Sk)
+            run("krylov_filter")
+        self.restarts, segmented = 0, False
+        while True:
+            eigh_stack(self.Tm, self.wm, self.Sm)
+            run("krylov_restart")
+            self.restarts += 1
+            if bool(self.all_done) and (segmented or not segment_once):
+                break                       # the restart's one host read
+            run("krylov_segment")
+            segmented = True
+
+
+def lanczos_solve_jit(op, v0: torch.Tensor, s: int, m: int,
+                      which: str = "SA", max_restarts: int = 50,
+                      use_kernel: bool = False, p: int = 1,
+                      filter_degree: int = 0, compute_dtype=None,
+                      probe_v0: torch.Tensor | None = None):
+    """Thick-restart block Lanczos with the reference's fixed-trip loop:
+    a ``KrylovStack`` of one lane, its pieces run eagerly.
+
+    ``v0`` is (n,) for p == 1 or the (n, p) start block; the filter probe
+    starts at ``probe_v0``, by default ``v0``'s first column (the
+    reference's). Runs restarts until converged (the machine-precision
+    criterion), unhealthy or ``max_restarts``. Returns (evals (s,), evecs
+    (n, s), k, converged, healthy): 0-d tensors for the last three, evals
+    the wanted end first. ``compute_dtype`` demotes the operator only,
+    as in ``lanczos_solve``.
+    """
+    if which not in ("SA", "LA"):
+        raise ValueError(f"which must be 'SA' or 'LA', got {which!r}")
+    n = op_dim(op)
+    X0 = v0[:, None] if v0.dim() == 1 else v0
+    if m % p or tuple(X0.shape) != (n, p):
+        raise ValueError(f"m={m} must be a multiple of p={p} and v0 ({n},) "
+                         f"or ({n}, {p}), got {tuple(v0.shape)}")
+    matvec, floor = krylov_matvec(op, use_kernel, compute_dtype)
+    lane = KrylovLane(n, s, m, p, which, max_restarts, floor, X0.device)
+    probe = None
+    if filter_degree > 0:
+        probe = (X0[:, 0] if probe_v0 is None else probe_v0)[None]
+    stack = KrylovStack([lane], lambda i: (matvec, floor), X0[None], probe,
+                        filter_degree)
+    pieces = stack.pieces()
+    stack.drive(lambda name: pieces[name]())
+    return lane.result()
+
+
+__all__ = ["LanczosResult", "lanczos_solve", "lanczos_solve_jit",
+           "KrylovLane", "KrylovStack", "eigh_stack", "krylov_matvec",
+           "default_subspace", "restart_schedule", "START_SEED"]

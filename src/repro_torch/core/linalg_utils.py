@@ -148,11 +148,26 @@ def gershgorin_bounds(d: torch.Tensor, e: torch.Tensor):
     return lo - 1e-3 * span, hi + 1e-3 * span
 
 
+def eigh_input(M: torch.Tensor):
+    """(finite, operand): whether M is finite, and the matrix
+    ``eigh_or_nan`` decomposes (M, or zeros where M is not finite)."""
+    finite = torch.isfinite(M).all()
+    return finite, torch.where(finite, M, torch.zeros_like(M))
+
+
+def eigh_output(finite: torch.Tensor, w: torch.Tensor, V: torch.Tensor):
+    """``eigh_or_nan``'s result from the ``eigh`` of ``eigh_input``'s
+    operand: NaN eigenvalues where the input was not finite."""
+    return torch.where(finite, w, float("nan")), V
+
+
 def eigh_or_nan(M: torch.Tensor):
     """``torch.linalg.eigh`` of a symmetric M, with JAX's answer to a
     non-finite input: NaN eigenvalues (torch raises instead, which would
     turn a poisoned Lanczos state into an exception rather than the
-    health verdict). The check stays on the device."""
-    finite = torch.isfinite(M).all()
-    w, V = torch.linalg.eigh(torch.where(finite, M, torch.zeros_like(M)))
-    return torch.where(finite, w, float("nan")), V
+    health verdict). The check stays on the device; the ``eigh`` itself
+    reads its ``info`` on the host, so ``core.batched`` runs it between
+    two CUDA graphs (``eigh_input``/``eigh_output`` are its two sides)."""
+    finite, Mc = eigh_input(M)
+    w, V = torch.linalg.eigh(Mc)
+    return eigh_output(finite, w, V)

@@ -30,7 +30,12 @@ seeded with ``GUARD_SEED``).
 ``refine_eigenpairs`` is the host-loop driver (early exit, re-shift,
 trajectory recording) that ``gsyeig.solve`` runs;
 ``refine_eigenpairs_fixed`` is the fixed-step form of the reference's
-batched pipelines.
+batched pipelines. The fixed form waits on the host nowhere but in the
+Rayleigh-Ritz ``eigh`` of each step (the library checks its ``info`` on
+the host): its shift stays a 0-d tensor (``sigma_fixed``) and its factor
+is ``lu_factor_ex``, so ``core.batched`` captures everything between two
+``eigh`` calls in a CUDA graph. ``fixed_refactors`` is its schedule,
+``refine_pre`` the part of a step before the ``eigh``.
 """
 from __future__ import annotations
 
@@ -52,14 +57,16 @@ def default_guard(s: int, n: int) -> int:
     return max(0, min(max(8, 3 * s), 32, n - s))
 
 
-def _sigma(lam: torch.Tensor, which: str) -> float:
-    """Shift outside the wanted end of ``lam``: a margin of 5% of the
-    wanted set's spread plus 1% of its scale, with a scale-aware floor, so
-    an estimate's error cannot land sigma on an eigenvalue."""
-    lo, hi = float(lam.min()), float(lam.max())
-    scale = max(abs(lo), abs(hi))
+def sigma_fixed(lam: torch.Tensor, which: str) -> torch.Tensor:
+    """Shift outside the wanted end of ``lam``, as a 0-d tensor on its
+    device (no host sync): a margin of 5% of the wanted set's spread plus
+    1% of its scale, with a scale-aware floor, so an estimate's error
+    cannot land sigma on an eigenvalue. Each operation rounds as the
+    reference's float arithmetic does."""
+    lo, hi = lam.min(), lam.max()
+    scale = torch.maximum(torch.abs(lo), torch.abs(hi))
     margin = 0.05 * (hi - lo) + 0.01 * scale
-    margin = max(margin, 1e-6 * (1.0 + scale))
+    margin = torch.maximum(margin, 1e-6 * (1.0 + scale))
     return lo - margin if which == "smallest" else hi + margin
 
 
@@ -68,9 +75,23 @@ def _factor_f32(A: torch.Tensor, B: torch.Tensor, sigma: float):
     return torch.linalg.lu_factor((A - sigma * B).float())
 
 
-def _refine_step(lu, piv, A, B, lam, X):
-    """One fp64 correction, Cholesky-QR B-orthonormalization and
-    Rayleigh-Ritz step."""
+def factor_fixed(A: torch.Tensor, B: torch.Tensor, sigma: torch.Tensor):
+    """``_factor_f32`` at a 0-d tensor shift, by ``lu_factor_ex``: the same
+    factor, with its ``info`` left on the device (no host sync)."""
+    lu, piv, _ = torch.linalg.lu_factor_ex((A - sigma * B).float())
+    return lu, piv
+
+
+def fixed_refactors(steps: int) -> Tuple[bool, ...]:
+    """Whether step k of a fixed refinement first re-shifts and refactors:
+    phases of two steps, so steps 0, 2, 4, ..."""
+    return tuple(k % 2 == 0 for k in range(steps))
+
+
+def refine_pre(lu, piv, A, B, lam, X):
+    """A refinement step up to its Rayleigh-Ritz ``eigh``: returns (Z, H),
+    Z the B-orthonormalized corrected block and H = Z^T A Z (symmetrized);
+    the step is ``lam, S = eigh(H)``, ``X = Z @ S``."""
     R = A @ X - (B @ X) * lam[None, :]
     D = torch.linalg.lu_solve(lu, piv, R.float()).double()
     Y = X - D
@@ -83,7 +104,13 @@ def _refine_step(lu, piv, A, B, lam, X):
     L = torch.where(bad == 0, L, float("nan"))   # a breakdown is non-finite
     Z = torch.linalg.solve_triangular(L, Y.mT, upper=False).mT
     H = Z.mT @ (A @ Z)
-    H = 0.5 * (H + H.mT)
+    return Z, 0.5 * (H + H.mT)
+
+
+def _refine_step(lu, piv, A, B, lam, X):
+    """One fp64 correction, Cholesky-QR B-orthonormalization and
+    Rayleigh-Ritz step."""
+    Z, H = refine_pre(lu, piv, A, B, lam, X)
     lam, S = torch.linalg.eigh(H)
     return lam, Z @ S
 
@@ -115,7 +142,7 @@ def _guard_block(n: int, guard: int, guard0, generator, like) -> torch.Tensor:
                        device=like.device)
 
 
-def _with_guards(lam, X, guard: int, which: str, G):
+def with_guards(lam, X, guard: int, which: str, G):
     """Append the guard columns (unit-normalized) and end-value Ritz
     placeholders (the first Rayleigh-Ritz step replaces them)."""
     if guard <= 0:
@@ -151,15 +178,15 @@ def refine_eigenpairs(A, B, lam, X, which: str = "smallest", *,
     n, s = X.shape
     if guard is None:
         guard = default_guard(s, n)
-    sigma = _sigma(lam, which)
+    sigma = float(sigma_fixed(lam, which))
     lu, piv = _factor_f32(A, B, sigma)
 
     # the input's metrics: its columns are ascending, as the solver returns
     resid, orth = _metrics(A, B, lam, X, s, "smallest")
     resid_traj, orth_traj = [resid], [orth]
-    lam_q, X_q = _with_guards(lam, X, guard, which,
-                              _guard_block(n, guard, guard0, generator, X)
-                              if guard > 0 else None)
+    lam_q, X_q = with_guards(lam, X, guard, which,
+                             _guard_block(n, guard, guard0, generator, X)
+                             if guard > 0 else None)
     steps = stalled = refactors = 0
     sigmas = [sigma]
     finite = True
@@ -177,7 +204,7 @@ def refine_eigenpairs(A, B, lam, X, which: str = "smallest", *,
             break
         lam_s, _ = _select(lam_q, X_q, s, which)
         end = float(lam_s[0] if which == "smallest" else lam_s[-1])
-        sig2 = _sigma(lam_s, which)
+        sig2 = float(sigma_fixed(lam_s, which))
         if refactors < 3 and abs(sig2 - sigma) > 0.25 * abs(end - sigma):
             # the Ritz values moved enough that a fresh shift contracts
             # materially faster: refactor
@@ -215,26 +242,26 @@ def refine_eigenpairs_fixed(A, B, lam, X, which: str = "smallest",
                             generator: torch.Generator | None = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-step refinement with no convergence test: phases of two steps
-    with a re-shift and fp32 refactor in between; otherwise the arithmetic
-    of ``refine_eigenpairs``."""
+    (``fixed_refactors``), each first re-shifting at the wanted Ritz values
+    (the input's for the first) and refactoring in fp32; otherwise the
+    arithmetic of ``refine_eigenpairs``. Its shift stays on the device
+    (``sigma_fixed``)."""
     A, B, lam, X = _prepare(A, B, lam, X)
     if steps == 0:
         return lam, X
     n, s = X.shape
-    lam_q, X_q = _with_guards(lam, X, guard, which,
-                              _guard_block(n, guard, guard0, generator, X)
-                              if guard > 0 else None)
+    lam_q, X_q = with_guards(lam, X, guard, which,
+                             _guard_block(n, guard, guard0, generator, X)
+                             if guard > 0 else None)
     anchor = lam
-    remaining = steps
-    while remaining > 0:
-        phase = min(2, remaining)
-        remaining -= phase
-        lu, piv = _factor_f32(A, B, _sigma(anchor, which))
-        for _ in range(phase):
-            lam_q, X_q = _refine_step(lu, piv, A, B, lam_q, X_q)
+    for refactor in fixed_refactors(steps):
+        if refactor:
+            lu, piv = factor_fixed(A, B, sigma_fixed(anchor, which))
+        lam_q, X_q = _refine_step(lu, piv, A, B, lam_q, X_q)
         anchor = _select(lam_q, X_q, s, which)[0]
     return _select(lam_q, X_q, s, which)
 
 
 __all__ = ["REFINE_TOL", "GUARD_SEED", "default_guard", "refine_eigenpairs",
-           "refine_eigenpairs_fixed"]
+           "refine_eigenpairs_fixed", "sigma_fixed", "factor_fixed",
+           "fixed_refactors", "refine_pre", "with_guards"]

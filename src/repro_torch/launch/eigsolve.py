@@ -6,6 +6,7 @@
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. The payload has the keys of ``repro.launch.eigsolve`` plus
 ``device`` and ``kernel_launches`` (launches of each kernel instance);
+with ``--variant auto`` the router's decision and table under ``router``;
 with ``--precision mixed|fast`` it also has ``precision`` and the
 ``refinement`` block (steps, converged, and the relative-residual and
 B-orthogonality trajectories of the fp64 refinement).
@@ -28,8 +29,8 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=384)
     ap.add_argument("--s", type=int, default=8)
     ap.add_argument("--variant", choices=["TD", "TT", "KE", "KI", "auto"],
-                    default="TD", help="TD, TT, KE and KI are ported; "
-                                       "auto raises")
+                    default="TD", help="auto: the cost model's router "
+                                       "(its decision under 'router')")
     ap.add_argument("--which", choices=["smallest", "largest"],
                     default="smallest")
     ap.add_argument("--invert", action="store_true",
@@ -99,6 +100,8 @@ def main() -> None:
         "recovery": res.info["recovery"],
         "kernel_launches": res.info["kernel_launches"],
     }
+    if "router" in res.info:
+        payload["router"] = res.info["router"]
     if "warnings" in res.info:
         payload["warnings"] = res.info["warnings"]
     if "refinement" in res.info:

@@ -12,6 +12,7 @@ plain version on CPU copies, as the wrapper runs it for a CPU tensor),
 and small TD, TT and KE solves on the card, and the blocked GS1/GS2/TD1
 stages, must launch their kernels.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1283,3 +1284,170 @@ def test_demoted_blocked_td1_takes_the_wide_path(cuda, precision):
     assert paths[f"syr2k_{sfx}_wide"] > 0
     assert paths[f"syr2k_{sfx}_narrow"] == 0
     assert torch.isfinite(res.evals).all()
+
+
+# ---- batched buckets: CUDA graphs per piece ---------------------------------
+
+BATCHED_N, BATCHED_S, BATCHED_B = 256, 6, 3
+
+
+def _bucket(cuda, k=BATCHED_B):
+    probs = [md_like(BATCHED_N, seed=500 + i, device=cuda) for i in range(k)]
+    return (probs, torch.stack([p.A for p in probs]),
+            torch.stack([p.B for p in probs]))
+
+
+@pytest.mark.parametrize("variant,precision", [
+    ("TD", "fp64"), ("TT", "fp64"), ("KE", "fp64"), ("KI", "fp64"),
+    ("TT", "mixed"), ("KE", "mixed")])
+def test_batched_bucket_matches_eager_solves(cuda, variant, precision):
+    """One bucket per variant at n=256 through CUDA graphs against eager
+    solves of its pencils: eigenvalues within 1e-10 max|lambda| (Table-3
+    scale below fp64), the cold call captured and the warm one a cache
+    hit, and for TD/TT batch times the eager launches in the graphs."""
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    probs, A, B = _bucket(cuda)
+    krylov = variant in ("KE", "KI")
+    kw = dict(variant=variant, band_width=16, invert=krylov,
+              precision=precision, use_kernel=krylov)
+    cold = batched.solve_batched(A, B, BATCHED_S, **kw)
+    warm = batched.solve_batched(A, B, BATCHED_S, **kw)
+    assert cold.info["cache_hit"] is False and cold.info["compile_s"] > 0
+    assert warm.info["cache_hit"] is True and warm.info["compile_s"] == 0.0
+    assert warm.info["path"] == "cuda_graphs"
+    assert torch.equal(cold.evals, warm.evals)
+    assert warm.converged.all() and warm.healthy.all()
+    bar = 1e-10 if precision == "fp64" else 1e-11
+    eager_launches = dict.fromkeys(kernels.launch_counts(), 0)
+    for i, p in enumerate(probs):
+        one = solve(p.A, p.B, BATCHED_S, variant=variant, band_width=16,
+                    invert=krylov, precision=precision, use_kernel=krylov)
+        scale = float(p.exact_evals.abs().max())
+        assert float((warm.evals[i] - one.evals).abs().max()) <= bar * scale
+        acc = accuracy_report(p.A, p.B, warm.X[i], warm.evals[i])
+        assert float(acc.relative_residual) <= 1e-12
+        assert float(acc.b_orthogonality) <= 1e-12
+        for k, v in one.info["kernel_launches"].items():
+            eager_launches[k] += v
+    if not krylov:
+        assert warm.info["kernel_launches"] == eager_launches
+    else:
+        per = warm.info["graph_launches"]["krylov_restart"]
+        assert warm.info["graph_replays"]["krylov_restart"] == warm.info[
+            "restarts"]
+        assert sum(warm.info["kernel_launches"].values()) > 0
+        assert per == {} or all(v > 0 for v in per.values())
+
+
+def test_batched_cuda_call_never_takes_the_eager_path(cuda):
+    """A warm call replays graphs only: with every piece's code replaced by
+    one that raises, it still returns the same result."""
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    _, A, B = _bucket(cuda)
+    first = batched.solve_batched(A, B, BATCHED_S, variant="KE", invert=True)
+    (prog,) = batched._EXEC_CACHE.values()
+
+    def boom():
+        raise AssertionError("a piece ran eagerly on the card")
+
+    prog._pieces = {name: boom for name in prog._pieces}
+    again = batched.solve_batched(A, B, BATCHED_S, variant="KE", invert=True)
+    assert torch.equal(first.evals, again.evals)
+    assert again.info["cache_hit"] is True
+
+
+def test_batched_failed_capture_raises(cuda, monkeypatch):
+    """A host sync inside a piece fails its capture, which raises: no
+    eager fallback, and nothing is cached."""
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    _, A, B = _bucket(cuda)
+    sentinel = batched._output_sentinel
+
+    def syncing(lam, X):
+        ok = sentinel(lam, X)
+        bool(ok)                       # a host read: illegal in a capture
+        return ok
+
+    monkeypatch.setattr(batched, "_output_sentinel", syncing)
+    with pytest.raises(RuntimeError, match="capturing piece"):
+        batched.solve_batched(A, B, BATCHED_S, variant="TD")
+    assert batched.cache_stats()["exec_entries"] == 0
+
+
+def test_batched_filter_bucket_matches_eager_solves(cuda):
+    """A KE bucket with a Chebyshev start filter and a block of two: the
+    probe's ``eigh`` split and the ``krylov_filter`` graph, against eager
+    solves at the same knobs."""
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    probs, A, B = _bucket(cuda)
+    kw = dict(variant="KE", invert=True, use_kernel=True, p=2,
+              filter_degree=8)
+    batched.solve_batched(A, B, BATCHED_S, **kw)
+    warm = batched.solve_batched(A, B, BATCHED_S, **kw)
+    assert warm.info["cache_hit"] is True
+    assert warm.info["graph_replays"]["krylov_filter"] == 1
+    assert warm.info["graph_launches"]["krylov_filter"]["symm_block"] > 0
+    assert warm.converged.all() and warm.healthy.all()
+    for i, p in enumerate(probs):
+        one = solve(p.A, p.B, BATCHED_S, variant="KE", invert=True,
+                    use_kernel=True, krylov_block=2, filter=8)
+        scale = float(p.exact_evals.abs().max())
+        assert float((warm.evals[i] - one.evals).abs().max()) <= 1e-10 * scale
+        acc = accuracy_report(p.A, p.B, warm.X[i], warm.evals[i])
+        assert float(acc.relative_residual) <= 1e-12
+        assert float(acc.b_orthogonality) <= 1e-12
+
+
+def _spectra(kind, cuda, k=BATCHED_B, seed=11):
+    """(A, I, exact) stacks with a known spectrum: ``easy`` has its s
+    lowest eigenvalues far below a tight cluster (one restart converges),
+    ``hard`` is spread evenly over [1, 2] (many restarts)."""
+    n, s = BATCHED_N, BATCHED_S
+    g = np.random.default_rng(seed)
+    As, exact = [], []
+    for i in range(k):
+        Q, _ = np.linalg.qr(g.standard_normal((n, n)))
+        if kind == "easy":
+            lam = np.concatenate([-1000.0 - 10.0 * np.arange(s) - i,
+                                  1e-6 * g.random(n - s)])
+        else:
+            lam = g.uniform(1.0, 2.0, n)
+        As.append((Q * lam) @ Q.T)
+        exact.append(np.sort(lam)[:s])
+    A = torch.tensor(np.stack(As), device=cuda)
+    B = torch.eye(n, dtype=torch.float64, device=cuda).expand(k, n, n)
+    return A, B.contiguous(), torch.tensor(np.stack(exact), device=cuda)
+
+
+def test_batched_warm_call_replays_pieces_the_cold_call_skipped(cuda):
+    """A KE bucket captured on pencils that converge in one restart (its
+    loop never segments again) replays the segment's graph for pencils
+    that need many restarts: every piece is captured, none runs eagerly."""
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    kw = dict(variant="KE", use_kernel=True)
+    easy, B, _ = _spectra("easy", cuda)
+    cold = batched.solve_batched(easy, B, BATCHED_S, **kw)
+    assert cold.info["restarts"] == 1
+    assert cold.info["graph_replays"].get("krylov_segment", 0) == 0
+    (prog,) = batched._EXEC_CACHE.values()
+    assert set(prog.graphs) == set(prog._pieces)
+
+    def boom():
+        raise AssertionError("a piece ran eagerly on the card")
+
+    prog._pieces = {name: boom for name in prog._pieces}
+    hard, B, exact = _spectra("hard", cuda)
+    before = kernels.launch_counts()
+    warm = batched.solve_batched(hard, B, BATCHED_S, **kw)
+    assert kernels.launch_counts() == before      # nothing launched eagerly
+    assert warm.info["cache_hit"] is True and warm.info["restarts"] > 1
+    assert warm.info["graph_replays"]["krylov_segment"] == (
+        warm.info["restarts"] - 1)
+    assert warm.converged.all() and warm.healthy.all()
+    assert float((warm.evals - exact).abs().max()) <= 1e-10 * 2.0
+

@@ -288,12 +288,21 @@ def test_nonfinite_a_poisons_ki_iter_and_retries_under_recover():
 
 
 @pytest.mark.parametrize("kw", [dict(variant="auto"),
-                                # the router is not ported at any level
+                                # the router prices each precision level
                                 dict(variant="auto", precision="mixed")])
 def test_unported_options_raise(kw):
-    _, tp = _pencil("md")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(tp.A, tp.B, 3, device="cpu", **kw)
+    """The options this test once saw raise (``variant="auto"``, the one
+    the port refused) now run: the router's decision is the reference's,
+    and the solve is the chosen variant's."""
+    p, tp = _pencil("md")
+    ref = j_solve(p.A, p.B, 3, **kw)
+    res = solve(tp.A, tp.B, 3, device="cpu", **kw)
+    assert res.info["router"]["variant"] == ref.info["router"]["variant"]
+    assert res.info["variant"] == ref.info["variant"]
+    for v, t in ref.info["router"]["table"].items():
+        assert res.info["router"]["table"][v] == pytest.approx(t, rel=1e-12)
+    json.dumps(res.info)
+    _table3(p, res.X.numpy(), res.evals.numpy())
 
 
 def test_unconverged_krylov_escalates_under_recover():
