@@ -183,10 +183,27 @@ Phases, each printed as it runs; any failed check exits nonzero:
    the MD choice is the measured fastest fp64 variant; and
    ``MachineParams.from_measurements`` of this run's MD fp64 stage times
    beside ``h100()``;
+4d. the serving engine (``serve/eigen_engine.py``) at its real size:
+   16 ``md_like(1024)`` pencils at s=10 and 16 ``dft_like(1024)`` at s=27,
+   interleaved, through ``EigenEngine(slots=8, bucket_shapes=[1024],
+   variant="TD")`` with ``tick()`` after each submit (two buckets of two
+   dispatches, served from phase 4c's captured TD programs: each
+   dispatch's cache_hit and compile_s, requests/s, each bucket's mean and
+   p90 latency); the MD paper pencil (invert) in the same engine through
+   the router's direct path, its choice beside phase 4's measured fastest
+   fp64 variant; every retired pencil on the exact spectrum (1e-10
+   max|lambda|) and the Table-3 bars; the quarantine drill (KE,
+   ``max_restarts=1``: both lanes quarantined and retired) and the
+   dead-letter drill (TT, a non-SPD pencil dead-lettered with
+   ``cholesky_breakdown``, the healthy lane retired, every ``info``
+   JSON-clean); the launches of all that (the wrappers' counts, set to 0
+   before and read after, plus the TD graphs' replayed launches); then
+   ``python -m repro_torch.launch.eigenserve`` (16 requests, two TT
+   dispatches of 8) in a subprocess, which must exit 0 and print ``eigenserve OK``;
 5. one JSON line of the kernels (launches on their main path, launches
-   in phase 4c's warm calls, error against the plain version, times,
-   bound), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+   in phase 4c's warm calls and in phase 4d, error against the plain
+   version, times, bound), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 ``--md-n`` / ``--dft-n`` / ``--wide-n`` / ``--chase-n`` shrink the
 matrices for a quick rehearsal; the defaults are the sizes above.
@@ -196,6 +213,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -267,8 +285,8 @@ KERNEL_ORDER = ("bisect_sturm", "invit", "symv", "symm_block", "house_panel",
               "chase_pass", "replay_pass"))
 
 
-def _nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def _nvidia_smi(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -2587,7 +2605,7 @@ def _bucket_stacks(gen, n: int, batch: int, seed0: int, dev):
 
 
 def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
-               **kw) -> dict:
+               cached: bool = False, **kw) -> dict:
     """One bucket through ``solve_batched`` on the card, cold then warm:
     each pencil against an eager ``solve`` of it at the same level (the
     gap within 1e-10 max|lambda| at fp64, the Table-3 scale 1e-12
@@ -2596,14 +2614,14 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
     launches in its graphs; then the warm call and the eager loop timed
     in turns (loop, call, call, loop; the first loop's solves are the
     comparison), and the call's span by CUDA events around it (idle gaps
-    included) beside its wall."""
+    included) beside its wall. The pipeline cache is emptied after the
+    bucket unless ``cached`` (phase 4d serves from the programs left)."""
     import torch
     from repro_torch.core import accuracy_report, batched, solve
 
     batch, n = A.shape[0], A.shape[1]
     precision = kw.get("precision", "fp64")
     variant = kw["variant"]
-    batched.clear_pipeline_cache()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cold = batched.solve_batched(A, B, s, **kw)
@@ -2685,36 +2703,37 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
           f"span {span_ms:.2f} ms (CUDA events, idle gaps included); peak "
           f"memory "
           f"{row['peak_gib']:.2f} GiB", flush=True)
-    batched.clear_pipeline_cache()
+    if not cached:
+        batched.clear_pipeline_cache()
     return row
 
 
 def run_buckets(md_paper, checks: Checks, dev) -> dict:
     """Phase 4c's buckets at the engine's size limit (MD and DFT at their
-    s/n ratios, batch 8), and TT at the MD paper size, batch 2."""
+    s/n ratios, batch 8), and TT at the MD paper size, batch 2. The TD
+    buckets run last and their programs stay in the pipeline cache, where
+    phase 4d's engine finds them."""
+    import torch
+    from repro_torch.core import batched
     from repro_torch.data.problems import dft_like, md_like
 
+    batched.clear_pipeline_cache()
     rows = {}
-    probs, A, B = _bucket_stacks(md_like, BUCKET_N, BUCKET_BATCH, 700, dev)
+    md = _bucket_stacks(md_like, BUCKET_N, BUCKET_BATCH, 700, dev)
+    dft = _bucket_stacks(dft_like, BUCKET_N, BUCKET_BATCH, 800, dev)
     krylov = dict(invert=True, use_kernel=True)
-    for label, kw in (("TD", dict(variant="TD")),
-                      ("TT", dict(variant="TT", band_width=TT_W)),
+    for label, kw in (("TT", dict(variant="TT", band_width=TT_W)),
                       ("KE", dict(variant="KE", **krylov)),
                       ("KI", dict(variant="KI", **krylov)),
                       ("TT mixed", dict(variant="TT", band_width=TT_W,
                                         precision="mixed")),
                       ("KE mixed", dict(variant="KE", precision="mixed",
                                         **krylov))):
-        rows[f"MD {label}"] = run_bucket(f"MD {label}", probs, A, B,
-                                         BUCKET_MD_S, checks, **kw)
-    probs, A, B = _bucket_stacks(dft_like, BUCKET_N, BUCKET_BATCH, 800, dev)
-    for label, kw in (("TD", dict(variant="TD")),
-                      ("TT", dict(variant="TT", band_width=TT_W))):
-        rows[f"DFT {label}"] = run_bucket(f"DFT {label}", probs, A, B,
-                                          BUCKET_DFT_S, checks, **kw)
-    del probs, A, B
+        rows[f"MD {label}"] = run_bucket(f"MD {label}", *md, BUCKET_MD_S,
+                                         checks, **kw)
+    rows["DFT TT"] = run_bucket("DFT TT", *dft, BUCKET_DFT_S, checks,
+                                variant="TT", band_width=TT_W)
     # the paper size: TT at MD n=9997, s=100, batch 2
-    import torch
     torch.cuda.empty_cache()
     n = md_paper.A.shape[0]
     probs = [md_paper, md_like(n, seed=n + 1, device=dev)]
@@ -2723,6 +2742,11 @@ def run_buckets(md_paper, checks: Checks, dev) -> dict:
     rows["MD paper TT"] = run_bucket("MD paper TT", probs, A, B, 100, checks,
                                      variant="TT", band_width=TT_W)
     del probs, A, B
+    for name, stacks, s in (("MD", md, BUCKET_MD_S),
+                            ("DFT", dft, BUCKET_DFT_S)):
+        rows[f"{name} TD"] = run_bucket(f"{name} TD", *stacks, s, checks,
+                                        cached=True, variant="TD")
+    del md, dft
     torch.cuda.empty_cache()
     return rows
 
@@ -2806,6 +2830,340 @@ def run_router(md, dft, s_md: int, s_dft: int, measured: dict,
         dataclasses.asdict(fit)) + "; h100(): " + json.dumps(
         dataclasses.asdict(h100)), flush=True)
     return out
+
+
+# ---- phase 4d: the serving engine -------------------------------------------
+
+ENGINE_REQUESTS = 16     # pencils of each workload in the served stream
+ENGINE_DRILL_S = 10
+
+
+def _served(label: str, reqs, probs: dict, checks: Checks, dev) -> None:
+    """Every retired request of ``reqs`` against its pencil: eigenvalues
+    within EVAL_BAR max|lambda| of the exact spectrum, the Table-3 bars,
+    finite, converged and healthy, ``info`` JSON-clean."""
+    import torch
+    from repro_torch.core import accuracy_report
+
+    errs, rr, bo, bad = [], [], [], []
+    for req in reqs:
+        p = probs[req.uid]
+        lam = torch.from_numpy(req.evals).to(dev)
+        X = torch.from_numpy(req.X).to(dev)
+        exact = p.exact_evals[:req.s]
+        errs.append(float((lam - exact).abs().max())
+                    / float(p.exact_evals.abs().max()))
+        acc = accuracy_report(p.A, p.B, X, lam)
+        rr.append(float(acc.relative_residual))
+        bo.append(float(acc.b_orthogonality))
+        if not (req.info.get("converged", True)
+                and req.info["health"]["healthy"]
+                and tuple(req.X.shape) == (p.A.shape[0], req.s)
+                and bool(json.dumps(req.info))):
+            bad.append(req.uid)
+    checks.check(f"{label} on the exact spectrum", max(errs) <= EVAL_BAR,
+                 f"{len(errs)} pencils, max error / max|lambda| "
+                 f"{max(errs)!r} (bar {EVAL_BAR})")
+    checks.check(f"{label} Table-3 bars", max(rr) <= TABLE3 and
+                 max(bo) <= TABLE3, f"max relative_residual {max(rr)!r}, "
+                 f"max b_orthogonality {max(bo)!r} (bar {TABLE3})")
+    checks.check(f"{label} converged, healthy, (n, s), JSON-clean", not bad,
+                 f"failing uids {bad}")
+
+
+def _print_summary(label: str, eng) -> dict:
+    summary = eng.summary()
+    print(f"{label} summary: requests {summary['requests']}, dispatches "
+          f"{summary['dispatches']}, quarantined {summary['quarantined']}, "
+          f"dead letters {summary['dead_letter_uids']}; " + "; ".join(
+              f"{name} x{b['count']} mean {b['mean_latency_s']:.4f} s, p90 "
+              f"{b['p90_latency_s']:.4f} s"
+              for name, b in summary["buckets"].items()), flush=True)
+    return summary
+
+
+def run_engine(md_paper, s_md: int, md_fastest: str, checks: Checks,
+               dev) -> dict:
+    """Phase 4d: ``EigenEngine`` on the card at its real size.
+
+    (a) a served stream: 16 ``md_like(1024)`` pencils at s=10 and 16
+    ``dft_like(1024)`` at s=27, interleaved, ``tick()`` after each submit,
+    through ``EigenEngine(slots=8, bucket_shapes=[1024], variant="TD")``:
+    two buckets of two dispatches, whose keys are phase 4c's MD and DFT TD
+    buckets (their captured programs are still in the pipeline cache);
+    each dispatch's cache_hit and compile_s, requests/s, and each
+    bucket's mean and p90 latency; every pencil on the exact spectrum and
+    the Table-3 bars. (b) The MD paper pencil at its s with ``invert=True``
+    in the same engine: the router's direct path, its choice beside phase
+    4's measured fastest fp64 variant. (c) The drills at n=1024, s=10: KE
+    with ``max_restarts=1`` (both lanes quarantined and recovered) and TT
+    with a non-SPD pencil (dead-lettered with ``cholesky_breakdown``, the
+    healthy lane retired). Every launch count is set to 0 before (a) and
+    read after (c); the TD buckets' replayed graphs launch without passing
+    the wrappers, so their launches are read from the ``info`` of each
+    ``solve_batched`` call the engine makes. (d) The CLI in a subprocess
+    (TT buckets). Returns the launches of (a)-(c)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import batched
+    from repro_torch.data.problems import dft_like, md_like
+    from repro_torch.resilience.faults import nonspd_pencil
+    from repro_torch.serve import eigen_engine
+    from repro_torch.serve.eigen_engine import EigenEngine
+
+    s_of = {"md": BUCKET_MD_S, "dft": BUCKET_DFT_S}
+    stream = []
+    for i in range(ENGINE_REQUESTS):
+        for kind, gen in (("md", md_like), ("dft", dft_like)):
+            stream.append((kind, gen(BUCKET_N, seed=9000 + 100 * (kind == "dft")
+                                     + i, device=dev)))
+    torch.cuda.synchronize()
+    print(f"pipeline cache before the stream (phase 4c's TD programs): "
+          f"{json.dumps(batched.cache_stats())}", flush=True)
+    kernels.reset_launches()
+    graph_launches = dict.fromkeys(kernels.launch_counts(), 0)
+    programs = []     # the info of every solve_batched call of the engine
+
+    def observed(*args, **kw):
+        res = batched.solve_batched(*args, **kw)
+        programs.append(res.info)
+        for k, v in res.info["kernel_launches"].items():
+            graph_launches[k] += v
+        return res
+
+    eigen_engine.solve_batched = observed
+    try:
+        eng = EigenEngine(slots=BUCKET_BATCH, bucket_shapes=[BUCKET_N],
+                          variant="TD", device=dev)
+        probs, dispatches = {}, []
+        t0 = time.perf_counter()
+        for kind, p in stream:
+            uid = eng.submit(p.A, p.B, s_of[kind])
+            probs[uid] = p
+            before = len(eng.done)
+            eng.tick()
+            if len(eng.done) > before:
+                dispatches.append((kind, eng.done[-1].info))
+        eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        eigen_engine.solve_batched = batched.solve_batched
+    n_req = len(stream)
+    del stream
+    for kind, info in dispatches:
+        print(f"  dispatch {kind.upper()} TD batch {info['batch']}: "
+              f"cache_hit {info['cache_hit']}, compile_s "
+              f"{info['compile_s']:.3f}, dispatch wall "
+              f"{info['dispatch_wall_s']:.4f} s", flush=True)
+    hits = [info["cache_hit"] for _, info in dispatches]
+    if not all(hits[:2]):
+        extra = sum(info["compile_s"] for _, info in dispatches)
+        keys = {kind: batched.pipeline_cache_key(
+            BUCKET_N, s_of[kind], "TD", "smallest", band_width=eng.band_width,
+            max_restarts=eng.max_restarts) for kind in s_of}
+        print(f"  the first dispatches missed phase 4c's programs (the "
+              f"engine's bucket keys {json.dumps(keys)}); the extra captures "
+              f"cost {extra:.3f} s", flush=True)
+    rate = n_req / wall
+    print(f"engine TD stream: {n_req} requests in {wall:.4f} s = {rate:.4f} "
+          f"requests/s", flush=True)
+    checks.check("engine stream: every request retired through a bucket",
+                 len(eng.done) == n_req and not eng.dead_letters and
+                 all(r.info["path"] == "batched" and r.info["batch"] ==
+                     BUCKET_BATCH for r in eng.done) and
+                 len(dispatches) == 4 and eng.n_quarantined == 0,
+                 f"{len(eng.done)} done, {len(dispatches)} dispatches, "
+                 f"{eng.n_quarantined} quarantined, "
+                 f"{len(eng.dead_letters)} dead letters")
+    _served("engine stream", eng.done, probs, checks, dev)
+    stream_summary = _print_summary("engine stream", eng)
+    # the MD program through an engine and outside it, in turns: the
+    # stream's first MD dispatch's pencils and phase 4c's (seeds 700...),
+    # to tell the engine's own cost from the program's wall on these
+    # pencils (the walls are solve_batched's wall_s)
+    md_first = [p for _, p in sorted(probs.items())
+                if p.name == "md"][:BUCKET_BATCH]
+    sets = {"stream": (torch.stack([p.A for p in md_first]),
+                       torch.stack([p.B for p in md_first])),
+            "4c": _bucket_stacks(md_like, BUCKET_N, BUCKET_BATCH, 700,
+                                 dev)[1:]}
+    again = EigenEngine(slots=BUCKET_BATCH, bucket_shapes=[BUCKET_N],
+                        variant="TD", device=dev)
+    clocks = [_nvidia_smi("clocks.sm,power.draw,temperature.gpu")]
+    turns = []
+    for name in ("engine", "stream", "4c", "4c", "stream", "engine"):
+        if name == "engine":
+            for p in md_first:
+                again.submit(p.A, p.B, BUCKET_MD_S)
+            again.tick()
+            info = again.done[-1].info
+            turns.append(f"engine {info['dispatch_wall_s']:.4f} s (cache_hit"
+                         f" {info['cache_hit']})")
+            continue
+        A, B = sets[name]
+        r = batched.solve_batched(A, B, BUCKET_MD_S, variant="TD",
+                                  device=dev)
+        turns.append(f"{name} {r.info['wall_s']:.4f} s (cache_hit "
+                     f"{r.info['cache_hit']})")
+    clocks.append(_nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    del sets, A, B, r, again
+    print(f"MD TD program in turns, through an engine (the stream's first "
+          f"MD pencils) and outside it (those, and phase 4c's): "
+          f"{', '.join(turns)}; sum of the stream's dispatch walls "
+          f"{sum(i['dispatch_wall_s'] for _, i in dispatches):.4f} s of "
+          f"{wall:.4f}; nvidia-smi clocks.sm, power.draw, temperature "
+          f"before and after the turns: {clocks[0]} / {clocks[1]}",
+          flush=True)
+    checks.check("engine TD buckets replayed their graphs",
+                 len(programs) == len(dispatches) and
+                 all(i["path"] == "cuda_graphs" and
+                     i["graph_replays"] == {"direct": 1} for i in programs),
+                 "; ".join(f"path {i['path']}, replays "
+                           f"{json.dumps(i['graph_replays'])}"
+                           for i in programs))
+    # (b) the router path: the MD paper pencil, oversized for a bucket
+    n_md = md_paper.A.shape[0]
+    uid = eng.submit(md_paper.A, md_paper.B, s_md, invert=True)
+    probs[uid] = md_paper
+    eng.run_until_drained()
+    req = {r.uid: r for r in eng.done}.get(uid)
+    ok = req is not None and req.info["path"] == "direct"
+    checks.check(f"engine MD n={n_md} through the router's direct path",
+                 ok and "router" in req.info,
+                 "path " + (req.info["path"] if req is not None else
+                            "none") + (f", router {json.dumps(req.info['router'])}"
+                                       if ok and "router" in req.info else ""))
+    choice = req.info["router"]["variant"] if ok else None
+    if ok:
+        _served(f"engine MD n={n_md} direct", [req], probs, checks, dev)
+        print(f"  router (engine, default MachineParams) chose {choice} "
+              f"at MD n={n_md}, s={s_md}, invert; latency "
+              f"{req.info['latency_s']:.4f} s, stage_times_s "
+              + json.dumps({k: round(v, 4) for k, v in
+                            req.info["stage_times"].items()})
+              + f"; phase 4's measured fastest fp64 variant: {md_fastest} "
+              f"({choice == md_fastest})", flush=True)
+    # drop the stream's programs before the drills
+    batched.clear_pipeline_cache()
+    del eng, probs
+    torch.cuda.empty_cache()
+
+    # (c) the drills at n=1024, s=10
+    drill = {}
+    q = EigenEngine(slots=2, bucket_shapes=[BUCKET_N], variant="KE",
+                    max_restarts=1, device=dev)
+    for i in range(2):
+        p = md_like(BUCKET_N, seed=9500 + i, device=dev)
+        drill[q.submit(p.A, p.B, ENGINE_DRILL_S, invert=True)] = p
+    q.run_until_drained()
+    qs = _print_summary("quarantine drill (KE, max_restarts=1)", q)
+    for r in q.done:
+        print(f"  uid {r.uid}: path {r.info['path']}, variant "
+              f"{r.info['variant']}, attempts {r.info.get('attempts')}, "
+              f"recovery {[x['action'] for x in r.info['recovery']]}",
+              flush=True)
+    checks.check("quarantine drill: both lanes quarantined and retired",
+                 qs["quarantined"] == 2 and not q.dead_letters and
+                 len(q.done) == 2 and all(r.info["path"] == "quarantine"
+                                          for r in q.done),
+                 json.dumps({k: qs[k] for k in ("quarantined", "dispatches",
+                                                "dead_letter_uids")}))
+    if q.done:
+        _served("quarantine drill", q.done, drill, checks, dev)
+    del q
+    drill = {}
+    d = EigenEngine(slots=2, bucket_shapes=[BUCKET_N], variant="TT",
+                    max_retries=1, device=dev)
+    good = md_like(BUCKET_N, seed=9600, device=dev)
+    uid_good = d.submit(good.A, good.B, ENGINE_DRILL_S)
+    drill[uid_good] = good
+    A_bad, B_bad = nonspd_pencil(BUCKET_N)
+    uid_bad = d.submit(A_bad, B_bad, ENGINE_DRILL_S)
+    d.run_until_drained()
+    ds = _print_summary("dead-letter drill (TT, non-SPD)", d)
+    dead = d.dead_letters[0] if d.dead_letters else None
+    clean = True
+    for r in d.done + d.dead_letters:
+        try:
+            json.dumps(r.info)
+        except (TypeError, ValueError):
+            clean = False
+    checks.check("dead-letter drill: the bad uid dead-lettered with "
+                 "cholesky_breakdown, the good one retired",
+                 [r.uid for r in d.dead_letters] == [uid_bad] and
+                 dead.info["dead_letter"]["reason"] == "cholesky_breakdown"
+                 and [r.uid for r in d.done] == [uid_good] and
+                 d.done[0].info["path"] == "batched" and clean,
+                 json.dumps({"dead_letter_uids": ds["dead_letter_uids"],
+                             "dead_letter": dead.info["dead_letter"]
+                             if dead is not None else None,
+                             "done": [r.uid for r in d.done],
+                             "json_clean": clean})[:600])
+    if d.done:
+        _served("dead-letter drill good lane", d.done, drill, checks, dev)
+    del d, drill, good
+    batched.clear_pipeline_cache()
+    torch.cuda.synchronize()
+    wrapped = kernels.launch_counts()
+    launches = {k: wrapped[k] + graph_launches[k] for k in wrapped}
+    print(f"phase 4d launches through the wrappers: "
+          f"{json.dumps({k: v for k, v in wrapped.items() if v})}; in the "
+          f"TD buckets' replayed graphs: "
+          f"{json.dumps({k: v for k, v in graph_launches.items() if v})}",
+          flush=True)
+    for name in ("bisect_sturm", "invit"):
+        checks.check(f"engine TD stream launched {name} (graphs)",
+                     graph_launches[name] > 0,
+                     f"{graph_launches[name]} launches")
+    for name in ("bisect_sturm", "invit", "house_panel", "syr2k",
+                 "chase_pass", "replay_pass"):
+        checks.check(f"phase 4d launched {name}", launches[name] > 0,
+                     f"{launches[name]} launches")
+    torch.cuda.empty_cache()
+
+    # (d) the CLI, as a user runs it (its own process)
+    cmd = [sys.executable, "-m", "repro_torch.launch.eigenserve",
+           "--slots", str(BUCKET_BATCH), "--bucket-shapes", str(BUCKET_N),
+           "--max-batched-n", str(BUCKET_N), "--requests",
+           str(ENGINE_REQUESTS), "--stream", "mixed", "--s",
+           str(BUCKET_MD_S), "--variant", "TT", "--band-width", str(TT_W),
+           "--device", dev.type, "--json"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=str(ROOT), timeout=600)
+        rc, stdout, stderr = out.returncode, out.stdout, out.stderr
+    except subprocess.TimeoutExpired as err:
+        rc, stdout, stderr = None, str(err.stdout), "timed out"
+    cli_s = time.perf_counter() - t0
+    said_ok = stdout.rstrip().endswith("eigenserve OK")
+    cli = {}
+    if said_ok:
+        cli = json.loads(stdout[:stdout.rindex("eigenserve OK")])
+        print(f"CLI ({' '.join(cmd[1:])}): {cli_s:.1f} s in all; "
+              f"requests_per_s {cli['requests_per_s']}, wall_s "
+              f"{cli['wall_s']}, max_abs_eval_error "
+              f"{cli['max_abs_eval_error']!r}, summary "
+              f"{json.dumps(cli['summary'])}", flush=True)
+    checks.check("CLI exits 0 and prints eigenserve OK", rc == 0 and said_ok,
+                 f"exit {rc}; " + (stdout[-300:] + stderr[-900:]
+                                   if not (rc == 0 and said_ok) else
+                                   f"{len(stdout)} bytes of output"))
+    # MD and DFT at one n and s share a TT bucket (no invert outside
+    # KE/KI): two full dispatches of it
+    summary = cli.get("summary", {})
+    buckets = summary.get("buckets", {})
+    checks.check("CLI served its stream in full TT buckets",
+                 summary.get("requests") == ENGINE_REQUESTS and
+                 summary.get("dispatches") == ENGINE_REQUESTS // BUCKET_BATCH
+                 and sum(b["count"] for b in buckets.values()) ==
+                 ENGINE_REQUESTS and all(name.endswith("_TT")
+                                         for name in buckets),
+                 json.dumps(summary))
+    return {"launches": launches, "requests_per_s": rate,
+            "summary": stream_summary, "router": choice,
+            "cli_requests_per_s": cli.get("requests_per_s")}
 
 
 def main() -> int:
@@ -3117,10 +3475,13 @@ def main() -> int:
     # ---- phase 4c: batched buckets and the router -------------------------
     buckets = run_buckets(md, checks, dev)
     phase_done("4c (batched buckets)")
-    run_router(md, dft, args.md_s, args.dft_s, measured, checks)
+    router = run_router(md, dft, args.md_s, args.dft_s, measured, checks)
     del dft
     torch.cuda.empty_cache()
     phase_done("4c (router)")
+    # ---- phase 4d: the serving engine --------------------------------------
+    engine = run_engine(md, args.md_s, router["MD fastest"], checks, dev)
+    phase_done("4d (serving engine)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),
@@ -3251,6 +3612,8 @@ def main() -> int:
             # launches a warm call of phase 4c's buckets ran, all buckets
             "batched_launches": sum(b["launches"].get(name, 0)
                                     for b in buckets.values()),
+            # launches of phase 4d's engine run (stream, router, drills)
+            "engine_launches": engine["launches"].get(name, 0),
             # the reduced panel, chase and replay: the older kernel on the
             # same input, the pass's chain floor, the panel's device time
             **{k: r[k] for k in ("older_path_ms", "chain_floor_ms",
