@@ -200,8 +200,24 @@ Phases, each printed as it runs; any failed check exits nonzero:
    before and read after, plus the TD graphs' replayed launches); then
    ``python -m repro_torch.launch.eigenserve`` (16 requests, two TT
    dispatches of 8) in a subprocess, which must exit 0 and print ``eigenserve OK``;
+4e. the distribution layer (``repro_torch.dist``) on a (1, 1) NCCL mesh
+   in this process (``dist.launcher.run_local``), on phase 4's MD pencil:
+   ``solve(variant="KE", invert=True, mesh=)`` (p=4) and
+   ``solve(variant="TT", band_width=16, mesh=)`` at fp64 and mixed, each
+   held to the Table-3 bars, the exact spectrum and the single-device
+   solve of its level (phase 4's KE p=4 and TT, phase 4b's KE and TT
+   mixed) within 1e-10 max|lambda|, stage times beside the single-device
+   ones, the collectives by kind, at mixed the refinement and the recovery
+   rungs (and KE's own mixed attempt under ``on_failure="warn"``, printed,
+   not checked), and the TT launches (every panel on
+   ``house_panel``, every pass on ``chase_pass``/``replay_pass``, one
+   ``bisect_sturm``, six ``invit``); the preemption drill (KE with a
+   checkpoint every restart, preempted after 2, resumed from the newest
+   checkpoint: the uninterrupted mesh run's eigenvalues within 1e-12
+   max|lambda|), the checkpoint's bytes and save time; the process group
+   destroyed after;
 5. one JSON line of the kernels (launches on their main path, launches
-   in phase 4c's warm calls and in phase 4d, error against the plain
+   in phase 4c's warm calls, in phase 4d and in phase 4e, error against the plain
    version, times, bound), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2400,6 +2416,10 @@ def run_precision(md, s: int, checks: Checks) -> dict:
                                   "narrow": 0}, json.dumps(wide))
         out[f"{label} paths"] = paths
         out[label] = counts
+        if variant in ("TT", "KE"):
+            # phase 4e holds the mesh solves at this level to these
+            out[f"{label} result"] = {"evals": res.evals,
+                                      "stage_times": dict(res.stage_times)}
         del res
     return out
 
@@ -3166,6 +3186,162 @@ def run_engine(md_paper, s_md: int, md_fastest: str, checks: Checks,
             "cli_requests_per_s": cli.get("requests_per_s")}
 
 
+# ---- phase 4e: the distribution layer -----------------------------------------
+
+#: phase 4e's mesh: one rank on this card, on NCCL
+MESH_SHAPE = (1, 1)
+
+
+def _mesh_solves(mesh, md, s: int, single: dict, checks: Checks) -> dict:
+    """Phase 4e inside the one rank of ``run_local``'s NCCL world: KE
+    (invert, p=4) and TT (w=16) through ``solve(mesh=)`` at fp64 and
+    mixed, each through ``run_solve`` (Table-3 bars, exact spectrum,
+    launches) and against phase 4/4b's single-device solve at its level;
+    then the preemption drill. Returns the launches by wrapper."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import solve
+    from repro_torch.core.sbr import _executed_passes, _n_panels
+    from repro_torch.dist.eigensolver import solve_ke_distributed
+    from repro_torch.resilience.faults import SimulatedPreemption
+
+    n = md.A.shape[0]
+    scale = float(md.exact_evals.abs().max())
+    launches: dict = {}
+    mesh_ke = None
+    for variant, level in (("KE", "fp64"), ("TT", "fp64"), ("KE", "mixed"),
+                           ("TT", "mixed")):
+        label = f"mesh {MESH_SHAPE} {variant} {level}"
+        kw = (dict(variant="KE", invert=True) if variant == "KE"
+              else dict(variant="TT", band_width=TT_W))
+        if level != "fp64":
+            kw.update(precision=level, on_failure="recover")
+        res = run_solve(label, md, s, checks, mesh=mesh, **kw)
+        ref = single[f"{variant} {level}"]
+        gap = float((res.evals - ref["evals"]).abs().max())
+        checks.check(f"{label} eigenvalues vs the single-device solve",
+                     gap <= EVAL_BAR * scale,
+                     f"max gap {gap!r}, bar {EVAL_BAR} * max|lambda| = "
+                     f"{EVAL_BAR * scale!r}")
+        st = res.stage_times
+        print(f"  stages, s (mesh / single-device): " + ", ".join(
+            f"{k} {st.get(k, 0.0):.4f} / {ref['stage_times'].get(k, 0.0):.4f}"
+            for k in dict.fromkeys(list(st) + list(ref["stage_times"]))),
+            flush=True)
+        print(f"  collectives: {json.dumps(res.info['collectives'])}",
+              flush=True)
+        if level != "fp64":
+            rinfo = res.info["refinement"]
+            print(f"  refinement: steps {rinfo['steps']}, converged "
+                  f"{rinfo['converged']}, stalled {rinfo['stalled']}; "
+                  f"recovery {[(r['action'], r['outcome']) for r in res.info['recovery']]}",
+                  flush=True)
+        counts = res.info["kernel_launches"]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if variant == "TT":
+            sfx = "" if level == "fp64" else "_fp32"
+            n_pass = len(_executed_passes(n, TT_W))
+            want = {f"house_panel{sfx}": _n_panels(n, TT_W),
+                    f"chase_pass{sfx}": n_pass,
+                    f"replay_pass{sfx}": n_pass, "bisect_sturm": 1,
+                    "invit": 6}
+            got = {k: counts[k] for k in want}
+            checks.check(f"{label} launch counts", got == want,
+                         f"{json.dumps(got)} (expected {json.dumps(want)})")
+        elif level == "fp64":
+            mesh_ke = res.evals
+        else:
+            # the mixed level's own attempt, not checked: its refinement
+            # trajectory (a stall is what the recover ladder escalates)
+            own = solve(md.A, md.B, s, mesh=mesh, **dict(
+                kw, on_failure="warn"))
+            rinfo = own.info["refinement"]
+            print(f"  {label} with on_failure='warn' (not checked): "
+                  f"n_restart {own.info['n_restart']}, max resid bound "
+                  f"{max(own.info['resid_bounds']):.3e}, KE_iter "
+                  f"{own.stage_times['KE_iter']:.4f} s, refinement steps "
+                  f"{rinfo['steps']}, converged {rinfo['converged']}, "
+                  f"stalled {rinfo['stalled']}, relative_residual "
+                  f"{[float(f'{x:.3e}') for x in rinfo['relative_residual']]}",
+                  flush=True)
+            del own
+        del res
+    # a KE block step's two collectives on this mesh's groups, against the
+    # tile product they follow
+    from repro_torch.dist.mesh import tiling
+    tl = tiling(mesh)
+    X = torch.randn((n, 4), dtype=torch.float64, device=md.A.device,
+                    generator=torch.Generator(device=md.A.device).manual_seed(5))
+    runs = {"all_reduce + all_gather": lambda: tl.all_gather(
+                tl.all_reduce(X, tl.model_group, kind="timing"), tl.row_group,
+                kind="timing"),
+            "tile product (n x n) @ (n, 4)": lambda: md.A @ X}
+    parts: dict = {}
+    for _ in range(2):
+        for name, fn in runs.items():
+            parts.setdefault(name, []).append((_host_ms(fn, 50),
+                                               _queued_ms(fn, 50)))
+    print("mesh block step by part, ms a call (host enqueue / device "
+          "queued, two rounds in turns): " + "; ".join(
+              f"{k} " + ", ".join(f"{h:.4f} / {d:.4f}" for h, d in v)
+              for k, v in parts.items()), flush=True)
+    # the drill: preempt after 2 restarts, resume from the checkpoint
+    with tempfile.TemporaryDirectory(prefix="ke_ckpt_") as ck:
+        t0 = time.perf_counter()
+        try:
+            solve_ke_distributed(mesh, md.A, md.B, s, invert=True,
+                                 checkpoint_dir=ck, preempt_after=2,
+                                 return_info=True)
+            at = None
+        except SimulatedPreemption as err:
+            at = err.at_restart
+        t1 = time.perf_counter()
+        lam, X, info = solve_ke_distributed(mesh, md.A, md.B, s, invert=True,
+                                            checkpoint_dir=ck, resume=True,
+                                            return_info=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    ck_info = info["checkpoint"]
+    print(f"mesh drill: preempted at restart {at} ({t1 - t0:.2f} s), resumed "
+          f"from {info.get('resumed_from')} to n_restart {info['n_restart']} "
+          f"({t2 - t1:.2f} s); checkpoint {ck_info['bytes']} bytes a save, "
+          f"{ck_info['saves']} saves in {ck_info['save_s']:.3f} s "
+          f"({ck_info['save_s'] / max(ck_info['saves'], 1) * 1e3:.1f} ms a "
+          f"save)", flush=True)
+    checks.check("mesh drill preempted", at == 1, f"at restart {at}")
+    gap = float((lam - mesh_ke).abs().max())
+    checks.check("mesh drill resumed to parity",
+                 info.get("resumed_from", -1) >= 0 and info["healthy"]
+                 and info["converged"] and gap <= 1e-12 * scale,
+                 f"resumed_from {info.get('resumed_from')}, max gap {gap!r} "
+                 f"(bar 1e-12 * max|lambda|)")
+    return {"launches": launches}
+
+
+def run_mesh(md, s: int, single: dict, checks: Checks) -> dict:
+    """Phase 4e: ``_mesh_solves`` in a one-rank NCCL world on this card
+    (``dist.launcher.run_local``, which destroys the process group after);
+    prints and checks the launches by wrapper over the mesh solves."""
+    from repro_torch.dist.launcher import run_local
+    import torch
+
+    out = run_local(_mesh_solves, MESH_SHAPE, "cuda", md, s, single, checks)
+    print(f"phase 4e launches through the wrappers: "
+          f"{json.dumps({k: v for k, v in out['launches'].items() if v})}",
+          flush=True)
+    for name in ("house_panel", "house_panel_fp32", "chase_pass",
+                 "chase_pass_fp32", "replay_pass", "replay_pass_fp32",
+                 "bisect_sturm", "invit"):
+        checks.check(f"phase 4e launched {name}",
+                     out["launches"].get(name, 0) > 0,
+                     f"{out['launches'].get(name, 0)} launches")
+    checks.check("phase 4e left no process group",
+                 not torch.distributed.is_initialized(), "destroyed")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
@@ -3412,6 +3588,9 @@ def main() -> int:
         f"{r.info['n_matvec']}, {label[:2]}_iter "
         f"{r.stage_times[label[:2] + '_iter']:.4f} s)"
         for label, r in krylov), flush=True)
+    # phase 4e holds the mesh solves at fp64 to these
+    single = {"KE fp64": {"evals": ke4_res.evals,
+                          "stage_times": dict(ke4_res.stage_times)}}
     del ke_res, ki_res, ke4_res, krylov
     # the restart count at tol=0 follows the product's rounding: the same
     # block solve on torch.matmul, and one KE solve under the profiler
@@ -3428,6 +3607,8 @@ def main() -> int:
                        band_width=TT_W)
     measured["MD TT"] = dict(tt_res.stage_times)
     tt = tt_res.info["kernel_launches"]
+    single["TT fp64"] = {"evals": tt_res.evals,
+                         "stage_times": dict(tt_res.stage_times)}
     del tt_res
     print_plans("TT", args.md_n, args.md_s, TT_W)
     # the paper's second experiment at its size: TT, then TD
@@ -3482,6 +3663,13 @@ def main() -> int:
     # ---- phase 4d: the serving engine --------------------------------------
     engine = run_engine(md, args.md_s, router["MD fastest"], checks, dev)
     phase_done("4d (serving engine)")
+    # ---- phase 4e: the distribution layer on a (1, 1) NCCL mesh ----------
+    for level in ("mixed",):
+        for v in ("TT", "KE"):
+            single[f"{v} {level}"] = prec[f"{v} {level} result"]
+    mesh_run = run_mesh(md, args.md_s, single, checks)
+    del single
+    phase_done("4e (distribution layer)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),
@@ -3614,6 +3802,8 @@ def main() -> int:
                                     for b in buckets.values()),
             # launches of phase 4d's engine run (stream, router, drills)
             "engine_launches": engine["launches"].get(name, 0),
+            # launches of phase 4e's mesh solves (KE and TT, fp64, mixed)
+            "mesh_launches": mesh_run["launches"].get(name, 0),
             # the reduced panel, chase and replay: the older kernel on the
             # same input, the pass's chain floor, the panel's device time
             **{k: r[k] for k in ("older_path_ms", "chain_floor_ms",

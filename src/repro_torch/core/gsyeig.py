@@ -154,7 +154,8 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
                 krylov_block, filter, x0, v0, probe_v0,  # noqa: A002
                 generator, precision: str, refine, refine_tol: float,
                 refine_max_steps: int, guard0, on_failure: str,
-                recovery: list, device: torch.device) -> GSyEigResult:
+                recovery: list, device: torch.device,
+                mesh=None) -> GSyEigResult:
     """One attempt of the pipeline. Stage verdicts land in
     ``info['_stage_health']`` for ``solve`` to fold into ``info['health']``;
     a breakdown or non-finite stage raises a diagnosed ``SolverError``
@@ -177,9 +178,10 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     info: Dict[str, Any] = {"variant": variant, "n": n, "s": s,
                             "invert": invert, "which": which,
                             "precision": precision, "device": str(device)}
-    # Krylov knobs: block size p (1 on one device) and the start filter
-    # degree (16 on a clustered wanted end, else off)
-    p = krylov_block if krylov_block is not None else 1
+    # Krylov knobs: block size p (1 on one device, 4 on a mesh) and the
+    # start filter degree (16 on a clustered wanted end, else off)
+    p = krylov_block if krylov_block is not None else (
+        4 if mesh is not None else 1)
     filter_degree = filter if filter is not None else (16 if clustered else 0)
     if variant in ("KE", "KI"):
         info["krylov"] = {"p": int(p), "filter_degree": int(filter_degree)}
@@ -194,6 +196,24 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
         raise SolverError(message, stage=stage, reason=reason, hint=hint,
                           recovery=recovery,
                           health=verdict_from_stages(stage_health).as_json_dict())
+
+    refine_cfg = (dict(tol=refine_tol, max_steps=refine_max_steps,
+                       guard0=guard0) if refine else None)
+    if mesh is not None:
+        if m is None:
+            m = default_subspace(s, n, p)
+        elif p > 1 and m % p:
+            m = -(-m // p) * p          # block-align a user-supplied m
+        lam, X = _solve_on_mesh(
+            A, B, s, mesh, variant=variant, which=which, gs2=gs2,
+            use_kernel=use_kernel, band_width=band_width, m=m, tol=tol,
+            max_restarts=max_restarts, p=p, filter_degree=filter_degree,
+            x0=x0, v0=v0, probe_v0=probe_v0, generator=generator,
+            precision=precision, times=times, info=info, fail=fail,
+            stage_health=stage_health, on_failure=on_failure)
+        info["_stage_health"] = stage_health
+        return _finalize(lam, X, A_orig, B_orig, which_orig, invert, times,
+                         info, refine_cfg, device)
 
     # ---- GS1: B = U^T U --------------------------------------------------
     B = faults.poison_stage("GS1", B)
@@ -348,10 +368,52 @@ def _solve_once(A, B, s: int, *, variant: str, which: str, invert: bool,
     # ---- BT1: X = U^{-1} Y -----------------------------------------------
     X = _timed(times, "BT1", device)(back_transform_generalized, U, Y)
     info["_stage_health"] = stage_health
-    refine_cfg = (dict(tol=refine_tol, max_steps=refine_max_steps,
-                       guard0=guard0) if refine else None)
     return _finalize(lam, X, A_orig, B_orig, which_orig, invert, times, info,
                      refine_cfg, device)
+
+
+def _solve_on_mesh(A, B, s: int, mesh, *, variant: str, which: str,
+                   gs2: str, use_kernel: bool, band_width: int, m: int,
+                   tol: float, max_restarts: int, p: int, filter_degree: int,
+                   x0, v0, probe_v0, generator, precision: str, times: dict,
+                   info: dict, fail, stage_health: dict, on_failure: str):
+    """The distributed KE or TT (``repro_torch.dist.eigensolver``) on
+    ``mesh``, called the same way on every rank; (lam, X) replicated."""
+    if variant not in ("KE", "TT"):
+        raise NotImplementedError(f"mesh= implements the KE and TT "
+                                  f"variants, got {variant}")
+    if gs2 != "trsm" or use_kernel:
+        raise NotImplementedError(
+            "mesh= implements gs2='trsm' without the one-triangle product "
+            "kernel (use_kernel=False)")
+    from repro_torch.dist.eigensolver import (solve_ke_distributed,
+                                              solve_tt_distributed)
+    if variant == "KE":
+        lam, X, dinfo = solve_ke_distributed(
+            mesh, A, B, s, m=m, which=which, tol=tol,
+            max_restarts=max_restarts, v0=v0, probe_v0=probe_v0,
+            generator=generator, return_info=True, p=p,
+            filter_degree=filter_degree, precision=precision)
+    else:
+        lam, X, dinfo = solve_tt_distributed(
+            mesh, A, B, s, which=which, band_width=band_width, x0=x0,
+            generator=generator, return_info=True, precision=precision)
+    times.update(dinfo.pop("stage_times"))
+    info.update(dinfo)
+    stage = f"{variant}_dist"
+    stage_health[stage] = bool(dinfo.get("healthy", True))
+    if not stage_health[stage] and on_failure != "ignore":
+        fail(stage, "nonfinite_stage",
+             f"distributed {variant} produced a non-finite restart state",
+             "probable GS1 breakdown (non-SPD B) or overflow in a demoted "
+             "stage; retry with precision='fp64' or check the pencil")
+    if not info.get("converged", True):
+        info.setdefault("warnings", []).append(
+            f"{variant} retired UNCONVERGED after "
+            f"{info.get('n_restart', max_restarts)} restarts "
+            f"(max_restarts={max_restarts}); eigenpairs are the best Ritz "
+            f"approximations at exit")
+    return lam, X
 
 
 def _finalize(lam, X, A_orig, B_orig, which_orig: str, invert: bool,
@@ -388,9 +450,17 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
           refine: bool | None = None, refine_tol: float = REFINE_TOL,
           refine_max_steps: int = 60, guard0: torch.Tensor | None = None,
           on_failure: str = "warn", max_retries: int = 2,
-          machine=None, device=None) -> GSyEigResult:
+          machine=None, device=None, mesh=None) -> GSyEigResult:
     """GSYEIG with failure containment, on ``device`` (``None`` = the card;
     without CUDA it raises unless ``device="cpu"`` is passed).
+
+    ``mesh`` (a ``DeviceMesh`` of ``repro_torch.dist.make_mesh``, with a
+    'model' axis last) runs the distributed KE or TT
+    (``repro_torch.dist.eigensolver``), SPMD: every rank of the mesh calls
+    ``solve`` with the same A and B and gets the same result. On a mesh
+    ``krylov_block`` defaults to 4, ``variant="auto"`` chooses from KE and
+    TT, the other variants, ``gs2="sygst"`` and ``use_kernel`` raise
+    ``NotImplementedError``, and ``device`` defaults to the mesh's.
 
     Krylov knobs (KE/KI), with the reference's defaults: ``m`` the
     subspace size (``None`` = ``default_subspace``), ``tol`` the Ritz
@@ -446,14 +516,26 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
     in this call), and survives ``json.dumps``.
     """
     validate_on_failure(on_failure)
-    dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.dist.mesh import mesh_device
+        dev = mesh_device(mesh)
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} is not the mesh's "
+                             f"{mesh.device_type!r}")
+    else:
+        dev = resolve_device(device)
     router = None
     if variant == "auto":
-        from repro_torch.analysis.variant_model import choose_variant
+        from repro_torch.analysis.variant_model import (DISTRIBUTED_VARIANTS,
+                                                        choose_variant)
+        # any mesh (even 1 x 1) narrows the candidates to KE and TT
         choice = choose_variant(
             int(A.shape[0]), s, band_width=band_width, m=m,
             clustered=clustered, machine=machine,
-            krylov_block=krylov_block if krylov_block is not None else 1,
+            mesh_shape=tuple(mesh.shape) if mesh is not None else None,
+            allow=DISTRIBUTED_VARIANTS if mesh is not None else None,
+            krylov_block=krylov_block if krylov_block is not None else (
+                4 if mesh is not None else 1),
             filter_degree=(filter if filter is not None
                            else 16 if clustered else 0),
             precision=precision)
@@ -473,7 +555,7 @@ def solve(A, B, s: int, variant: str = "TD", which: str = "smallest",
 
     def attempt(attempt_kw):
         res = _solve_once(A, B, s, on_failure=on_failure, recovery=recovery,
-                          device=dev, **attempt_kw)
+                          device=dev, mesh=mesh, **attempt_kw)
         stages = res.info.pop("_stage_health", {})
         # final output sentinel on the (s,)/(n, s) results
         out_ok = host_finite(res.evals, res.X)

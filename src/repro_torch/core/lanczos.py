@@ -238,7 +238,7 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
                   use_kernel: bool = False, v0=None, probe_v0=None,
                   generator: torch.Generator | None = None,
                   n: int | None = None, p: int = 1, filter_degree: int = 0,
-                  compute_dtype=None) -> LanczosResult:
+                  compute_dtype=None, callback=None) -> LanczosResult:
     """Host-driven thick-restart block Lanczos for s extremal eigenpairs.
 
     ``op`` is an ``ExplicitC``/``ImplicitC`` operator or any block-matvec
@@ -251,7 +251,10 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
     ``probe_v0``. ``v0`` is (n,) or (n, p); what is not given is drawn
     from ``generator`` (by default one seeded with ``START_SEED``).
     ``compute_dtype`` (None, or torch.float32/bfloat16) demotes the
-    operator only (module docstring).
+    operator only (module docstring). ``callback(k_restart, V, T, m)``, if
+    given, is called after each restart's math with that segment's basis
+    and projected matrix, before the verdicts are read (the checkpoint
+    hook of ``dist.checkpoint.lanczos_callback``).
     """
     if which not in ("SA", "LA"):
         raise ValueError(f"which must be 'SA' or 'LA', got {which!r}")
@@ -313,6 +316,8 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
         theta, S, resid, V_restart, T_new, all_conv, healthy = _restart_math(
             V, T, B_q, tol_eff, s=s, keep=keep, m=m, p=p, which=which,
             resid_floor_rel=resid_floor_rel)
+        if callback is not None:
+            callback(k_restart, V, T, m)
         # the one device-to-host copy of the restart: both verdicts
         conv_ok, health_ok = torch.stack([all_conv, healthy]).tolist()
         if not health_ok:

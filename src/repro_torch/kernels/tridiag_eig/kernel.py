@@ -195,45 +195,68 @@ def bisect_sturm(d: torch.Tensor, e2: torch.Tensor, ks: torch.Tensor,
 bisect_sturm.launches = 0
 
 
-def invit(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
-          cid: torch.Tensor, pivmin: torch.Tensor, X0: torch.Tensor,
-          iters: int = 3) -> torch.Tensor:
-    """Z (n, s) for SORTED shifts ``lam`` from the column-normalized start
-    block ``X0``; ``cid`` int32 cluster ids, ``pivmin`` a 0-d tensor.
-    Two launches per round: the solve, then the norms and the cluster
-    Gram-Schmidt as one cooperative launch across the card
-    (``orth_plan``)."""
-    n, s = X0.shape
+def invit_solve(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
+                pivmin: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """One round's solve launch, in place on Z (n, s): column j becomes
+    (T - lam_j I)^{-1} Z[:, j] (the pivoted LU fused with the forward
+    substitution, then the back substitution). Counts under ``invit``."""
+    n, s = Z.shape
     f64 = torch.float64
     _check("d", d, f64, (n,))
     if n > 1:
         _check("e", e, f64, (n - 1,))
     _check("lam", lam, f64, (s,))
-    _check("cid", cid, torch.int32, (s,))
     _check("pivmin", pivmin, f64, ())
-    _check("X0", X0, f64, (n, s))
-    Z = X0.clone()
+    _check("Z", Z, f64, (n, s))
     if s == 0 or n == 0:
         return Z
-    plan = orth_plan(n, s, sm_count(d.device.index))
     # e is read only when n > 1; a 1-element stand-in keeps the pointer valid
     e_ptr = e if n > 1 else torch.zeros((1,), dtype=f64, device=d.device)
     W = torch.empty((n, s, 4), dtype=f64, device=d.device)
-    scr = torch.empty((plan.scratch,), dtype=f64, device=d.device)
-    bars = torch.zeros((iters,), dtype=torch.int32, device=d.device)
-    lib = _lib()
-    stream = current_stream(d.device)
-    for r in range(iters):
-        err = lib.tridiag_invit_solve(
-            d.data_ptr(), e_ptr.data_ptr(), lam.data_ptr(), pivmin.data_ptr(),
-            Z.data_ptr(), W.data_ptr(), n, s, stream)
-        invit.launches += 1
-        _raise_on(err, "tridiag_invit_solve")
-        err = lib.tridiag_invit_orth(
-            Z.data_ptr(), cid.data_ptr(), scr.data_ptr(), plan.scratch,
-            bars[r:].data_ptr(), n, s, plan.blocks, plan.rows, stream)
-        invit.launches += 1
-        _raise_on(err, "tridiag_invit_orth")
+    err = _lib().tridiag_invit_solve(
+        d.data_ptr(), e_ptr.data_ptr(), lam.data_ptr(), pivmin.data_ptr(),
+        Z.data_ptr(), W.data_ptr(), n, s, current_stream(d.device))
+    invit.launches += 1
+    _raise_on(err, "tridiag_invit_solve")
+    return Z
+
+
+def invit_orth(Z: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
+    """One round's Gram-Schmidt launch, in place on Z (n, s): the max-abs-
+    rescaled column norms, then Gram-Schmidt within the clusters ``cid``
+    (int32), as one cooperative launch across the card (``orth_plan``).
+    Counts under ``invit``."""
+    n, s = Z.shape
+    _check("Z", Z, torch.float64, (n, s))
+    _check("cid", cid, torch.int32, (s,))
+    if s == 0 or n == 0:
+        return Z
+    plan = orth_plan(n, s, sm_count(Z.device.index))
+    scr = torch.empty((plan.scratch,), dtype=torch.float64, device=Z.device)
+    bar = torch.zeros((1,), dtype=torch.int32, device=Z.device)
+    err = _lib().tridiag_invit_orth(
+        Z.data_ptr(), cid.data_ptr(), scr.data_ptr(), plan.scratch,
+        bar.data_ptr(), n, s, plan.blocks, plan.rows,
+        current_stream(Z.device))
+    invit.launches += 1
+    _raise_on(err, "tridiag_invit_orth")
+    return Z
+
+
+def invit(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
+          cid: torch.Tensor, pivmin: torch.Tensor, X0: torch.Tensor,
+          iters: int = 3) -> torch.Tensor:
+    """Z (n, s) for SORTED shifts ``lam`` from the column-normalized start
+    block ``X0``; ``cid`` int32 cluster ids, ``pivmin`` a 0-d tensor.
+    Two launches per round: the solve (``invit_solve``), then the norms
+    and the cluster Gram-Schmidt as one cooperative launch across the card
+    (``invit_orth``)."""
+    n, s = X0.shape
+    _check("X0", X0, torch.float64, (n, s))
+    Z = X0.clone()
+    for _ in range(iters):
+        invit_solve(d, e, lam, pivmin, Z)
+        invit_orth(Z, cid)
     return Z
 
 

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tridiag_eig import bisect_inputs, inverse_iteration
+from repro_torch.core.tridiag_eig import (_gttrf_gtts2, _mgs_clustered,
+                                         bisect_inputs, inverse_iteration,
+                                         normalize_columns)
 from . import kernel, ref
 
 
@@ -36,6 +38,27 @@ def invit_batched(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
                         X0.contiguous(), iters=iters)
 
 
+def invit_solve(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
+                pivmin: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """One inverse-iteration round's solve: column j of X (n, s) through
+    (T - lam_j I)^{-1}, each column on its own (the spectrum-partitioned
+    TT3 solves its slice of the shifts with it). Returns a new tensor."""
+    if d.device.type == "cpu":
+        return _gttrf_gtts2(d, e, lam, X, float(pivmin))
+    return kernel.invit_solve(d.contiguous(), e.contiguous(),
+                              lam.contiguous(), pivmin,
+                              X.clone(memory_format=torch.contiguous_format))
+
+
+def invit_orth(Z: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
+    """One round's normalization and Gram-Schmidt within the clusters
+    ``cid`` of the whole block Z (n, s). Returns a new tensor."""
+    if Z.device.type == "cpu":
+        return _mgs_clustered(normalize_columns(Z), cid)
+    return kernel.invit_orth(Z.clone(memory_format=torch.contiguous_format),
+                             cid.to(torch.int32).contiguous())
+
+
 def tridiag_eig_kernel(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor,
                        x0: torch.Tensor | None = None,
                        generator: torch.Generator | None = None,
@@ -46,4 +69,5 @@ def tridiag_eig_kernel(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor,
     return lam, Z
 
 
-__all__ = ["bisect_sturm", "invit_batched", "tridiag_eig_kernel"]
+__all__ = ["bisect_sturm", "invit_batched", "invit_solve", "invit_orth",
+           "tridiag_eig_kernel"]

@@ -11,7 +11,8 @@ the bucket shapes — the MD-timestep / DFT-SCF-iteration serving pattern.
 exercise the ``variant='auto'`` router fallback path. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given. The
 reference's ``--mesh``/``--devices`` are kept and raise: the mesh path is
-not ported yet (ROADMAP.md §1 item 12).
+not ported yet (ROADMAP.md §1 item 12c; ``launch/eigsolve.py --mesh``
+runs one distributed solve).
 """
 from __future__ import annotations
 

@@ -10,6 +10,18 @@ with ``--variant auto`` the router's decision and table under ``router``;
 with ``--precision mixed|fast`` it also has ``precision`` and the
 ``refinement`` block (steps, converged, and the relative-residual and
 B-orthogonality trajectories of the fp64 refinement).
+
+``--mesh DATAxMODEL`` runs the KE or TT variant (or ``auto``, narrowed to
+those two) on a (data, model) mesh through ``repro_torch.dist``: one rank
+a mesh position, started by ``dist.launcher.run_local`` (gloo with
+``--device cpu``, NCCL on the cards, one card a rank; ``--devices N``
+must equal DATA x MODEL and not exceed the visible cards). On the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.eigsolve --problem md \
+        --n 64 --s 4 --variant TT --devices 2 --mesh 2x1 --device cpu --json
+
+The payload's ``mesh`` and ``n_devices`` report the mesh (``"single"`` and
+the visible devices without one).
 """
 from __future__ import annotations
 
@@ -62,10 +74,48 @@ def main() -> None:
     ap.add_argument("--max-retries", type=int, default=2)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL mesh (e.g. 2x1): the KE or TT variant "
+                         "(or auto, narrowed to those two) on that many "
+                         "local ranks through repro_torch.dist")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks to start (must equal DATA x MODEL; on the "
+                         "cards at most the visible ones)")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
+    if args.mesh is None:
+        if args.devices is not None:
+            raise SystemExit("--devices needs --mesh DATAxMODEL")
+        payload = _payload(args, dev, None)
+    else:
+        dims = tuple(int(x) for x in args.mesh.lower().split("x"))
+        if len(dims) != 2:
+            raise SystemExit(f"--mesh wants DATAxMODEL, e.g. 2x1; got "
+                             f"{args.mesh!r}")
+        if args.devices is not None and args.devices != dims[0] * dims[1]:
+            raise SystemExit(f"--devices {args.devices} does not fill the "
+                             f"{args.mesh} mesh")
+        if args.variant not in ("KE", "TT", "auto"):
+            raise SystemExit("--mesh is only implemented for --variant KE, "
+                             "TT, or auto")
+        from repro_torch.dist.launcher import run_local
+        payload = run_local(_mesh_payload, dims, dev.type, args)
+    if args.json:
+        print(json.dumps(payload, indent=1))
+    else:
+        for k, v in payload.items():
+            print(f"{k}: {v}")
+
+
+def _mesh_payload(mesh, args: argparse.Namespace) -> dict:
+    """One rank's solve and payload (rank 0's is printed)."""
+    from repro_torch.dist.mesh import mesh_device
+    return _payload(args, mesh_device(mesh), mesh)
+
+
+def _payload(args: argparse.Namespace, dev: torch.device, mesh) -> dict:
     prob = (md_like if args.problem == "md" else dft_like)(args.n, device=dev)
     res = solve(prob.A, prob.B, args.s, variant=args.variant,
                 which=args.which, invert=args.invert, gs2=args.gs2,
@@ -77,7 +127,7 @@ def main() -> None:
                 clustered=(args.problem == "dft"
                            and args.which == "smallest"),
                 precision=args.precision, on_failure=args.on_failure,
-                max_retries=args.max_retries, device=dev)
+                max_retries=args.max_retries, device=dev, mesh=mesh)
     acc = accuracy_report(prob.A, prob.B, res.X, res.evals)
     exact = prob.exact_evals
     want = exact[:args.s] if args.which == "smallest" else exact[-args.s:]
@@ -86,8 +136,10 @@ def main() -> None:
         "variant": res.info["variant"],
         "requested_variant": args.variant,
         "n": args.n, "s": args.s,
-        "mesh": "single",
-        "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+        "mesh": args.mesh or "single",
+        "n_devices": (mesh.size() if mesh is not None
+                      else torch.cuda.device_count() if dev.type == "cuda"
+                      else 1),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "evals": [float(x) for x in res.evals],
@@ -114,11 +166,7 @@ def main() -> None:
                                   for x in rinfo["relative_residual"]],
             "b_orthogonality": [float(x) for x in rinfo["b_orthogonality"]],
         }
-    if args.json:
-        print(json.dumps(payload, indent=1))
-    else:
-        for k, v in payload.items():
-            print(f"{k}: {v}")
+    return payload
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ raises unless ``device="cpu"`` is passed). Its random starts come from
 one ``torch.Generator`` on that device, whose state advances with every
 dispatch. Results come back to the host as numpy arrays, copied out of
 the bucket program's buffers. The reference's ``mesh=`` path is not
-ported yet (ROADMAP.md §1 item 12).
+ported yet (ROADMAP.md §1 item 12c: a served stream that drives several
+ranks; ``solve(mesh=)`` itself runs on ``repro_torch.dist``).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ ENGINE_SEED = 1729
 
 def _mesh_not_ported() -> NotImplementedError:
     return NotImplementedError(
-        "the engine's mesh path is not ported yet (ROADMAP.md §1 item 12); "
+        "the engine's mesh path is not ported yet (ROADMAP.md §1 item 12c); "
         "the port serves on one device")
 
 

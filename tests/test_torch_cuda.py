@@ -1451,3 +1451,58 @@ def test_batched_warm_call_replays_pieces_the_cold_call_skipped(cuda):
     assert warm.converged.all() and warm.healthy.all()
     assert float((warm.evals - exact).abs().max()) <= 1e-10 * 2.0
 
+
+
+# ---- the distribution layer on the card (a one-rank NCCL mesh) ------------
+
+def test_invit_solve_and_orth_launches_make_invit(cuda):
+    """``invit``'s two launches called one by one (as the distributed TT3
+    does) give ``invit``'s Z bit for bit, two launches a round."""
+    d, e = _tridiag(300, 5, cuda)
+    e2, scal = bisect_inputs(d, e)
+    lam = kernel.bisect_sturm(d, e2, torch.arange(24, device=cuda), scal)
+    cid = _cluster_ids(lam, _scale(d, e)).to(torch.int32)
+    X0 = normalize_columns(start_block(300, 24, None, cuda))
+    piv = _pivmin(d, e)
+    Z = kernel.invit(d, e, lam, cid, piv, X0)
+    kernel.reset_launches()
+    Zs = X0.clone()
+    for _ in range(3):
+        kernel.invit_solve(d, e, lam, piv, Zs)
+        kernel.invit_orth(Zs, cid)
+    assert torch.equal(Zs, Z)
+    assert kernel.launch_counts()["invit"] == 3 * kernel.LAUNCHES_PER_ROUND
+
+
+def _mesh_solves_on_the_card(mesh, A, B):
+    out = {}
+    for variant in ("TT", "KE"):
+        kernels.reset_launches()
+        res = solve(A, B, 6, variant=variant, invert=variant == "KE",
+                    mesh=mesh)
+        out[variant] = (res.evals, res.X, dict(kernels.launch_counts()),
+                        res.info)
+    return out
+
+
+def test_mesh_solves_on_a_one_rank_nccl_mesh(cuda):
+    """``solve(mesh=)`` on a (1, 1) NCCL mesh: KE and TT on the card's
+    single-device eigenvalues within 1e-10 max|lambda| and the Table-3
+    bars; TT launched the panel, chase, replay and TD2 kernels; the
+    process group is gone afterwards."""
+    import torch.distributed as dist
+    from repro_torch.dist.launcher import run_local
+    p = md_like(400, device=cuda)
+    got = run_local(_mesh_solves_on_the_card, (1, 1), "cuda", p.A, p.B)
+    assert not dist.is_initialized()
+    scale = float(p.exact_evals.abs().max())
+    for variant, (evals, X, launches, info) in got.items():
+        assert float((evals - p.exact_evals[:6]).abs().max()) <= 1e-10 * scale
+        acc = accuracy_report(p.A, p.B, X, evals)
+        assert float(acc.relative_residual) <= 1e-12
+        assert float(acc.b_orthogonality) <= 1e-12
+        assert info["mesh"] == [1, 1] and info["health"]["healthy"]
+    tt = got["TT"][2]
+    assert tt["house_panel"] == sbr._n_panels(400, 16)
+    assert tt["chase_pass"] == tt["replay_pass"] == 15
+    assert tt["bisect_sturm"] == 1 and tt["invit"] == 6
