@@ -216,10 +216,21 @@ Phases, each printed as it runs; any failed check exits nonzero:
    checkpoint: the uninterrupted mesh run's eigenvalues within 1e-12
    max|lambda|), the checkpoint's bytes and save time; the process group
    destroyed after;
+4f. the audit (``python -m repro_torch.launch.audit``'s ``run_audit``) on
+   the card: every non-mesh entry at the ``AuditSpec`` (n=64, s=4, w=8,
+   p=4, m=24; the batched buckets at n=32, batch 2, at fp64, mixed and
+   fast) and the mesh entries on phase 4e's one-rank NCCL mesh (1, 1),
+   whose collective counts the contracts fix at any world size; each
+   entry's contract, and its recorded kernel calls against the launch
+   counters' deltas instance by instance (every one of the ten kernel
+   functions, and the fp32/bf16 instances the buckets reach, launched on
+   an audited path); the payload's ``ok``; the cost-model cross-check and
+   its dispatch-drift lines (the model's dispatches a stage beside the
+   counted launches and stage entries);
 5. one JSON line of the kernels (launches on their main path, launches
-   in phase 4c's warm calls, in phase 4d and in phase 4e, error against the plain
-   version, times, bound), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   in phase 4c's warm calls, in phase 4d, in phase 4e and in phase 4f's
+   audit, error against the plain version, times, bound), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--md-n`` / ``--dft-n`` / ``--wide-n`` / ``--chase-n`` shrink the
 matrices for a quick rehearsal; the defaults are the sizes above.
@@ -3342,6 +3353,56 @@ def run_mesh(md, s: int, single: dict, checks: Checks) -> dict:
     return out
 
 
+# ---- phase 4f: the audit ---------------------------------------------------
+
+#: the instances phase 4f's buckets reach below fp64 (TT mixed and fast,
+#: the Krylov buckets' product)
+AUDIT_REDUCED = tuple(f"{k}_{sfx}" for sfx in ("fp32", "bf16")
+                      for k in ("house_panel", "syr2k", "chase_pass",
+                                "replay_pass", "symm_block"))
+
+
+def run_audit_phase(checks: Checks) -> dict:
+    """Phase 4f: ``run_audit`` on the card, the mesh entries on phase 4e's
+    (1, 1) NCCL mesh. Every entry's contract and its recorded kernel calls
+    against the launch deltas are checks; returns the launches by
+    instance over every audited program."""
+    from repro_torch.launch.audit import print_human, run_audit
+
+    payload = run_audit(device="cuda", mesh_shape=MESH_SHAPE)
+    print_human(payload)
+    launches: dict = {}
+    for e in payload["entries"]:
+        checks.check(f"audit {e['name']}", e["ok"] and not e["skipped"],
+                     "; ".join(e["violations"]) or
+                     ("skipped" if e["skipped"] else "contract met"))
+        for prog in e["programs"] + e["probes"]:
+            checks.check(f"audit {e['name']}/{prog['name']} recorded calls "
+                         f"equal launches",
+                         prog["kernel_calls"] == prog["launches"],
+                         f"recorded {json.dumps(prog['kernel_calls'])}, "
+                         f"launched {json.dumps(prog['launches'])}")
+            for k, v in prog["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    checks.check("audit payload ok", payload["ok"],
+                 json.dumps(payload["summary"]))
+    for c in payload["crosscheck"]:
+        checks.check(f"audit cross-check {c['stage']}.{c['field']}", c["ok"],
+                     f"model {c['model_value']!r} vs counted "
+                     f"{c['counted_value']!r} ({c['relation']})")
+    for name in KERNEL_ORDER[:12] + AUDIT_REDUCED:
+        checks.check(f"phase 4f launched {name}", launches.get(name, 0) > 0,
+                     f"{launches.get(name, 0)} launches on audited paths")
+    print("audit dispatch drift (model dispatches a stage / counted "
+          "launches / stage entries): " + "; ".join(
+              f"{d['stage']} {d['model_dispatches']:g} / "
+              f"{d['counted_launches']} / {json.dumps(d['stage_entries'])}"
+              for d in payload["dispatch_drift"]), flush=True)
+    print(f"audit profiled seconds: {payload['summary']['seconds']:.2f}",
+          flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
@@ -3670,6 +3731,9 @@ def main() -> int:
     mesh_run = run_mesh(md, args.md_s, single, checks)
     del single
     phase_done("4e (distribution layer)")
+    # ---- phase 4f: the audit on the card -----------------------------------
+    audit = run_audit_phase(checks)
+    phase_done("4f (audit)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),
@@ -3804,6 +3868,8 @@ def main() -> int:
             "engine_launches": engine["launches"].get(name, 0),
             # launches of phase 4e's mesh solves (KE and TT, fp64, mixed)
             "mesh_launches": mesh_run["launches"].get(name, 0),
+            # launches of phase 4f's audited entries
+            "audit_launches": audit["launches"].get(name, 0),
             # the reduced panel, chase and replay: the older kernel on the
             # same input, the pass's chain floor, the panel's device time
             **{k: r[k] for k in ("older_path_ms", "chain_floor_ms",

@@ -46,6 +46,7 @@ import torch
 
 from .filtering import (chebyshev_filter, estimate_bounds, filter_interval,
                         probe_matrix, probe_steps)
+from .instrument import DispatchCounter
 from .linalg_utils import eigh_input, eigh_or_nan, eigh_output
 from .operators import ExplicitC, ImplicitC, apply_op, op_dim
 from .precision import padded_copy
@@ -53,6 +54,17 @@ from .precision import padded_copy
 #: seed of the default start block when no generator is given (the
 #: reference's default key of ``lanczos_solve``)
 START_SEED = 272727
+
+_dispatch = DispatchCounter()
+
+#: stage entries since the last ``reset_dispatch_count()``: in
+#: ``lanczos_solve`` the bounds probe, the filter, and each restart's
+#: segment and restart math (the reference's ``dispatch_count``,
+#: ``repro/core/lanczos.py:215-220``, counted at the same call sites); in
+#: ``lanczos_solve_jit`` each piece it runs (what ``core.batched``
+#: replays from a CUDA graph)
+dispatch_count = _dispatch.count
+reset_dispatch_count = _dispatch.reset
 
 
 class LanczosResult(NamedTuple):
@@ -300,9 +312,9 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
             probe_v0 = torch.randn((n,), generator=generator, dtype=dtype,
                                    device=device)
         probe_v0 = torch.as_tensor(probe_v0).to(device=device, dtype=dtype)
-        theta_p, beta_k = estimate_bounds(matvec, probe_v0, kb)
+        theta_p, beta_k = _dispatch(estimate_bounds, matvec, probe_v0, kb)
         a, b, a0 = filter_interval(theta_p, beta_k, s, which)
-        X0 = chebyshev_filter(matvec, X0, filter_degree, a, b, a0)
+        X0 = _dispatch(chebyshev_filter, matvec, X0, filter_degree, a, b, a0)
         n_matvec += kb + filter_degree * p
     V = torch.zeros((n, m + p), dtype=dtype, device=device)
     T = torch.zeros((m + p, m + p), dtype=dtype, device=device)
@@ -311,11 +323,11 @@ def lanczos_solve(op, s: int, which: str = "SA", m: int | None = None,
 
     j0 = 0
     for k_restart in range(max_restarts):
-        V, T, B_q = _segment_impl(matvec, V, T, j0, p)
+        V, T, B_q = _dispatch(_segment_impl, matvec, V, T, j0, p)
         n_matvec += m - j0 * p
-        theta, S, resid, V_restart, T_new, all_conv, healthy = _restart_math(
-            V, T, B_q, tol_eff, s=s, keep=keep, m=m, p=p, which=which,
-            resid_floor_rel=resid_floor_rel)
+        theta, S, resid, V_restart, T_new, all_conv, healthy = _dispatch(
+            _restart_math, V, T, B_q, tol_eff, s=s, keep=keep, m=m, p=p,
+            which=which, resid_floor_rel=resid_floor_rel)
         if callback is not None:
             callback(k_restart, V, T, m)
         # the one device-to-host copy of the restart: both verdicts
@@ -581,10 +593,11 @@ def lanczos_solve_jit(op, v0: torch.Tensor, s: int, m: int,
     stack = KrylovStack([lane], lambda i: (matvec, floor), X0[None], probe,
                         filter_degree)
     pieces = stack.pieces()
-    stack.drive(lambda name: pieces[name]())
+    stack.drive(lambda name: _dispatch(pieces[name]))
     return lane.result()
 
 
 __all__ = ["LanczosResult", "lanczos_solve", "lanczos_solve_jit",
            "KrylovLane", "KrylovStack", "eigh_stack", "krylov_matvec",
-           "default_subspace", "restart_schedule", "START_SEED"]
+           "default_subspace", "restart_schedule", "START_SEED",
+           "dispatch_count", "reset_dispatch_count"]

@@ -35,7 +35,9 @@ def householder_masked(x: torch.Tensor, pivot: int):
     sigma = torch.clamp_min(sigma, 0.0)
     safe = sigma > 0.0
     norm_x = torch.sqrt(alpha * alpha + sigma)
-    sgn = torch.where(alpha >= 0.0, 1.0, -1.0).to(x.dtype)
+    # in x's dtype: a scalar where() would make a float32 tensor
+    one = torch.ones_like(alpha)
+    sgn = torch.where(alpha >= 0.0, one, -one)
     beta = torch.where(safe, -sgn * norm_x, alpha)
     denom = torch.where(safe, alpha - beta, 1.0)
     unit = (idx == pivot).to(x.dtype)

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core.filtering import (chebyshev_filter, estimate_bounds,
                                         filter_interval, probe_steps)
+from repro_torch.core.instrument import DispatchCounter
 from repro_torch.core.lanczos import (_qr_posdiag, _restart_math,
                                       _segment_impl, default_subspace,
                                       lanczos_solve, restart_schedule)
@@ -73,6 +74,17 @@ from .sharded_la import (band_sweep, chol_rows, dist_apply_wy_right,
 #: seed of the default random starts (``gsyeig.SOLVE_SEED``, the
 #: reference's PRNGKey(20120520))
 START_SEED = 20120520
+
+_dispatch = DispatchCounter()
+
+#: stage entries of the fused distributed KE since the last
+#: ``reset_dispatch_count()``: its Chebyshev prep, each thick restart and
+#: the final Ritz extraction (the reference's ``dispatch_count``,
+#: ``repro/dist/eigensolver.py:431-433``, which forms the Ritz vectors
+#: inside its restart program), so a solve of ``n_restart`` restarts with
+#: a filter counts ``n_restart + 2``
+dispatch_count = _dispatch.count
+reset_dispatch_count = _dispatch.reset
 
 
 def _make_timer(times: Dict[str, float], device: torch.device):
@@ -179,6 +191,13 @@ def ke_prep_program(matvec, X0: torch.Tensor, kb: int, degree: int, s: int,
     a, b, a0 = filter_interval(theta, beta_k, s, which)
     Q0, _ = _qr_posdiag(chebyshev_filter(matvec, X0, degree, a, b, a0))
     return Q0
+
+
+def _ritz_vectors(V: torch.Tensor, S: torch.Tensor, m: int,
+                  s: int) -> torch.Tensor:
+    """The fused KE's exit: the orthonormalized Ritz vectors of the last
+    segment's basis, ``qr(V[:, :m] @ S[:, :s])``."""
+    return torch.linalg.qr(V[:, :m] @ S[:, :s])[0]
 
 
 def _verdicts(tl: Tiling, conv: torch.Tensor, healthy: torch.Tensor):
@@ -331,7 +350,8 @@ def solve_ke_distributed(
         n_matvec = 0
         if filter_degree > 0:
             kb = probe_steps(s, n)
-            Q0 = ke_prep_program(matvec, X0, kb, filter_degree, s, arp_which)
+            Q0 = _dispatch(ke_prep_program, matvec, X0, kb, filter_degree, s,
+                           arp_which)
             n_matvec += kb + filter_degree * p
         else:
             Q0, _ = _qr_posdiag(X0)
@@ -358,8 +378,8 @@ def solve_ke_distributed(
         n_restart = max_restarts
         for k_restart in range(k0, max_restarts):
             V_seg, theta, S, resid, V_r, T_new, conv, healthy_dev = \
-                ke_restart_program(matvec, V, T, j0, tol_eff, s=s, keep=keep,
-                                   m=m, p=p, which=arp_which)
+                _dispatch(ke_restart_program, matvec, V, T, j0, tol_eff, s=s,
+                          keep=keep, m=m, p=p, which=arp_which)
             n_matvec += m - j0 * p
             j0 = keep // p
             conv_ok, health_ok = _verdicts(tl, conv, healthy_dev)
@@ -381,7 +401,7 @@ def solve_ke_distributed(
                 break
             V, T = V_r, T_new
         lam, resid = theta[:s], resid[:s]
-        Y, _ = torch.linalg.qr(V_seg[:, :m] @ S[:, :s])
+        Y = _dispatch(_ritz_vectors, V_seg, S, m, s)
     synchronize(dev)
     times["KE_iter"] = time.perf_counter() - t0
 
@@ -610,4 +630,4 @@ def solve_tt_distributed(
 __all__ = ["solve_ke_distributed", "solve_tt_distributed",
            "ke_restart_program", "ke_prep_program",
            "dist_reduce_to_band", "dist_reduce_to_band_stepwise",
-           "dist_tridiag_eig"]
+           "dist_tridiag_eig", "dispatch_count", "reset_dispatch_count"]

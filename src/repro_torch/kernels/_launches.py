@@ -14,8 +14,22 @@ instance, ``syr2k_tiles``). Each path counts apart in ``fn.paths``
 reduced panel, chase and replay count their launches by kernel the same
 way (``cluster``/``cooperative``, ``slab``/``sweep``: their plans'
 paths).
+
+A *recording* (``recording()``) is the device-blind view of the same
+calls, for the audit (``analysis/static_audit``): while one is active,
+each ops dispatch of the eight families notes the launches its kernel
+path makes for the call (``note``), under the names of
+``launch_counts()``, on the CPU branch as on the CUDA one. The counts
+above are untouched by it: they count real CUDA launches, so on the card
+a recording's calls equal their deltas instance by instance exactly when
+no recorded call took the plain version. With no recording active a
+note costs one test of an empty list.
 """
 from __future__ import annotations
+
+import contextlib
+from collections import Counter
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -94,3 +108,44 @@ def reset(wrappers: dict) -> None:
             fn.reduced[s] = 0
         for key in getattr(fn, "paths", {}):
             fn.paths[key] = 0
+
+
+class Recording:
+    """The kernel launches noted while it is active, by instance
+    (``calls``); ``hook(instance, k)``, where given, sees each note as it
+    comes (the audit splits a run into steps by it)."""
+
+    def __init__(self, hook: Optional[Callable[[str, int], None]] = None):
+        self.calls: Counter = Counter()
+        self.hook = hook
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def recording(hook: Optional[Callable[[str, int], None]] = None
+              ) -> Iterator[Recording]:
+    """A ``Recording`` of the notes made inside the ``with`` block."""
+    rec = Recording(hook)
+    _ACTIVE.append(rec)
+    try:
+        yield rec
+    finally:
+        _ACTIVE.remove(rec)
+
+
+def recording_active() -> bool:
+    return bool(_ACTIVE)
+
+
+def note(name: str, dtype: torch.dtype = torch.float64, k: int = 1) -> None:
+    """``k`` launches of wrapper ``name``'s ``dtype`` instance, noted by an
+    ops dispatch on either branch; nothing unless a recording is active."""
+    if not _ACTIVE or not k:
+        return
+    inst = instance(name, dtype)
+    for rec in _ACTIVE:
+        rec.calls[inst] += k
+        if rec.hook is not None:
+            rec.hook(inst, k)

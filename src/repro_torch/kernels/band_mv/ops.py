@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -25,6 +27,7 @@ def band_mv(band: torch.Tensor, x: torch.Tensor, w: int,
     if band.shape[-1] != w + 1:
         raise ValueError(f"band must be (n, w+1) = (n, {w + 1}), got "
                          f"{tuple(band.shape)}")
+    _launches.note("band_mv", k=int(band.shape[0] > 0))
     if band.device.type == "cpu":
         return ref.band_mv_ref(band, x)
     return kernel.band_mv(band, x, w, bm=bm)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -21,6 +23,16 @@ def _fp64(*ts: torch.Tensor) -> None:
                 f"gemm in {t.dtype} is not ported yet (ROADMAP.md §1 item "
                 f"8: the bf16 path with fp32 accumulation); the port runs "
                 f"torch.float64")
+
+
+def _note(A: torch.Tensor, B: torch.Tensor, bm, bn, bk) -> None:
+    # the kernel's launches for this product: its plan's (a split K adds
+    # the reduce pass), none for an empty output
+    if _launches.recording_active():
+        m, k = A.shape
+        n = B.shape[1]
+        _launches.note("gemm", k=kernel.plan(m, n, k, bm, bn, bk).launches
+                       if m and n else 0)
 
 
 def _operands(A: torch.Tensor, B: torch.Tensor):
@@ -38,6 +50,7 @@ def gemm(A: torch.Tensor, B: torch.Tensor, bm: int | None = None,
     (``kernel.plan``: the output tile of a block and the K it covers);
     ``None`` leaves them to the planner."""
     _fp64(A, B)
+    _note(A, B, bm, bn, bk)
     if A.device.type == "cpu":
         return ref.gemm_ref(A, B)
     A, B = _operands(A, B)
@@ -50,6 +63,7 @@ def gemm_accum(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """C += alpha A @ B in place (C row-major, a view of a larger matrix
     included); returns C."""
     _fp64(C, A, B)
+    _note(A, B, bm, bn, bk)
     if C.device.type == "cpu":
         return C.copy_(ref.gemm_accum_ref(C, A, B, alpha))
     A, B = _operands(A, B)

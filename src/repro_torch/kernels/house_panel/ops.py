@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -21,6 +23,7 @@ def house_panel(E: torch.Tensor, row_start: int):
     bfloat16 panel is factored in float32 and V, T are rounded to
     bfloat16, as the reference's bf16 path does.
     """
+    _launches.note("house_panel", E.dtype, k=int(E.shape[0] > 0))
     if E.device.type != "cpu":
         return kernel.house_panel(E, row_start)
     if E.dtype == torch.bfloat16:

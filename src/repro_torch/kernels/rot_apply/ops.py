@@ -13,12 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
 def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     """G rotations of G row pairs: pairs (G, 2, L), cs (G, 2) ->
     (c x0 + s x1, -s x0 + c x1) per pair."""
+    _launches.note("rot_apply", pairs.dtype, k=int(pairs.numel() > 0))
     if pairs.device.type == "cpu":
         return ref.rot_apply_ref(pairs, cs)
     return kernel.rot_apply(pairs, cs)
@@ -27,6 +30,7 @@ def rot_apply(pairs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
 def chase_pass(Wp: torch.Tensor, b: int, w: int, n: int) -> torch.Tensor:
     """One wavefront bandwidth pass b -> b-1 over the padded band ``Wp``
     (updated in place); returns its (J+1, K0+1, 2) rotation table."""
+    _launches.note("chase_pass", Wp.dtype)
     if Wp.device.type == "cpu":
         # the kernel's in-place form (bitwise the reference's window form
         # in fp64, which the tests hold it to)
@@ -38,6 +42,7 @@ def replay_pass(Xp: torch.Tensor, CS: torch.Tensor, b: int, n: int,
                 reverse: bool) -> torch.Tensor:
     """One pass of recorded rotations applied to the rows of ``Xp`` (in
     place): backward with (c, -s) for Q2 Z, forward for Q1 Q2."""
+    _launches.note("replay_pass", Xp.dtype)
     if Xp.device.type == "cpu":
         return ref.replay_pass_ref(Xp, CS, b, n, reverse)
     return kernel.replay_pass(Xp, CS, b, n, reverse)

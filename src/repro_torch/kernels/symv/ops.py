@@ -10,11 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
 def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = A x for symmetric A, from its upper triangle; x (n,)."""
+    _launches.note("symv", A.dtype, k=int(A.shape[0] > 0))
     if A.device.type == "cpu":
         return ref.symv_upper_ref(A, x)
     return kernel.symv(A, x)
@@ -22,6 +25,7 @@ def symv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def symm_block(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Y = A X for symmetric A, from its upper triangle; X (n, p)."""
+    _launches.note("symm_block", A.dtype, k=int(X.numel() > 0))
     if A.device.type == "cpu":
         return ref.symm_block_upper_ref(A, X)
     return kernel.symm_block(A, X)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -20,6 +22,7 @@ def syr2k(C: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     ``out`` receives the result (``out=C`` updates C in place). float64,
     float32, or bfloat16 computed in float32 (the kernel's instances).
     """
+    _launches.note("syr2k", C.dtype, k=int(C.shape[0] > 0))
     if C.device.type != "cpu":
         return kernel.syr2k(C, V, W, alpha=alpha, symmetrize=symmetrize,
                             out=out)

@@ -12,6 +12,8 @@ import torch
 from repro_torch.core.tridiag_eig import (_gttrf_gtts2, _mgs_clustered,
                                          bisect_inputs, inverse_iteration,
                                          normalize_columns)
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -20,6 +22,7 @@ def bisect_sturm(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor,
     """Eigenvalues at indices ``ks`` (any order) by Sturm bisection."""
     e2, scal = bisect_inputs(d, e)
     ks = ks.to(device=d.device, dtype=torch.int64).contiguous()
+    _launches.note("bisect_sturm", k=int(ks.shape[0] > 0))
     if d.device.type == "cpu":
         return ref.bisect_sturm_ref(d, e2, ks, scal, max_iters=max_iters)
     return kernel.bisect_sturm(d.contiguous(), e2, ks, scal,
@@ -31,6 +34,8 @@ def invit_batched(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
                   iters: int = 3) -> torch.Tensor:
     """Eigenvectors for SORTED shifts ``lam`` from the column-normalized
     start block ``X0``."""
+    _launches.note("invit", k=kernel.LAUNCHES_PER_ROUND * iters
+                   if X0.numel() else 0)
     if d.device.type == "cpu":
         return ref.invit_ref(d, e, lam, cid, pivmin, X0, iters=iters)
     return kernel.invit(d.contiguous(), e.contiguous(), lam.contiguous(),
@@ -43,6 +48,7 @@ def invit_solve(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
     """One inverse-iteration round's solve: column j of X (n, s) through
     (T - lam_j I)^{-1}, each column on its own (the spectrum-partitioned
     TT3 solves its slice of the shifts with it). Returns a new tensor."""
+    _launches.note("invit", k=int(X.numel() > 0))
     if d.device.type == "cpu":
         return _gttrf_gtts2(d, e, lam, X, float(pivmin))
     return kernel.invit_solve(d.contiguous(), e.contiguous(),
@@ -53,6 +59,7 @@ def invit_solve(d: torch.Tensor, e: torch.Tensor, lam: torch.Tensor,
 def invit_orth(Z: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
     """One round's normalization and Gram-Schmidt within the clusters
     ``cid`` of the whole block Z (n, s). Returns a new tensor."""
+    _launches.note("invit", k=int(Z.numel() > 0))
     if Z.device.type == "cpu":
         return _mgs_clustered(normalize_columns(Z), cid)
     return kernel.invit_orth(Z.clone(memory_format=torch.contiguous_format),

@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 
+from repro_torch.kernels import _launches
+
 from . import kernel, ref
 
 
@@ -58,6 +60,10 @@ def trsm(U: torch.Tensor, B: torch.Tensor, trans: bool = False,
             raise NotImplementedError(
                 f"trsm in {t.dtype} is not ported yet (ROADMAP.md §1 item "
                 f"8); the port runs torch.float64")
+    if _launches.recording_active():
+        n_, s_ = B.shape[0], (B.shape[1] if B.dim() > 1 else 1)
+        for name, k in launches(n_, s_, trans, block).items():
+            _launches.note(name, k=k)
     if U.device.type == "cpu":
         return ref.trsm_blocked_ref(U, B, trans=trans, block=block)
     vec = B.dim() == 1

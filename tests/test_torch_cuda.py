@@ -1506,3 +1506,27 @@ def test_mesh_solves_on_a_one_rank_nccl_mesh(cuda):
     assert tt["house_panel"] == sbr._n_panels(400, 16)
     assert tt["chase_pass"] == tt["replay_pass"] == 15
     assert tt["bisect_sturm"] == 1 and tt["invit"] == 6
+
+
+def test_audit_on_the_card(cuda):
+    """``run_audit(quick=True)`` (all but the ``solve_batched`` buckets) on
+    the card, its default device, the mesh entries on a (1, 1)
+    NCCL mesh: every contract met, and every audited program's recorded
+    kernel calls equal the launch counters' deltas instance by instance
+    (no call on an audited path took the plain version)."""
+    import torch.distributed as dist
+    from repro_torch.launch.audit import run_audit
+    payload = run_audit(quick=True, mesh_shape=(1, 1))    # the card
+    assert not dist.is_initialized()
+    assert payload["ok"], [(e["name"], e["violations"])
+                           for e in payload["entries"] if not e["ok"]]
+    assert payload["summary"]["skipped"] == 0
+    for e in payload["entries"]:
+        for prog in e["programs"] + e["probes"]:
+            assert prog["kernel_calls"] == prog["launches"], (
+                e["name"], prog["name"])
+    launched = {k for e in payload["entries"] for prog in e["programs"]
+                for k, v in prog["launches"].items() if v}
+    assert {"bisect_sturm", "invit", "symv", "symm_block", "house_panel",
+            "syr2k", "rot_apply", "chase_pass", "replay_pass", "gemm",
+            "trsm_tile", "band_mv"} <= launched
