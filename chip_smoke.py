@@ -172,8 +172,8 @@ Phases, each printed as it runs; any failed check exits nonzero:
    below), the Table-3 bars, converged and healthy, a second call a cache
    hit with compile_s 0, and for TD/TT its launches a replay equal to
    batch x the eager counts; printed: compile_s, the graphs and their
-   replays, the warm call's wall and pencils/s against the eager loop's,
-   timed in turns, and the call's span on its stream by CUDA events (idle
+   replays, the warm call's wall and pencils/s against the eager loop's
+   (one of each), and the call's span on its stream by CUDA events (idle
    gaps included: ``launch/solve_profile.py --batch`` reads the device
    time). Then
    ``solve(variant="auto", machine=MachineParams.h100())`` at MD
@@ -227,6 +227,28 @@ Phases, each printed as it runs; any failed check exits nonzero:
    an audited path); the payload's ``ok``; the cost-model cross-check and
    its dispatch-drift lines (the model's dispatches a stage beside the
    counted launches and stage entries);
+4g. the LM serving path (``repro_torch.models``, ``serve/engine.py``,
+   ``launch/serve.py``), which runs no kernel of the table (its launches,
+   counted from 0, must stay 0): (a) every one of the ten smoke configs
+   at fp32 from seeded weights, 8 decode steps on the card against the
+   same on the host (1e-4 max|logit|) and decode against prefill on the
+   card (2e-3); (b) gemma3-1b at full width (26 layers, d_model 1152,
+   vocab 262144, ~1.0e9 parameters drawn on the card from seed 0): a
+   16-token fp32 forward against the host (1e-4 max|logit|), then at bf16
+   a ``ServeEngine`` of 4 slots and capacity 1024 serving 8 requests of
+   32 new tokens with staggered admissions (prompts 8-64 tokens and one
+   of 600, past the 512-slot local rings), every token in range; the
+   600-token request and one admitted into a freed slot rerun solo in an
+   engine of 4 slots, in a process of their own beside the staggered run
+   (the same weights, by their checksum, and the same tokens); an int8 KV
+   decode against the bf16 cache (the reference's bars: 0.05 max|logit|,
+   0.9 greedy agreement); printed, not checked: ms a tick and tokens/s at
+   B=4 and prefill-by-decode ms a prompt token (20 and 7 ticks on the
+   otherwise idle card), the peak memory, and over 20 ticks under
+   ``torch.profiler`` the kernel launches a tick and the device's idle
+   share; (c) ``python -m repro_torch.launch.serve --arch gemma3-1b
+   --batch 4 --prompt-len 32 --gen 32``, started with the phase in a
+   process of its own, which must exit 0 and print ``serve OK``;
 5. one JSON line of the kernels (launches on their main path, launches
    in phase 4c's warm calls, in phase 4d, in phase 4e and in phase 4f's
    audit, error against the plain version, times, bound), the card's name
@@ -632,7 +654,6 @@ def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
         Y_k, k1 = _time_cuda(run, TIMING_REPS)
         Y_p, p1 = _time_host(plain)
         _, k2 = _time_cuda(run, TIMING_REPS)
-        _, p2 = _time_host(plain)
         torch.matmul(A, X)
         _, l1 = _time_cuda(lambda: torch.matmul(A, X), TIMING_REPS)
         _, l2 = _time_cuda(lambda: torch.matmul(A, X), TIMING_REPS)
@@ -644,7 +665,7 @@ def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
         nbytes = 8 * (n * (n + 1) / 2 + 2 * n * p)
         ms = (k1 + k2) / 2
         print(f"{label} {key}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-              f"{p1:.1f} / {p2:.1f} ms (plain on the host CPU), "
+              f"{p1:.1f} ms (plain on the host CPU), "
               f"torch.matmul {l1:.4f} / {l2:.4f} ms; kernel "
               f"{nbytes / ms / 1e9:.3f} TB/s on the triangle, bound "
               f"{HBM_BYTES_PER_S / 1e12:.2f}; least time "
@@ -661,7 +682,7 @@ def compare_product(label: str, A, checks: Checks, seed: int) -> dict:
                      f"{float((again - Y_k).abs().max())!r}")
         rows[key] = dict(
             max_abs_err=float(diff.max()), ms=ms,
-            plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+            plain_ms=p1, library_ms=(l1 + l2) / 2,
             **_bound(2.0 * n * n * p, nbytes))
     return rows
 
@@ -1124,8 +1145,6 @@ def compare_replay(label: str, passes, tables, n: int, plain_dev,
     Ys, s1 = _time_cuda(old)
     if plain_dev is not None:
         Yp, p1 = _time_cuda(replay_p)
-    _, k2 = _time_cuda(wrapper)
-    _, s2 = _time_cuda(old)
     per = len(passes)
     Yk, Ys = Yk.cpu(), Ys.cpu()
     if plain_dev is None:
@@ -1138,8 +1157,8 @@ def compare_replay(label: str, passes, tables, n: int, plain_dev,
     err = float((Yk - Yp).abs().max())
     print(f"{label} replay ({per} passes onto ({n}, {cols})): wrapper, plan "
           f"{plan.path} ({plan.ctas} CTAs, 2 table slices of {plan.stage} "
-          f"bytes) {k1:.3f} / {k2:.3f} ms, sweep kernel {s1:.3f} / "
-          f"{s2:.3f} ms, plain {where}", flush=True)
+          f"bytes) {k1:.3f} ms, sweep kernel {s1:.3f} ms, plain {where}",
+          flush=True)
     for name, Y in (("wrapper", Yk), ("sweep path", Ys)):
         if Y is Yp:
             continue
@@ -1171,7 +1190,7 @@ def compare_replay(label: str, passes, tables, n: int, plain_dev,
                   f"{k} {v[0]:.3f} / {v[1]:.3f} "
                   f"({1e3 * min(v) / chunks:.3f})" for k, v in times.items()),
               flush=True)
-    return dict(max_abs_err=err, ms=(k1 + k2) / 2 / per,
+    return dict(max_abs_err=err, ms=k1 / per,
                 plain_ms=None if p1 is None else p1 / per, library_ms=None,
                 **_per_launch(_replay_bound(n, cols, passes), per))
 
@@ -2642,10 +2661,10 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
     gap within 1e-10 max|lambda| at fp64, the Table-3 scale 1e-12
     max|lambda| below), the Table-3 bars, converged and healthy, the
     warm call a cache hit with compile_s 0 and (TD/TT) batch x the eager
-    launches in its graphs; then the warm call and the eager loop timed
-    in turns (loop, call, call, loop; the first loop's solves are the
-    comparison), and the call's span by CUDA events around it (idle gaps
-    included) beside its wall. The pipeline cache is emptied after the
+    launches in its graphs; then the eager loop (whose solves are the
+    comparison) and the warm call timed one after the other, and the
+    call's span by CUDA events around it (idle gaps included) beside its
+    wall. The pipeline cache is emptied after the
     bucket unless ``cached`` (phase 4d serves from the programs left)."""
     import torch
     from repro_torch.core import accuracy_report, batched, solve
@@ -2673,10 +2692,10 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
     def call():
         return batched.solve_batched(A, B, s, **kw).info["wall_s"]
 
-    # the eager loop, the warm call, the call, the loop: timed in turns;
-    # the first loop's results are the comparison
+    # the eager loop, then the warm call; the loop's results are the
+    # comparison
     eager: list = []
-    walls = [loop(eager), call(), call(), loop()]
+    walls = [loop(eager), call()]
     checks.check(f"{label} runs as CUDA graphs", info["path"] ==
                  "cuda_graphs" and cold.info["cache_hit"] is False and
                  cold.info["compile_s"] > 0.0,
@@ -2715,7 +2734,7 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
                      f"restarts {info['restarts']}, per replay "
                      f"{json.dumps(info['graph_launches'])}")
     del eager
-    call_s, loop_s = min(walls[1], walls[2]), min(walls[0], walls[3])
+    loop_s, call_s = walls
     _, span_ms = _time_cuda(lambda: batched.solve_batched(A, B, s, **kw))
     row = {"compile_s": cold.info["compile_s"], "graphs": info["graphs"],
            "wall_s": call_s, "pencils_per_s": batch / call_s,
@@ -2728,9 +2747,7 @@ def run_bucket(label: str, probs, A, B, s: int, checks: Checks,
           f"({', '.join(f'{k} x{v}' for k, v in info['graph_replays'].items())}), "
           f"warm wall {1e3 * call_s:.2f} ms = {row['pencils_per_s']:.2f} "
           f"pencils/s; eager loop {1e3 * loop_s:.2f} ms = "
-          f"{row['eager_pencils_per_s']:.2f} pencils/s (in turns, loop, "
-          f"call, call, loop: "
-          f"{', '.join(f'{1e3 * w:.2f}' for w in walls)} ms); the call's "
+          f"{row['eager_pencils_per_s']:.2f} pencils/s; the call's "
           f"span {span_ms:.2f} ms (CUDA events, idle gaps included); peak "
           f"memory "
           f"{row['peak_gib']:.2f} GiB", flush=True)
@@ -3403,6 +3420,383 @@ def run_audit_phase(checks: Checks) -> dict:
     return {"launches": launches}
 
 
+# ---- phase 4g: the LM serving path --------------------------------------------
+
+LM_REL = 1e-4            # fp32 logits on the card vs the host, / max|logit|
+LM_PREFILL = 2e-3        # decode vs prefill (rtol and atol), as the reference
+INT8_ERR = 0.05          # int8 vs compute KV cache: max|dlogit| / max|logit|
+INT8_AGREE = 0.9         # ... and the share of equal greedy tokens
+LM_SLOTS = 4             # the engine's batch at full width
+LM_CAPACITY = 1024       # the engine's cache capacity (global layers' ring)
+LM_NEW = 32              # new tokens a request
+#: the 8 requests' prompt lengths (one past the 512-slot local rings) and
+#: the tick each is submitted at: 4 at once, then one every 20 ticks, each
+#: admitted as a slot frees
+LM_PROMPTS = (600, 8, 64, 16, 40, 24, 12, 56)
+LM_SUBMIT_AT = (0, 0, 0, 0, 20, 40, 60, 80)
+#: rerun solo: the long request and one admitted into a freed slot
+LM_SOLO = (0, 5)
+LM_WINDOW = 20           # ticks a timed window
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _lm_decode(lm, params, cfg, toks, state):
+    """Logits (B, T, V) of feeding ``toks`` (B, T) one step at a time."""
+    import torch
+    outs = []
+    for t in range(toks.shape[1]):
+        logits, state = lm.decode_step(params, toks[:, t:t + 1], state, cfg)
+        outs.append(logits)
+    return torch.cat(outs, dim=1)
+
+
+def _lm_smoke(checks: Checks, dev) -> None:
+    """(a) every smoke config at fp32: 8 decode steps on the card against
+    the host from the same weights, and decode against prefill on the
+    card."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.models import model as lm
+
+    B, T = 2, 8
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch)
+        params = lm.init_params(0, cfg, device=dev)
+        host = lm.LM(cfg, device="cpu")
+        host.load_state_dict(params.state_dict())
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen)
+        mem_d = mem_h = None
+        with torch.no_grad():
+            if cfg.encoder_decoder:
+                emb = torch.randn((B, T, cfg.d_model), generator=gen)
+                mem_d = lm.encode(params, emb.to(dev), cfg)
+                mem_h = lm.encode(host, emb, cfg)
+            full, _ = lm.forward(params, toks.to(dev), cfg, memory=mem_d)
+        dec_d = _lm_decode(lm, params, cfg, toks.to(dev), lm.init_decode_state(
+            cfg, B, capacity=2 * T, memory=mem_d, device=dev))
+        dec_h = _lm_decode(lm, host, cfg, toks, lm.init_decode_state(
+            cfg, B, capacity=2 * T, memory=mem_h, device="cpu"))
+        err = _rel_err(dec_d, dec_h)
+        checks.check(f"LM {arch} smoke: {T} decode steps, card vs host",
+                     err <= LM_REL, f"max|d logit| / max|logit| = {err!r}, "
+                     f"bar {LM_REL}")
+        gap = float((dec_d - full).abs().max())
+        ok = bool(torch.allclose(dec_d, full, rtol=LM_PREFILL,
+                                 atol=LM_PREFILL))
+        checks.check(f"LM {arch} smoke: decode vs prefill on the card", ok,
+                     f"max|decode - prefill| = {gap!r} (rtol = atol = "
+                     f"{LM_PREFILL}); {time.perf_counter() - t0:.2f} s")
+
+
+def _lm_setup(dev):
+    """gemma3-1b's config, its weights drawn on ``dev`` from seed 0 (the
+    same values in every process on the card), their checksum and the 8
+    prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+
+    cfg = get_config("gemma3-1b")
+    params = lm.init_params(0, cfg, device=dev)
+    checksum = [float(p.detach().sum()) for p in params.parameters()]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in LM_PROMPTS]
+    return cfg, params, checksum, prompts
+
+
+def _lm_solo(cfg, params, prompt, dev) -> list:
+    """``prompt``'s tokens served alone in an engine of ``LM_SLOTS``."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                      capacity=LM_CAPACITY, device=dev)
+    eng.submit(prompt, max_new_tokens=LM_NEW)
+    (r,) = eng.run_until_drained()
+    return r.output
+
+
+def lm_solo_main(device: str) -> int:
+    """The solo reruns of phase 4g (b), in a process of their own so that
+    they run beside the staggered run: prints one JSON line, the weights'
+    checksum and each rerun's tokens."""
+    import torch
+    dev = torch.device(device)
+    cfg, params, checksum, prompts = _lm_setup(dev)
+    out = {str(i): _lm_solo(cfg, params, prompts[i], dev) for i in LM_SOLO}
+    print(json.dumps({"checksum": checksum, "outputs": out}), flush=True)
+    return 0
+
+
+def _spawn(cmd, label: str):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    print(f"{label}: started ({' '.join(cmd[1:])[:120]})", flush=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(ROOT))
+
+
+def _collect(proc, timeout: float):
+    """(exit code or None on a timeout, stdout, stderr); a process still
+    running at the timeout is killed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        return proc.returncode, out, err
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        return None, out, "timed out\n" + err
+
+
+def _engine_run(eng, prompts, submit_at):
+    """Submit ``prompts[i]`` at tick ``submit_at[i]`` and tick until
+    drained. Returns the done requests by uid, the ticks and the uids by
+    prompt."""
+    uids, tick = {}, 0
+    while True:
+        for i, at in enumerate(submit_at):
+            if at == tick:
+                uids[i] = eng.submit(prompts[i], max_new_tokens=LM_NEW)
+        if (len(uids) == len(prompts) and not eng.queue
+                and all(s.free for s in eng.slots)):
+            break
+        eng.tick()
+        tick += 1
+    return {r.uid: r for r in eng.done}, tick, uids
+
+
+def _timed_ticks(eng, n: int) -> list:
+    """Host ms of ``n`` ticks, each ending in the argmax's copy to the
+    host."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        eng.tick()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _tick_profile(eng, ticks: int) -> dict:
+    """``ticks`` engine ticks under ``torch.profiler`` (CUDA activity):
+    the wall, the device time, the kernel launches (copies and memsets
+    apart) and the device's idle share, with the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(getattr(ev, "device_time_total", 0.0) / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    device = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows
+                   if not r[2].startswith(("Memcpy", "Memset")))
+    return {"wall_ms": wall, "device_ms": device,
+            "launches_per_tick": launches / ticks,
+            "idle_share": 1.0 - device / wall if device else None,
+            "top": "; ".join(f"{_kernel_name(k)} {ms:.2f} ms x{n}"
+                             for ms, n, k in rows[:5])}
+
+
+def _lm_full_width(checks: Checks, dev, solo_proc) -> dict:
+    """(b) gemma3-1b at full width: the fp32 forward on the card against
+    the host, the bf16 engine (4 slots, 8 requests, staggered admissions,
+    one 600-token prompt), its solo reruns (``solo_proc``, running beside
+    it), the int8 KV cache, then the timed and profiled windows."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as lm
+    from repro_torch.serve.engine import ServeEngine
+
+    checks.check("fp32 matmuls are fp32 (no TF32)",
+                 not torch.backends.cuda.matmul.allow_tf32
+                 and torch.get_float32_matmul_precision() == "highest",
+                 f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+                 f"precision {torch.get_float32_matmul_precision()}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()    # what earlier phases still hold
+    t0 = time.perf_counter()
+    cfg, params, checksum, prompts = _lm_setup(dev)
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"gemma3-1b: {cfg.n_layers} layers {cfg.layer_kinds()[:6]}..., "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}; {n_par} parameters "
+          f"({4 * n_par / 1e9:.3f} GB f32), param_count() "
+          f"{cfg.param_count()}; drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 1. a 16-token fp32 forward, card against host
+    cfg32 = cfg.scaled(dtype="float32")
+    t0 = time.perf_counter()
+    host = lm.LM(cfg32, device="cpu")
+    host.load_state_dict(params.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (1, 16),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        on_card, _ = lm.forward(params, toks.to(dev), cfg32)
+        on_host, _ = lm.forward(host, toks, cfg32)
+    del host
+    err = _rel_err(on_card, on_host)
+    checks.check("gemma3-1b 16-token fp32 forward, card vs host",
+                 err <= LM_REL and tuple(on_card.shape) == (
+                     1, 16, cfg.vocab_size)
+                 and bool(torch.isfinite(on_card).all()),
+                 f"max|d logit| / max|logit| = {err!r}, bar {LM_REL}; "
+                 f"{time.perf_counter() - t0:.1f} s with the host copy")
+    del on_card, on_host
+
+    # 2. the bf16 engine: 8 requests, staggered, one past the local rings
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                      capacity=LM_CAPACITY, device=dev)
+    t0 = time.perf_counter()
+    done, n_ticks, uids = _engine_run(eng, prompts, LM_SUBMIT_AT)
+    wall = time.perf_counter() - t0
+    outs = {i: done[u].output for i, u in uids.items()}
+    checks.check("gemma3-1b engine served every request",
+                 sorted(outs) == list(range(len(prompts))) and all(
+                     len(o) == LM_NEW for o in outs.values()),
+                 f"{len(done)} done in {n_ticks} ticks, {wall:.2f} s (the "
+                 f"solo reruns' process beside it)")
+    checks.check("gemma3-1b tokens in range",
+                 all(0 <= t < cfg.vocab_size for o in outs.values()
+                     for t in o), f"{sum(map(len, outs.values()))} tokens")
+
+    # 3. int8 KV against the bf16 cache on a short decode
+    cfg8 = cfg.scaled(kv_cache_dtype="int8")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    lf = _lm_decode(lm, params, cfg, toks, lm.init_decode_state(
+        cfg, 2, capacity=64, device=dev))
+    st8 = lm.init_decode_state(cfg8, 2, capacity=64, device=dev)
+    lq = _lm_decode(lm, params, cfg8, toks, st8)
+    err = _rel_err(lq, lf)
+    agree = float((lf.argmax(-1) == lq.argmax(-1)).float().mean())
+    checks.check("gemma3-1b int8 KV vs bf16 KV, 16 decode steps",
+                 err < INT8_ERR and agree >= INT8_AGREE
+                 and st8.caches[0].k.dtype == torch.int8,
+                 f"max|d logit| / max|logit| = {err!r} (bar {INT8_ERR}), "
+                 f"greedy agreement {agree} (bar {INT8_AGREE})")
+
+    # 4. the solo reruns: the same weights, the same tokens
+    t0 = time.perf_counter()
+    rc, out, err_ = _collect(solo_proc, timeout=900)
+    solo = {}
+    if rc == 0 and out.strip():
+        solo = json.loads(out.strip().splitlines()[-1])
+    checks.check("gemma3-1b solo process drew the same weights",
+                 solo.get("checksum") == checksum,
+                 f"exit {rc}, waited {time.perf_counter() - t0:.1f} s "
+                 f"after the staggered run; " + (
+                     f"{len(checksum)} parameter sums equal" if solo
+                     else err_[-900:]))
+    for i in LM_SOLO:
+        got = solo.get("outputs", {}).get(str(i))
+        checks.check(f"gemma3-1b request {i} (prompt {LM_PROMPTS[i]}) solo "
+                     f"equals its staggered run", got == outs[i],
+                     f"first tokens {None if got is None else got[:6]} vs "
+                     f"{outs[i][:6]}")
+
+    # 5. timed, then profiled: 4 busy slots, the card otherwise idle, the
+    # profiler last (its hooks can slow the launches after it)
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                      capacity=LM_CAPACITY, device=dev)
+    for _ in range(LM_SLOTS):
+        eng.submit(prompts[1], max_new_tokens=2 * LM_NEW)
+    prefill = _timed_ticks(eng, LM_PROMPTS[1])   # every slot prefilling
+    decode = _timed_ticks(eng, LM_WINDOW)        # every slot generating
+    prof = _tick_profile(eng, LM_WINDOW)
+    tick_ms = float(np.median(decode))
+    pre_ms = float(np.median(prefill[1:])) / LM_SLOTS
+    print(f"gemma3-1b engine (bf16, {LM_SLOTS} slots, capacity "
+          f"{LM_CAPACITY}): decode ms per tick at B={LM_SLOTS} median "
+          f"{tick_ms:.3f} (min {min(decode):.3f}, max {max(decode):.3f}, "
+          f"{LM_WINDOW} ticks) = {1e3 * LM_SLOTS / tick_ms:.1f} tokens/s; "
+          f"prefill-by-decode {pre_ms:.3f} ms per prompt token ({LM_SLOTS} "
+          f"slots prefilling, median tick / {LM_SLOTS}); the staggered "
+          f"run: {n_ticks} ticks in {wall:.2f} s "
+          f"({1e3 * wall / n_ticks:.3f} ms a tick beside the solo "
+          f"process)", flush=True)
+    print(f"gemma3-1b tick profile ({LM_WINDOW} ticks at B={LM_SLOTS}, "
+          f"torch.profiler): wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms, idle share "
+          + ("not measured" if prof["idle_share"] is None
+             else f"{prof['idle_share']:.4f}")
+          + f", kernel launches a tick {prof['launches_per_tick']:.1f}; "
+          f"{prof['top']}", flush=True)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"gemma3-1b peak memory allocated: {peak:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before the phase", flush=True)
+    return {"ms_per_tick": tick_ms, "prefill_ms_per_token": pre_ms,
+            "peak_gib": peak, **prof}
+
+
+def _lm_cli_check(checks: Checks, proc, cmd, t_start: float) -> None:
+    """(c) the CLI's process, started with the phase: exit 0 and
+    ``serve OK``."""
+    rc, stdout, stderr = _collect(proc, timeout=600)
+    said_ok = stdout.rstrip().endswith("serve OK")
+    print(f"CLI ({' '.join(cmd[1:])}): done {time.perf_counter() - t_start:.1f}"
+          f" s after its start; " + " | ".join(stdout.strip().splitlines()[:3]),
+          flush=True)
+    checks.check("LM CLI exits 0 and prints serve OK", rc == 0 and said_ok,
+                 f"exit {rc}; " + (stdout[-300:] + stderr[-900:]
+                                   if not (rc == 0 and said_ok) else
+                                   f"{len(stdout)} bytes of output"))
+
+
+def run_lm(checks: Checks, dev) -> dict:
+    """Phase 4g: the LM serving path on the card, (a) every smoke config,
+    (b) gemma3-1b at full width, (c) the CLI; the table's kernels launched
+    on it, counted from 0 (none: the LM path runs no kernel of the
+    table). The CLI and (b)'s solo reruns run in processes of their own
+    beside the rest: the tick is host-bound and the card mostly idle."""
+    import torch
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    t_start = time.perf_counter()
+    cli_cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "gemma3-1b", "--batch", "4", "--prompt-len", "32", "--gen",
+               "32", "--device", dev.type]
+    procs = [_spawn(cli_cmd, "LM CLI"),
+             _spawn([sys.executable, "-c", "import sys, chip_smoke; "
+                     f"sys.exit(chip_smoke.lm_solo_main({dev.type!r}))"],
+                    "gemma3-1b solo reruns")]
+    try:
+        _lm_smoke(checks, dev)
+        print(f"phase 4g (a): {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        full = _lm_full_width(checks, dev, procs[1])
+        torch.cuda.empty_cache()
+        print(f"phase 4g (b): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        _lm_cli_check(checks, procs[0], cli_cmd, t_start)
+        print(f"phase 4g (c): {time.perf_counter() - t0:.1f} s more",
+              flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    checks.check("phase 4g launched no kernel of the table", not launches,
+                 json.dumps(launches))
+    return full
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
@@ -3734,6 +4128,9 @@ def main() -> int:
     # ---- phase 4f: the audit on the card -----------------------------------
     audit = run_audit_phase(checks)
     phase_done("4f (audit)")
+    # ---- phase 4g: the LM serving path -------------------------------------
+    run_lm(checks, dev)
+    phase_done("4g (LM serving path)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),

@@ -66,6 +66,7 @@ ran. For TD/TT that is ``batch`` times an eager ``solve``'s counts.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Dict, NamedTuple, Tuple
 
@@ -290,9 +291,14 @@ class _Program:
         if missed:
             raise RuntimeError(f"solve_batched: the warm-up did not run "
                                f"the pieces {missed}")
+        # no collection during a capture: one would free the graphs of a
+        # dropped program (a reference cycle), and destroying a graph is
+        # an operation a capture forbids, which invalidates it
+        collecting = gc.isenabled()
         for name in self._pieces:
             graph = torch.cuda.CUDAGraph()
             before = _kernels.launch_counts()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, stream=side):
                     self._pieces[name]()
@@ -302,6 +308,9 @@ class _Program:
                     f"{self.pipe.variant} bucket (n={self.pipe.n}, "
                     f"s={self.pipe.s}, batch={self.batch}) failed: {err}"
                 ) from err
+            finally:
+                if collecting:
+                    gc.enable()
             after = _kernels.launch_counts()
             self.graph_launches[name] = {k: after[k] - before[k]
                                          for k in after

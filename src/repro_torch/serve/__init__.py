@@ -1,2 +1,2 @@
-"""Serving front ends of the port: the eigensolver engine
-(``eigen_engine``)."""
+"""Serving front ends of the port: the token serving engine (``engine``)
+and the eigensolver engine (``eigen_engine``)."""

@@ -1340,6 +1340,38 @@ def test_batched_bucket_matches_eager_solves(cuda, variant, precision):
         assert per == {} or all(v > 0 for v in per.values())
 
 
+def test_batched_capture_runs_no_collection(cuda):
+    """A dropped bucket's graphs wait in a reference cycle for the
+    collector; a collection inside the next bucket's capture destroys
+    them mid-capture, which a capturing stream does not permit, and the
+    capture fails (phase 4c of chip_smoke.py hit it once). With a
+    collection due at every allocation, none may start while a stream
+    captures."""
+    import gc
+    from repro_torch.core import batched
+    batched.clear_pipeline_cache()
+    probs, A, B = _bucket(cuda, k=2)
+    during = []
+
+    def note(phase, info):
+        if phase == "start":
+            during.append(torch.cuda.is_current_stream_capturing())
+
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(note)
+    try:
+        res = batched.solve_batched(A, B, BATCHED_S, variant="KE",
+                                    invert=True)
+    finally:
+        gc.callbacks.remove(note)
+        gc.set_threshold(*old)
+    assert during and not any(during), f"{sum(during)} of {len(during)}"
+    assert res.info["path"] == "cuda_graphs"
+    assert bool(res.converged.all())
+    batched.clear_pipeline_cache()
+
+
 def test_batched_cuda_call_never_takes_the_eager_path(cuda):
     """A warm call replays graphs only: with every piece's code replaced by
     one that raises, it still returns the same result."""
@@ -1530,3 +1562,25 @@ def test_audit_on_the_card(cuda):
     assert {"bisect_sturm", "invit", "symv", "symm_block", "house_panel",
             "syr2k", "rot_apply", "chase_pass", "replay_pass", "gemm",
             "trsm_tile", "band_mv"} <= launched
+
+
+def test_lm_decode_on_the_card_matches_the_host(cuda):
+    """The gemma3-1b smoke config (fp32, local and global layers, rings of
+    16 slots) decodes 24 tokens on the card within 1e-4 * max|logit| of the
+    same decode on the host, from the same weights."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as lm
+    cfg = smoke_config("gemma3-1b")
+    params = lm.init_params(0, cfg, device=cuda)
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(params.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    on_card = lm.init_decode_state(cfg, 2, capacity=32, device=cuda)
+    on_host = lm.init_decode_state(cfg, 2, capacity=32, device="cpu")
+    for t in range(toks.shape[1]):
+        got, on_card = lm.decode_step(params, toks[:, t:t + 1].to(cuda),
+                                      on_card, cfg)
+        want, on_host = lm.decode_step(host, toks[:, t:t + 1], on_host, cfg)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (t, err)

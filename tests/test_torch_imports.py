@@ -65,6 +65,9 @@ def test_the_port_has_files_to_check():
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     assert "src/repro_torch/serve/eigen_engine.py" in rel
     assert "src/repro_torch/launch/eigenserve.py" in rel
+    for name in ("models/model.py", "serve/engine.py", "launch/serve.py",
+                 "configs/__init__.py"):
+        assert f"src/repro_torch/{name}" in rel
     assert "chip_smoke.py" in rel
     assert len(FILES) > 40
 
