@@ -15,8 +15,11 @@ Phases, each printed as it runs; any failed check exits nonzero:
    minutes):
    ``bisect_sturm`` bitwise, ``invit`` by residual, orthogonality,
    per-cluster subspace angle and elementwise on singleton clusters, and
-   bitwise on repeat; kernel and plain timed in turns (kernel, plain,
-   kernel); ``bisect by levels``: the bisection at every m (levels a
+   bitwise on repeat; ``invit`` and its plain version timed in turns
+   (kernel, plain, kernel); the plain bisection in a worker process on the
+   host beside the card's work (its check, and the lines below that need
+   it, printed when it is done: MD's at the end of the phase, DFT's after
+   phase 3), the kernel timed twice; ``bisect by levels``: the bisection at every m (levels a
    Sturm sweep) a block holds, with the early stop and without it, in
    turns, each bitwise against the plain version, with the kernel's own
    step time at each lane count; the sweep at which the indices stopped
@@ -59,9 +62,11 @@ Phases, each printed as it runs; any failed check exits nonzero:
    shared memory, and the cooperative kernel) and the TT4 replay
    (``replay_pass``, both paths: the slab's columns in shared memory, and
    the sweep kernel) of the MD band at n=512, w=16 against the plain
-   versions on the host CPU; then, at the main path's n=9997, w=16, the
-   whole chase, its first and last pass also through the cooperative path
-   and the plain version on the card (on the same input), each pass timed,
+   versions on the host CPU (the chase's in a worker process beside the
+   card's work, checked after the n=9997 chase below); then, at the main
+   path's n=9997, w=16, the whole chase, its first and last pass also
+   through the cooperative path and the plain version on the card (on
+   the same input), each pass timed,
    and the parts of a step timed apart on those two passes (each path
    whole, its barriers alone, without them; the kernel's timing variants)
    and the replay of all the MD tables onto an (n, 100) slab through both
@@ -138,8 +143,9 @@ Phases, each printed as it runs; any failed check exits nonzero:
    forced, in turns, each bitwise; no table and lane 0 alone, the chain
    floor; then all 15 passes, slab against sweep, in turns), ``rot_apply``
    at G=1000, L=8, and ``symm_block`` at
-   p=1 and p=4 and ``symv`` on C (the plain chase on a host copy, the
-   others on the card); bitwise where the plain version rounds
+   p=1 and p=4 and ``symv`` on C (the plain chase on a host copy in a
+   worker process beside the card's work, checked at the end of the
+   phase; the others on the card); bitwise where the plain version rounds
    at the kernel's points, else within the gamma bars stated in
    ``compare_reduced``; each timed beside its bound at 4 or 2 bytes an
    entry and fp32's 67 TFLOP/s, and beside the library call where one
@@ -249,6 +255,32 @@ Phases, each printed as it runs; any failed check exits nonzero:
    share; (c) ``python -m repro_torch.launch.serve --arch gemma3-1b
    --batch 4 --prompt-len 32 --gen 32``, started with the phase in a
    process of its own, which must exit 0 and print ``serve OK``;
+4h. the LM training path (``repro_torch.train``, ``launch/train.py``,
+   ``analysis/analytic.py``), which runs no kernel of the table either
+   (its launches, counted from 0, must stay 0): (a) every smoke config
+   at fp32 from seeded weights, one train step (remat) on the card
+   against the same step on the host: every gradient (1e-4 max|g|), the
+   loss and metrics (1e-6; grad_norm 1e-5), the moments, the parameters
+   (within 2 lr, and 1e-6 max|p| + 1e-3 lr where |g| > 1e-3 max|g|), step
+   and count; (b) gemma3-1b at full width: one fp32 step (B=1, S=16) on
+   the card against the same step in a host process of its own (the
+   card's weights, by their checksum): the metrics, each parameter's
+   gradient norm, and the gradient and the new value at 512 sampled
+   entries a parameter; then bf16 compute with f32 masters and remat at
+   S=4096, B=2 (the reference's train_4k cut to one card): 2 warmup
+   steps, 5 timed, 2 under ``torch.profiler``; printed: ms a step,
+   tokens/s, the analytic ``train_flops`` and model TFLOP/s against the
+   bf16 peak, launches a step, the device's idle share, peak memory;
+   checked: finite losses within [0.5, 1.5] x the first, every parameter
+   moved; (c) ``python -m repro_torch.launch.train --arch xlstm-125m
+   --smoke --steps 30 --batch 4 --seq 32 --spectral-every 10 --ckpt-dir
+   ... --ckpt-every 10`` in a process started with the phase (as (b)'s
+   host step is): improved=True, a finite sharpness >= lambda_min at
+   steps 0, 10 and 20, and a rerun to step 32 that resumes from the
+   directory; and a resume drill in this process (gemma3-1b smoke: stop
+   at 5, save, on to 8; reload, to 8 again: bitwise). (b) runs after (c),
+   when both processes are done, so its timed steps have the card and
+   the host to themselves;
 5. one JSON line of the kernels (launches on their main path, launches
    in phase 4c's warm calls, in phase 4d, in phase 4e and in phase 4f's
    audit, error against the plain version, times, bound), the card's name
@@ -281,6 +313,9 @@ HBM_BYTES_PER_S = 3.35e12
 # fp32 outside the tensor cores: the rate of the reduced (fp32 and bf16)
 # instances, which all compute in fp32
 FP32_VECTOR_FLOPS = 67e12
+# bf16 through the tensor cores, dense (the same data sheet): the peak
+# phase 4h reads the LM train step's model TFLOP/s against
+BF16_TENSOR_FLOPS = 989e12
 
 TABLE3 = 1e-12           # relative_residual and b_orthogonality bars
 EVAL_BAR = 1e-10         # max eigenvalue error / max|lambda| of the spectrum
@@ -389,17 +424,27 @@ class Checks:
             self.failed.append(name)
 
 
-def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
-                        plain_dev="cpu", seed: int = 20120520) -> dict:
+def _plain_bisect_job(d, e2, ks, scal):
+    """The plain bisection on host copies, in a worker process: (the
+    eigenvalues, ms)."""
+    from repro_torch.kernels.tridiag_eig import ref
+    return _time_host(lambda: ref.bisect_sturm_ref(d, e2, ks, scal))
+
+
+def compare_td2_kernels(label: str, d, e, s: int, checks: Checks, workers,
+                        plain_dev="cpu", seed: int = 20120520):
     """Both TD2 kernels against their plain versions on tridiag(d, e), the s
-    smallest indices, the plain versions once each, between the kernel's
-    two runs (tens of seconds at these sizes): the bisection on CPU
-    copies (its row loop of small operations runs faster on the host than
-    as launches on the card), ``invit`` on ``plain_dev`` copies (the host
-    CPU, or the card where the host would take minutes). Then one
-    ``invit`` call's device time by kernel (the solve and the Gram-Schmidt)
-    and two runs checked bitwise equal. Returns one row per kernel (error,
-    times, bound)."""
+    smallest indices, the plain versions once each (tens of seconds at
+    these sizes): the bisection on CPU copies in ``workers`` (a worker
+    process beside the card's work: its row loop of small operations runs
+    faster on the host than as launches on the card), ``invit`` on
+    ``plain_dev`` copies (the host CPU, or the card where the host would
+    take minutes) between the kernel's two runs. Then one ``invit`` call's
+    device time by kernel (the solve and the Gram-Schmidt) and two runs
+    checked bitwise equal. Returns the ``invit`` row and a function that
+    waits for the plain bisection, checks the kernel's against it, runs
+    ``bisect_levels`` and returns the ``bisect_sturm`` row (error, times,
+    bound)."""
     import torch
     from repro_torch.core.tridiag_eig import (_cluster_ids, _pivmin, _scale,
                                               bisect_inputs, normalize_columns,
@@ -412,25 +457,31 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
     timer = _time_cuda if on_card else _time_host
     e2, scal = bisect_inputs(d, e)
     ks = torch.arange(s, device=d.device)
-    host = [t.cpu() for t in (d, e2, ks, scal)]
+    job = workers.submit(_plain_bisect_job, *(t.cpu() for t in (d, e2, ks,
+                                                              scal)))
     kernel.bisect_sturm(d, e2, ks, scal)   # warm-up: loads the module
-    lam_k, k1 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
-    lam_p, p1 = _time_host(lambda: ref.bisect_sturm_ref(*host))
-    _, k2 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
-    bis_err = float(torch.max(torch.abs(lam_k.cpu() - lam_p)))
-    print(f"{label} bisect_sturm: kernel {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.1f} ms (plain on the host CPU)", flush=True)
-    checks.check(f"{label} bisect_sturm bitwise",
-                 torch.equal(lam_k.cpu(), lam_p),
-                 f"max |kernel - plain| = {bis_err!r}")
-    levels_needed = bisect_levels(label, d, e2, ks, scal, lam_p,
-                                  (k1 + k2) / 2, checks)
-    # Sturm recurrence: sub, div, sub per row and level, for the levels
-    # each index takes to its fixed point in this run
-    rows = {"bisect_sturm": dict(
-        max_abs_err=bis_err, ms=(k1 + k2) / 2, plain_ms=p1, library_ms=None,
-        **_bound(levels_needed * n * 3, 8 * (2 * n + 3 + 2 * s)))}
+    lam_k, bk1 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
+    _, bk2 = _time_cuda(lambda: kernel.bisect_sturm(d, e2, ks, scal))
 
+    def finish() -> dict:
+        lam_p, bp = job.result()
+        bis_err = float(torch.max(torch.abs(lam_k.cpu() - lam_p)))
+        print(f"{label} bisect_sturm: kernel {bk1:.3f} / {bk2:.3f} ms, plain "
+              f"{bp:.1f} ms (plain on the host CPU, in a worker process "
+              f"beside the card's work)", flush=True)
+        checks.check(f"{label} bisect_sturm bitwise",
+                     torch.equal(lam_k.cpu(), lam_p),
+                     f"max |kernel - plain| = {bis_err!r}")
+        levels_needed = bisect_levels(label, d, e2, ks, scal, lam_p,
+                                      (bk1 + bk2) / 2, checks)
+        # Sturm recurrence: sub, div, sub per row and level, for the levels
+        # each index takes to its fixed point in this run
+        return dict(
+            max_abs_err=bis_err, ms=(bk1 + bk2) / 2, plain_ms=bp,
+            library_ms=None,
+            **_bound(levels_needed * n * 3, 8 * (2 * n + 3 + 2 * s)))
+
+    rows = {}
     lam = lam_k
     cid = _cluster_ids(lam, _scale(d, e))
     piv = _pivmin(d, e)
@@ -493,7 +544,7 @@ def compare_td2_kernels(label: str, d, e, s: int, checks: Checks,
         library_ms=None,
         **_bound(3 * (19 * n * s + 4 * n * pairs),
                  8 * (2 * n + 2 * s + 2 * n * s)))
-    return rows
+    return rows, finish
 
 
 def bisect_levels(label: str, d, e2, ks, scal, lam_p, wrapper_ms: float,
@@ -1256,20 +1307,37 @@ def _chase_agree(label: str, Wk, Wq, tk, tq, norm: float,
     return err
 
 
-def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
+def _plain_chase_all_job(W0, passes, w: int, n: int):
+    """The whole plain chase of the host band W0, pass by pass, in a
+    worker process: (the band after it, the tables, ms)."""
+    from repro_torch.kernels.rot_apply import ref
+
+    def chase_p():
+        Wp = W0.clone()
+        return Wp, [ref.chase_pass_ref(Wp, b, w, n) for b in passes]
+
+    (Wh, th), ms = _time_host(chase_p)
+    return Wh, th, ms
+
+
+def compare_chase(label: str, Wb, w: int, checks: Checks, dev, workers):
     """The whole TT2 chase of the band Wb pass by pass (``chase_pass``)
-    against its plain version on a CPU copy (kernel, plain, kernel), and
-    through the cooperative path; then the replay of its tables
-    (``compare_replay``, plain on the host CPU)."""
+    against its plain version on a CPU copy in ``workers`` (a worker
+    process beside the card's work), and through the cooperative path;
+    then the replay of its tables (``compare_replay``, plain on the host
+    CPU). Returns a function that waits for the plain chase and checks
+    the kernel's and the cooperative path's bands and tables against
+    it."""
     import torch
     from repro_torch.core.band_storage import unpack_band
     from repro_torch.core.sbr import _executed_passes
-    from repro_torch.kernels.rot_apply import kernel, ref
+    from repro_torch.kernels.rot_apply import kernel
     from repro_torch.kernels.rot_apply.schedule import padded_band
 
     n = Wb.shape[1]
     passes = _executed_passes(n, w)
     W0 = padded_band(Wb, w)
+    job = workers.submit(_plain_chase_all_job, W0.cpu(), passes, w, n)
 
     def chase_k():
         Wp = W0.clone()      # clone keeps the strides
@@ -1280,23 +1348,24 @@ def compare_chase(label: str, Wb, w: int, checks: Checks, dev):
         return Wp, [kernel.chase_launch(Wp, b, w, n, kernel.COOPERATIVE,
                                         kernel.FULL) for b in passes]
 
-    def chase_p():
-        Wp = W0.cpu()
-        return Wp, [ref.chase_pass_ref(Wp, b, w, n) for b in passes]
-
     chase_k()                                         # warm-up
     (Wk, tk), k1 = _time_cuda(chase_k)
-    (Wh, th), p1 = _time_host(chase_p)
     _, k2 = _time_cuda(chase_k)
     (Wc, tc), c1 = _time_cuda(chase_c)
-    print(f"{label} chase ({len(passes)} passes): kernel {k1:.3f} / "
-          f"{k2:.3f} ms (cooperative path {c1:.3f} ms), plain {p1:.0f} ms "
-          f"(plain on the host CPU)", flush=True)
     norm = float(torch.linalg.eigvalsh(unpack_band(Wb.cpu())).abs().max())
-    _chase_agree(f"{label} chase", Wk, Wh, tk, th, norm, checks)
-    _chase_agree(f"{label} chase, cooperative path", Wc, Wh, tc, th, norm,
-                 checks)
     compare_replay(label, passes, tk, n, "cpu", checks, dev)
+
+    def finish() -> None:
+        Wh, th, p1 = job.result()
+        print(f"{label} chase ({len(passes)} passes): kernel {k1:.3f} / "
+              f"{k2:.3f} ms (cooperative path {c1:.3f} ms), plain {p1:.0f} "
+              f"ms (plain on the host CPU, in a worker process beside the "
+              f"card's work)", flush=True)
+        _chase_agree(f"{label} chase", Wk, Wh, tk, th, norm, checks)
+        _chase_agree(f"{label} chase, cooperative path", Wc, Wh, tc, th,
+                     norm, checks)
+
+    return finish
 
 
 def compare_chase_md(label: str, Wb, w: int, norm: float, checks: Checks,
@@ -1849,23 +1918,52 @@ def _turns(times: dict) -> str:
                      for name, ts in times.items())
 
 
+def _plain_worker_init() -> None:
+    """A plain-version worker: one intra-op thread (its ops are a host
+    loop of small ones), the module loaded before the first job."""
+    import torch
+    from repro_torch.kernels.rot_apply import ref  # noqa: F401
+    torch.set_num_threads(1)
+
+
+def plain_workers():
+    """Four spawned worker processes for the plain versions that run on
+    the host beside the card's work (phase 2's bisections, phase 3b's
+    chase at n=512, phase 3d's fp32/bf16 chase passes)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(max_workers=4,
+                               mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_plain_worker_init)
+
+
+def _plain_chase_job(Wq, b: int, w: int, n: int):
+    """The plain chase pass b of the host band Wq, in a worker process:
+    (band after the pass, the (c, s) table, ms)."""
+    from repro_torch.kernels.rot_apply import ref as rr
+    CSq, ms = _time_host(lambda: rr.chase_pass_lanes_ref(Wq, b, w, n))
+    return Wq, CSq, ms
+
+
 def reduced_chase(label: str, sfx: str, Wb, w: int, tables: dict,
-                  checks: Checks) -> dict:
+                  checks: Checks, workers):
     """The ``sfx`` chase of the MD band Wb pass by pass through the wrapper
     (its plan's path: the cluster kernel), each pass's table put in
     ``tables`` (b -> table). Its first and last pass also run through the
-    cooperative kernel forced (the older path) and the plain chase on a host
-    copy, in turns (wrapper, plain, cooperative, wrapper, cooperative), each
-    bitwise against the plain version (band and table); then, on those two
-    passes, the cluster at 16 and at 8 CTAs, each whole and with its
-    barriers alone (``BARRIER_ONLY``: the chain floor of the pass), in
-    turns. Returns the row: the wrapper per launch over the two passes,
-    with the cooperative kernel's time and the plan's chain floor."""
+    cooperative kernel forced (the older path), in turns (wrapper,
+    cooperative, wrapper, cooperative), and through the plain chase on a
+    host copy in ``workers`` (a worker process, beside the card's work: a
+    host loop of ~30 s a pass), each bitwise against the plain version
+    (band and table); then, on those two passes, the cluster at 16 and at
+    8 CTAs, each whole and with its barriers alone (``BARRIER_ONLY``: the
+    chain floor of the pass), in turns. Returns a function that waits for
+    the plain passes, checks them and returns the row: the wrapper per
+    launch over the two passes, with the cooperative kernel's time and the
+    plan's chain floor."""
     import torch
     from repro_torch.core.band_storage import clean_band
     from repro_torch.core.sbr import _executed_passes
     from repro_torch.kernels.rot_apply import kernel as rk
-    from repro_torch.kernels.rot_apply import ref as rr
     from repro_torch.kernels.rot_apply.schedule import (chase_stagger,
                                                         padded_band,
                                                         pass_schedule)
@@ -1876,7 +1974,7 @@ def reduced_chase(label: str, sfx: str, Wb, w: int, tables: dict,
     compared = (passes[0], passes[-1])
     Wp = padded_band(clean_band(Wb).to(dt), w)
     npad = Wp.shape[1]
-    errs, k_ms, c_ms, p_ms, floors = [], [], [], [], []
+    k_ms, c_ms, floors, pending = [], [], [], []
     for b in passes:
         if b not in compared:
             tables[b] = rk.chase_pass(Wp, b, w, n)
@@ -1886,26 +1984,15 @@ def reduced_chase(label: str, sfx: str, Wb, w: int, tables: dict,
         checks.check(f"{label} chase_pass_{sfx} b={b} plan is the cluster "
                      f"kernel", plan.path == "cluster", str(plan))
         Wk, Wk2, Wc, Wc2 = (Wp.clone() for _ in range(4))
-        Wq = Wp.cpu()
+        job = workers.submit(_plain_chase_job, Wp.cpu(), b, w, n)
 
         def coop(W, b=b):
             return rk.chase_launch(W, b, w, n, rk.COOPERATIVE, rk.FULL)
 
-        # the plain chase on a host copy: a host loop of small ops a step,
-        # which the host runs faster than the card's launches
         CS, k1 = _time_cuda(lambda: rk.chase_pass(Wk, b, w, n))
-        CSq, p1 = _time_host(lambda: rr.chase_pass_lanes_ref(Wq, b, w, n))
         CSc, c1 = _time_cuda(lambda: coop(Wc))
         _, k2 = _time_cuda(lambda: rk.chase_pass(Wk2, b, w, n))
         _, c2 = _time_cuda(lambda: coop(Wc2))
-        for path, W, T in (("wrapper (cluster)", Wk, CS),
-                           ("cooperative", Wc, CSc)):
-            same = torch.equal(W.cpu(), Wq) and torch.equal(T.cpu(), CSq)
-            gap = float((W.cpu().float() - Wq.float()).abs().max())
-            checks.check(f"{label} chase_pass_{sfx} b={b} {path} band and "
-                         f"(c, s) table bitwise vs plain", same,
-                         f"max |kernel - plain| = {gap!r}")
-            errs.append(gap)
         checks.check(f"{label} chase_pass_{sfx} b={b} repeats bitwise",
                      bool(torch.equal(Wk, Wk2)), "two calls")
         sizes = {}
@@ -1928,23 +2015,44 @@ def reduced_chase(label: str, sfx: str, Wb, w: int, tables: dict,
         print(f"{label} chase_pass_{sfx} b={b}: wrapper ({plan.path}, "
               f"{plan.csize} CTAs of {plan.smem} bytes) {k1:.3f} / "
               f"{k2:.3f} ms, cooperative kernel (older path) {c1:.3f} / "
-              f"{c2:.3f} ms, plain {p1:.0f} ms (on the host CPU); by "
-              f"cluster size ({steps} steps; ms, in turns; us a step): "
+              f"{c2:.3f} ms; by cluster size ({steps} steps; ms, in turns; "
+              f"us a step): "
               + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} "
                           f"({1e3 * min(v) / steps:.3f})"
                           for k, v in times.items()), flush=True)
         k_ms.append((k1 + k2) / 2)
         c_ms.append((c1 + c2) / 2)
-        p_ms.append(p1)
         floors.append(floor)
+        # host copies now: the later passes run on in Wk's storage
+        pending.append((b, Wk.cpu(), CS.cpu(), Wc.cpu(), CSc.cpu(), job))
         tables[b] = CS
         Wp = Wk
-        del Wk2, Wc, Wc2, Wq, CSq, CSc
-    return dict(max_abs_err=max(errs), ms=sum(k_ms) / 2,
-                plain_ms=sum(p_ms) / 2, library_ms=None,
-                older_path_ms=sum(c_ms) / 2, chain_floor_ms=sum(floors) / 2,
-                **_per_launch(_chase_bound(n, w, compared, ESIZE[sfx],
-                                           FP32_VECTOR_FLOPS), 2))
+        del Wk2, Wc, Wc2, CSc
+
+    def finish() -> dict:
+        errs, p_ms = [], []
+        for b, Wk_h, CS_h, Wc_h, CSc_h, job in pending:
+            Wq, CSq, p1 = job.result()
+            for path, W, T in (("wrapper (cluster)", Wk_h, CS_h),
+                               ("cooperative", Wc_h, CSc_h)):
+                same = torch.equal(W, Wq) and torch.equal(T, CSq)
+                gap = float((W.float() - Wq.float()).abs().max())
+                checks.check(f"{label} chase_pass_{sfx} b={b} {path} band "
+                             f"and (c, s) table bitwise vs plain", same,
+                             f"max |kernel - plain| = {gap!r}")
+                errs.append(gap)
+            print(f"{label} chase_pass_{sfx} b={b}: plain {p1:.0f} ms (on "
+                  f"the host CPU, in a worker process beside the card's "
+                  f"work)", flush=True)
+            p_ms.append(p1)
+        return dict(max_abs_err=max(errs), ms=sum(k_ms) / 2,
+                    plain_ms=sum(p_ms) / 2, library_ms=None,
+                    older_path_ms=sum(c_ms) / 2,
+                    chain_floor_ms=sum(floors) / 2,
+                    **_per_launch(_chase_bound(n, w, compared, ESIZE[sfx],
+                                               FP32_VECTOR_FLOPS), 2))
+
+    return finish
 
 
 def reduced_replay(label: str, sfx: str, n: int, tables: dict, gen, dev,
@@ -2153,7 +2261,8 @@ def reduced_panel(label: str, sfx: str, E, row_start: int, checks: Checks,
     return row, (V, T)
 
 
-def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
+def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev,
+                    workers) -> dict:
     """Each fp32 and bf16 instance against its plain version on the card, at
     the MD main path's shapes; returns a row per instance
     (``<kernel>_<fp32|bf16>``).
@@ -2170,7 +2279,7 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
     batched ``torch.matmul`` of the (G, 2, 2) rotations for ``rot_apply``,
     in the storage dtype (fp32 with TF32 off, as PyTorch's default is);
     ``torch.geqrf`` of the active rows for the fp32 panel (no bf16
-    geqrf)."""
+    geqrf). ``workers`` is the process pool the plain chases run in."""
     import torch
     from repro_torch.core.linalg_utils import wy_syr2k_panel
     from repro_torch.core.precision import padded_copy
@@ -2183,7 +2292,7 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
 
     assert not torch.backends.cuda.matmul.allow_tf32
     n = C.shape[0]
-    rows = {}
+    rows, chases = {}, {}
     gen = torch.Generator(device=dev).manual_seed(21)
     for sfx in ("fp32", "bf16"):
         dt = _reduced_dtype(sfx)
@@ -2265,8 +2374,8 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
         torch.cuda.empty_cache()
         # ---- chase_pass on the MD band, replay_pass of its tables -------
         tables = {}
-        rows[f"chase_pass_{sfx}"] = reduced_chase(label, sfx, Wb, w, tables,
-                                                  checks)
+        chases[sfx] = reduced_chase(label, sfx, Wb, w, tables, checks,
+                                    workers)
         rows[f"replay_pass_{sfx}"] = reduced_replay(label, sfx, n, tables,
                                                     gen, dev, checks)
         del tables
@@ -2354,6 +2463,9 @@ def compare_reduced(label: str, C, Wb, w: int, checks: Checks, dev) -> dict:
                 library_ms=lib, **bound)
         del absA, Cd, Co
         torch.cuda.empty_cache()
+    # the plain chases ran beside all of the above
+    for sfx, finish in chases.items():
+        rows[f"chase_pass_{sfx}"] = finish()
     return rows
 
 
@@ -3582,18 +3694,18 @@ def _timed_ticks(eng, n: int) -> list:
     return out
 
 
-def _tick_profile(eng, ticks: int) -> dict:
-    """``ticks`` engine ticks under ``torch.profiler`` (CUDA activity):
-    the wall, the device time, the kernel launches (copies and memsets
-    apart) and the device's idle share, with the top kernels."""
+def _device_profile(fn, calls: int, top: int = 5) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler`` (CUDA activity):
+    the wall, the device time, the kernel launches a call (copies and
+    memsets apart) and the device's idle share, with the ``top`` kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.tick()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = [(getattr(ev, "device_time_total", 0.0) / 1e3, ev.count, ev.key)
@@ -3603,10 +3715,18 @@ def _tick_profile(eng, ticks: int) -> dict:
     launches = sum(r[1] for r in rows
                    if not r[2].startswith(("Memcpy", "Memset")))
     return {"wall_ms": wall, "device_ms": device,
-            "launches_per_tick": launches / ticks,
+            "launches_per_call": launches / calls,
             "idle_share": 1.0 - device / wall if device else None,
             "top": "; ".join(f"{_kernel_name(k)} {ms:.2f} ms x{n}"
-                             for ms, n, k in rows[:5])}
+                             for ms, n, k in rows[:top])}
+
+
+def _tick_profile(eng, ticks: int) -> dict:
+    """``ticks`` engine ticks under ``torch.profiler``
+    (``_device_profile``), launches counted a tick."""
+    prof = _device_profile(eng.tick, ticks)
+    prof["launches_per_tick"] = prof.pop("launches_per_call")
+    return prof
 
 
 def _lm_full_width(checks: Checks, dev, solo_proc) -> dict:
@@ -3797,6 +3917,520 @@ def run_lm(checks: Checks, dev) -> dict:
     return full
 
 
+# ---- phase 4h: the LM training path -------------------------------------------
+
+TRAIN_REL = 1e-6         # loss and metrics, card vs host (ppl_proxy: * nll)
+TRAIN_NORM_REL = 1e-5    # grad_norm: a norm over every gradient entry
+TRAIN_GRAD_REL = 1e-4    # a gradient: max|dg| / max|g| per parameter
+TRAIN_G_FLIP = 1e-3      # |g| above this share of max|g|: its sign holds
+#: the CPU tests' optimizer: lr 5e-4 at the first step
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=20)
+#: the launcher's optimizer for a 100-step run, for the timed steps
+TRAIN_OPT_TIMED = dict(lr=3e-4, warmup_steps=5, decay_steps=100)
+TRAIN_B, TRAIN_S = 2, 4096    # the reference's train_4k (S=4096, batch 256)
+TRAIN_WARMUP = 2         # bf16 steps before the timed ones
+TRAIN_TIMED = 5
+TRAIN_PROFILED = 2
+TRAIN_SAMPLES = 512      # entries of a parameter compared across processes
+TRAIN_CLI = ["--arch", "xlstm-125m", "--smoke", "--batch", "4", "--seq",
+             "32", "--ckpt-every", "10"]
+#: the CLI's run (the reference's loss-decrease setting, with the probe)
+#: and its rerun, which resumes from the run's last checkpoint
+TRAIN_CLI_RUNS = (["--steps", "30", "--spectral-every", "10"],
+                  ["--steps", "32"])
+
+
+def _train_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """The token pipeline's first batch at ``seed`` on ``dev`` (and, for
+    encoder-decoder configs, frontend embeds drawn on the host)."""
+    import torch
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+
+    b = TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=seed)).next_batch()
+    out = {k: torch.from_numpy(v) for k, v in b.items()}
+    if cfg.encoder_decoder:
+        out["embeds"] = torch.randn((B, S, cfg.d_model),
+                                    generator=torch.Generator().manual_seed(
+                                        seed))
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _train_grads(cfg, params, batch) -> dict:
+    """The gradient of the train step's loss, by parameter name."""
+    import torch
+    from repro_torch.train.train_step import make_loss_fn
+
+    names, leaves = zip(*params.named_parameters())
+    loss, _ = make_loss_fn(cfg, remat=False)(params, batch)
+    return dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def _metric_gaps(got: dict, want: dict) -> list:
+    """Names of the metrics outside the bars (``TRAIN_REL``; ppl_proxy =
+    exp(nll) at ``TRAIN_REL`` * nll; grad_norm at ``TRAIN_NORM_REL``)."""
+    bad = []
+    for k, w in want.items():
+        g = float(got[k])
+        bar = {"ppl_proxy": TRAIN_REL * max(float(want["nll"]), 1.0),
+               "grad_norm": TRAIN_NORM_REL}.get(k, TRAIN_REL)
+        if not (abs(g - w) <= bar * abs(w) or abs(g - w) <= 1e-12):
+            bad.append(f"{k} {g!r} vs {w!r}")
+    return bad
+
+
+def _param_ok(dp, g, p_scale: float, lr: float) -> bool:
+    """A parameter one AdamW step on (``dp``: |card - host| at its
+    entries, ``g``: |host gradient| there): within 2 lr everywhere (a sign
+    flip of a near-zero gradient), within 1e-6 max|p| + 1e-3 lr where |g|
+    exceeds ``TRAIN_G_FLIP`` of the parameter's max|g|."""
+    sure = g > TRAIN_G_FLIP * float(g.max())
+    tight = float(dp[sure].max()) if bool(sure.any()) else 0.0
+    return (float(dp.max()) <= 2 * lr * (1 + 1e-5)
+            and tight <= 1e-6 * p_scale + 1e-3 * lr)
+
+
+def _train_smoke(checks: Checks, dev) -> None:
+    """(a) every smoke config at fp32, one train step (remat) on the card
+    against the same step on the host from the same weights and batch:
+    every gradient, the loss and metrics, the step and count, the moments
+    and the parameters."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import (TrainState, init_train_state,
+                                              load_state_tree,
+                                              make_train_step, state_tree)
+
+    oc = OptimizerConfig(**TRAIN_OPT)
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch)
+        card = init_train_state(0, cfg, device=dev)
+        params = LM(cfg, device="cpu")
+        host = load_state_tree(TrainState(
+            params=params, opt=init_opt_state(params),
+            step=torch.zeros((), dtype=torch.int32)), state_tree(card))
+        batch = _train_batch(cfg, 2, 16, seed=1, dev=dev)
+        hbatch = {k: v.cpu() for k, v in batch.items()}
+        g_card = _train_grads(cfg, card.params, batch)
+        g_host = _train_grads(cfg, host.params, hbatch)
+        grad_gap = max(float((g_card[k].cpu() - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30)
+                       for k, g in g_host.items())
+        card, mc = make_train_step(cfg, oc, remat=True)(card, batch)
+        host, mh = make_train_step(cfg, oc, remat=True)(host, hbatch)
+        bad = _metric_gaps(mc, {k: float(v) for k, v in mh.items()})
+        lr = float(mh["lr"])
+        moments = max(float((a[k].cpu() - b[k]).abs().max())
+                      / max(float(b[k].abs().max()), 1e-30)
+                      for a, b in ((card.opt.mu, host.opt.mu),
+                                   (card.opt.nu, host.opt.nu)) for k in b)
+        params_ok = all(_param_ok((p.detach().cpu() - q.detach()).abs(),
+                                  g_host[k].abs(),
+                                  float(q.detach().abs().max()), lr)
+                        for (k, p), q in zip(card.params.named_parameters(),
+                                             host.params.parameters()))
+        steps = (int(card.step), int(card.opt.count))
+        checks.check(
+            f"LM {arch} smoke: a train step, card vs host",
+            grad_gap <= TRAIN_GRAD_REL and not bad and params_ok
+            and moments <= 2 * TRAIN_GRAD_REL and steps == (1, 1),
+            f"loss {float(mc['loss']):.6f} vs {float(mh['loss']):.6f}, "
+            f"grad_norm {float(mc['grad_norm']):.6f} vs "
+            f"{float(mh['grad_norm']):.6f}; worst gradient max|dg|/max|g| "
+            f"{grad_gap:.2e} (bar {TRAIN_GRAD_REL}), moments {moments:.2e}, "
+            f"parameters within the step's bars {params_ok}, step/count "
+            f"{steps}" + (f"; off: {bad}" if bad else "")
+            + f"; {time.perf_counter() - t0:.2f} s")
+
+
+def _train_samples(numel: int, i: int):
+    """The entries of parameter ``i`` compared across processes: all of a
+    small one, else ``TRAIN_SAMPLES`` drawn from seed ``i``."""
+    import torch
+    if numel <= TRAIN_SAMPLES:
+        return torch.arange(numel)
+    return torch.randint(0, numel, (TRAIN_SAMPLES,),
+                         generator=torch.Generator().manual_seed(i))
+
+
+def _full_width_fp32():
+    """gemma3-1b at its published widths in fp32 compute and the fp32
+    step's batch (B=1, S=16) on the host; the weights are drawn on the card
+    from seed 0, the same values in every process there."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-1b").scaled(dtype="float32")
+    return cfg, _train_batch(cfg, 1, 16, seed=1, dev="cpu")
+
+
+def train_host_main(device: str) -> int:
+    """The host side of phase 4h (b)'s fp32 step, in a process of its own:
+    the card's weights (drawn there from seed 0), copied to the host and
+    stepped there. Prints one JSON line: the weights' checksum, the
+    metrics, each parameter's gradient norm and, at its sampled entries,
+    the new value and the gradient, with its max|g|."""
+    import torch
+    from repro_torch.models.model import LM, init_params
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    torch.set_num_threads(6)    # the card's process and the CLI's keep two
+    cfg, batch = _full_width_fp32()
+    card = init_params(0, cfg, device=torch.device(device))
+    checksum = [float(p.detach().sum()) for p in card.parameters()]
+    params = LM(cfg, device="cpu")
+    params.load_state_dict(card.state_dict())
+    del card
+    torch.cuda.empty_cache()
+    host = TrainState(params=params, opt=init_opt_state(params),
+                      step=torch.zeros((), dtype=torch.int32))
+    out = {"checksum": checksum, "grad_norms": {}, "samples": {}}
+    grads = _train_grads(cfg, host.params, batch)
+    for i, (name, p) in enumerate(host.params.named_parameters()):
+        g = grads[name].reshape(-1)
+        idx = _train_samples(g.numel(), i)
+        out["grad_norms"][name] = float(torch.linalg.vector_norm(g))
+        out["samples"][name] = {"g": g[idx].tolist(),
+                                "gmax": float(g.abs().max())}
+    del grads
+    t0 = time.perf_counter()
+    host, m = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT))(host, batch)
+    out["step_s"] = time.perf_counter() - t0
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    for i, (name, p) in enumerate(host.params.named_parameters()):
+        idx = _train_samples(p.numel(), i)
+        out["samples"][name]["p"] = p.detach().reshape(-1)[idx].tolist()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _fp32_step_vs_host(checks: Checks, dev, host_proc):
+    """(b) 1: gemma3-1b's fp32 step (B=1, S=16) on the card against the
+    host process's: the weights' checksum, the metrics, every parameter's
+    gradient norm, and at the sampled entries the gradient and the new
+    parameter (the step's bars). Returns the card's state."""
+    import torch
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, batch = _full_width_fp32()
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    state = init_train_state(0, cfg, device=dev)
+    checksum = [float(p.detach().sum()) for p in state.params.parameters()]
+    grads = _train_grads(cfg, state.params, batch)
+    norms, g_at = {}, {}
+    for i, (name, p) in enumerate(state.params.named_parameters()):
+        g = grads[name].reshape(-1)
+        norms[name] = float(torch.linalg.vector_norm(g))
+        g_at[name] = g[_train_samples(g.numel(), i).to(dev)].cpu()
+    del grads
+    state, m = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT))(
+        state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc, out, err = _collect(host_proc, timeout=900)
+    host = json.loads(out.strip().splitlines()[-1]) if (
+        rc == 0 and out.strip()) else {}
+    checks.check("gemma3-1b host process drew the same weights",
+                 host.get("checksum") == checksum,
+                 f"exit {rc}, waited {time.perf_counter() - t0:.1f} s after "
+                 f"the card's step ({card_s:.1f} s with its draw); " + (
+                     f"{len(checksum)} parameter sums equal, its step "
+                     f"{host['step_s']:.1f} s on the host" if host
+                     else err[-900:]))
+    if not host:
+        return cfg, state
+    bad = _metric_gaps(m, host["metrics"])
+    lr = host["metrics"]["lr"]
+    # | |g_card| - |g_host| | <= |g_card - g_host| <= sqrt(n) max|dg|: the
+    # gradient's bar, over the whole tensor
+    norm_gap, worst = 0.0, ""
+    for i, (name, p) in enumerate(state.params.named_parameters()):
+        gap = abs(norms[name] - host["grad_norms"][name]) / (
+            p.numel() ** 0.5 * max(host["samples"][name]["gmax"], 1e-30))
+        if gap >= norm_gap:
+            norm_gap, worst = gap, (
+                f"{name}: {norms[name]!r} vs {host['grad_norms'][name]!r}")
+    g_gap, p_bad = 0.0, []
+    for i, (name, p) in enumerate(state.params.named_parameters()):
+        h = host["samples"][name]
+        hg = torch.tensor(h["g"], dtype=torch.float32)
+        g_gap = max(g_gap, float((g_at[name] - hg).abs().max())
+                    / max(h["gmax"], 1e-30))
+        got = p.detach().reshape(-1)[_train_samples(p.numel(), i).to(
+            dev)].cpu()
+        want = torch.tensor(h["p"], dtype=torch.float32)
+        if not _param_ok((got - want).abs(), hg.abs(),
+                         float(want.abs().max()), lr):
+            p_bad.append(name)
+    checks.check(
+        "gemma3-1b fp32 train step (B=1, S=16), card vs host",
+        not bad and norm_gap <= TRAIN_GRAD_REL and g_gap <= TRAIN_GRAD_REL
+        and not p_bad and (int(state.step), int(state.opt.count)) == (1, 1),
+        f"loss {float(m['loss']):.6f} vs {host['metrics']['loss']:.6f}, "
+        f"grad_norm {float(m['grad_norm']):.6f} vs "
+        f"{host['metrics']['grad_norm']:.6f}; each parameter's gradient "
+        f"norm within {norm_gap:.2e} of sqrt(n) max|g| (the largest gap: "
+        f"{worst}), sampled gradients {g_gap:.2e} of max|g| (bar "
+        f"{TRAIN_GRAD_REL} both); {len(p_bad)} parameters off the step's "
+        f"bars at their {TRAIN_SAMPLES} sampled entries"
+        + (f" ({p_bad[:4]})" if p_bad else "")
+        + (f"; off: {bad}" if bad else ""))
+    return cfg, state
+
+
+def _train_full_width(checks: Checks, dev, host_proc) -> dict:
+    """(b) gemma3-1b at its published widths: the fp32 step against the
+    host, then bf16 compute with f32 masters and remat at the cut train_4k
+    shape: warmup, timed steps, profiled steps; the analytic model's flops
+    a step against the bf16 peak."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.analytic import train_flops
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    checks.check("fp32 matmuls are fp32 (no TF32)",
+                 not torch.backends.cuda.matmul.allow_tf32
+                 and torch.get_float32_matmul_precision() == "highest",
+                 f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+                 f"precision {torch.get_float32_matmul_precision()}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()    # what earlier phases still hold
+    _, state = _fp32_step_vs_host(checks, dev, host_proc)
+
+    cfg = get_config("gemma3-1b")
+    B, S = TRAIN_B, TRAIN_S
+    print(f"gemma3-1b train_4k (S=4096, global batch 256 on 256+ chips) cut "
+          f"to S={S}, B={B} on one card; bf16 compute, f32 masters and "
+          f"AdamW moments, remat", flush=True)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=2))
+    n = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.next_batch().items()} for _ in range(n)]
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT_TIMED),
+                           remat=True)
+    before = [float(p.detach().sum()) for p in state.params.parameters()]
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))     # waits for the step
+        times.append(1e3 * (time.perf_counter() - t0))
+    rest = iter(batches[TRAIN_WARMUP + TRAIN_TIMED:])
+    last = {}
+
+    def profiled_step():
+        _, last["m"] = step(state, next(rest))
+
+    prof = _device_profile(profiled_step, TRAIN_PROFILED, top=12)
+    losses.append(float(last["m"]["loss"]))
+    after = [float(p.detach().sum()) for p in state.params.parameters()]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    timed = times[TRAIN_WARMUP:]
+    ms = float(np.median(timed))
+    flops = train_flops(cfg, ShapeConfig("card", S, B, "train"))
+    moved = sum(a != b for a, b in zip(before, after))
+    print(f"gemma3-1b train step (bf16, B={B}, S={S}, remat): median "
+          f"{ms:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}, "
+          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} warmup: "
+          f"{', '.join(f'{t:.1f}' for t in times)}) = "
+          f"{1e3 * B * S / ms:.1f} tokens/s; analytic train_flops "
+          f"{flops:.4e} a step = {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / ms / 1e9 / (BF16_TENSOR_FLOPS / 1e12):.4f} of the "
+          f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"gemma3-1b train profile ({TRAIN_PROFILED} steps, "
+          f"torch.profiler): wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms, idle share "
+          + ("not measured" if prof["idle_share"] is None
+             else f"{prof['idle_share']:.4f}")
+          + f", kernel launches a step {prof['launches_per_call']:.1f}; "
+          f"{prof['top']}", flush=True)
+    print(f"gemma3-1b train peak memory allocated: {peak:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before the phase", flush=True)
+    first = losses[0]
+    checks.check("gemma3-1b bf16 train steps: finite losses, no blow-up",
+                 all(np.isfinite(x) and 0.5 * first <= x <= 1.5 * first
+                     for x in losses),
+                 f"{len(losses)} losses within [0.5, 1.5] x the first "
+                 f"({first:.4f}): {min(losses):.4f}..{max(losses):.4f}")
+    checks.check("gemma3-1b bf16 train steps moved the parameters",
+                 moved == len(before),
+                 f"{moved} of {len(before)} parameter sums changed")
+    del state, batches
+    return {"ms_per_step": ms, "tokens_per_s": 1e3 * B * S / ms,
+            "tflops": flops / ms / 1e9, "peak_gib": peak, **prof}
+
+
+def train_cli_main(ckpt_dir: str, device: str) -> int:
+    """Phase 4h (c)'s CLI runs, in a process beside (a) and (b): 30 steps
+    with the probe every 10 and a checkpoint every 10, then a rerun to 32
+    that resumes from the directory; prints one JSON line of both runs."""
+    # its ops are launches: no host thread pool to spin beside the others
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = []
+    for extra in TRAIN_CLI_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+               *extra, "--ckpt-dir", ckpt_dir, "--device", device]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=str(ROOT), timeout=600)
+        runs.append({"rc": out.returncode, "stdout": out.stdout,
+                     "stderr": out.stderr[-2000:],
+                     "s": time.perf_counter() - t0})
+    print(json.dumps(runs), flush=True)
+    return 0
+
+
+def _train_cli_check(checks: Checks, proc) -> None:
+    """(c) the CLI's two runs: exit 0, ``improved=True``, finite sharpness
+    >= lambda_min at steps 0, 10 and 20, and the rerun's resume."""
+    import math
+    import re
+    rc, out, err = _collect(proc, timeout=900)
+    runs = json.loads(out.strip().splitlines()[-1]) if (
+        rc == 0 and out.strip()) else []
+    if len(runs) != 2:
+        checks.check("LM train CLI ran", False, f"exit {rc}; {err[-900:]}")
+        return
+    first, again = runs
+    lines = first["stdout"].strip().splitlines()
+    probes = [re.search(r"sharpness=(\S+) lambda_min=(\S+)", ln)
+              for ln in lines if "[spectral]" in ln]
+    spec = [(float(m.group(1)), float(m.group(2))) for m in probes if m]
+    print(f"LM train CLI (python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI + TRAIN_CLI_RUNS[0])}): {first['s']:.1f} s; "
+          + " | ".join(ln.strip() for ln in lines
+                       if ln.startswith(("step=", "  [spectral]", "loss ")))
+          + f"; the rerun to 32: {again['s']:.1f} s", flush=True)
+    checks.check("LM train CLI: 30 steps, improved=True",
+                 first["rc"] == 0 and bool(lines)
+                 and lines[-1].startswith("loss first10=")
+                 and lines[-1].endswith("improved=True"),
+                 f"exit {first['rc']}; "
+                 + (lines[-1] if lines else first["stderr"][-900:]))
+    checks.check("LM train CLI: the curvature probe at steps 0, 10, 20",
+                 len(spec) == 3 and all(math.isfinite(a) and math.isfinite(b)
+                                        and a >= b for a, b in spec),
+                 f"(sharpness, lambda_min) {spec}")
+    checks.check("LM train CLI: the rerun resumes from the directory",
+                 again["rc"] == 0
+                 and "resumed from step 30" in again["stdout"],
+                 f"exit {again['rc']}; "
+                 + " | ".join(again["stdout"].strip().splitlines()[:2])
+                 + (again["stderr"][-600:] if again["rc"] else ""))
+
+
+def _train_resume_drill(checks: Checks, dev, directory: str) -> None:
+    """(c) stop at step 5, save, continue to 8; reload, run to 8 again:
+    the parameters and moments bitwise equal (the gemma3-1b smoke config,
+    as the reference's test)."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              load_state_tree,
+                                              make_train_step, state_tree)
+
+    cfg = smoke_config("gemma3-1b")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
+    step_fn = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT))
+
+    def run(state, pipe, n):
+        for _ in range(n):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.next_batch().items()}
+            state, _ = step_fn(state, batch)
+        return state
+
+    pipe = TokenPipeline(dcfg)
+    state = run(init_train_state(1, cfg, device=dev), pipe, 5)
+    ckpt.save(directory, 5, state_tree(state), extra={"cursor": pipe.step})
+    ref = run(state, pipe, 3)
+    like = init_train_state(1, cfg, device=dev)
+    step, tree, extra = ckpt.load_latest(directory, state_tree(like))
+    pipe2 = TokenPipeline(dcfg)
+    pipe2.seek(extra["cursor"])
+    resumed = run(load_state_tree(like, tree), pipe2, 3)
+    a, b = state_tree(ref), state_tree(resumed)
+    a["params"] = {k: v.detach() for k, v in a["params"].items()}
+    b["params"] = {k: v.detach() for k, v in b["params"].items()}
+    off = [f"{key}.{name}" for key in ("params", "mu", "nu")
+           for name in a[key] if not torch.equal(a[key][name], b[key][name])]
+    gap = max((float((a[key][n] - b[key][n]).abs().max())
+               for key in ("params", "mu", "nu") for n in a[key]),
+              default=0.0)
+    checks.check("LM train resume drill on the card (gemma3-1b smoke, step "
+                 "5 -> 8): bitwise", step == 5 and not off
+                 and int(resumed.step) == 8,
+                 f"resumed at {step}; {len(off)} tensors differ "
+                 f"(max |d| {gap!r})" + (f": {off[:4]}" if off else ""))
+
+
+def run_lm_train(checks: Checks, dev) -> dict:
+    """Phase 4h: the LM training path on the card, (a) every smoke config,
+    (c) the resume drill and the CLI, (b) gemma3-1b at full width; the
+    table's kernels launched on it, counted from 0 (none: the training
+    path runs no kernel of the table). (b)'s host step and (c)'s CLI run
+    in processes of their own from the phase's start, beside (a) and the
+    drill; (b) runs last, when both are done, so that its timed steps
+    have the card and the host to themselves."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    t_start = time.perf_counter()
+    threads = torch.get_num_threads()
+    # (a)'s host steps are small ops: one thread, and the cores left to the
+    # processes beside this one
+    torch.set_num_threads(1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    procs = [_spawn([sys.executable, "-c", "import sys, chip_smoke; "
+                     f"sys.exit(chip_smoke.train_host_main({dev.type!r}))"],
+                    "gemma3-1b fp32 host step"),
+             _spawn([sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                     f"chip_smoke.train_cli_main({os.path.join(tmp, 'cli')!r}, "
+                     f"{dev.type!r}))"], "LM train CLI")]
+    try:
+        _train_smoke(checks, dev)
+        print(f"phase 4h (a): {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        _train_resume_drill(checks, dev, os.path.join(tmp, "drill"))
+        _train_cli_check(checks, procs[1])
+        print(f"phase 4h (c): {time.perf_counter() - t0:.1f} s more",
+              flush=True)
+        # last, with both processes done: the timed steps on a card
+        # otherwise idle
+        t0 = time.perf_counter()
+        full = _train_full_width(checks, dev, procs[0])
+        torch.cuda.empty_cache()
+        print(f"phase 4h (b): {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.set_num_threads(threads)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    checks.check("phase 4h launched no kernel of the table", not launches,
+                 json.dumps(launches))
+    return full
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--md-n", type=int, default=9997)
@@ -3872,6 +4506,9 @@ def main() -> int:
     def standard_form(prob):
         return to_standard_two_trsm(prob.A, cholesky_upper(prob.B))
 
+    # the host-side plain versions of phases 2-3d run in worker processes
+    # beside the card's work; their checks come when they are done
+    workers = plain_workers()
     t0 = time.perf_counter()
     md = md_like(args.md_n, device=dev)
     torch.cuda.synchronize()
@@ -3883,8 +4520,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"MD GS1+GS2+TD1 for the kernel inputs: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = compare_td2_kernels(f"MD n={args.md_n} s={args.md_s}", res.d,
-                               res.e, args.md_s, checks)
+    rows, md_bisect = compare_td2_kernels(
+        f"MD n={args.md_n} s={args.md_s}", res.d, res.e, args.md_s, checks,
+        workers)
     del res
 
     # the DFT tridiagonal from TT1 + TT2 (TD1 is a host loop of n columns);
@@ -3898,11 +4536,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"DFT GS1+GS2+TT1+TT2 for the kernel inputs: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    compare_td2_kernels(f"DFT n={args.dft_n} s={args.dft_s}", chase.d,
-                        chase.e, args.dft_s, checks, plain_dev=dev)
+    _, dft_bisect = compare_td2_kernels(
+        f"DFT n={args.dft_n} s={args.dft_s}", chase.d, chase.e, args.dft_s,
+        checks, workers, plain_dev=dev)
     dft_tables = chase.cs                   # TT4's replay there (phase 3b)
     del chase
     torch.cuda.empty_cache()
+    rows["bisect_sturm"] = md_bisect()
     phase_done("2 (TD2 kernels)")
 
     # ---- phase 3: the one-triangle product against its plain version -----
@@ -3915,6 +4555,7 @@ def main() -> int:
     compare_product(f"garbage-lower n={args.wide_n}", W, checks, seed=3)
     del W
     torch.cuda.empty_cache()
+    dft_bisect()                            # its plain bisection ran beside
     phase_done("3 (product)")
 
     # ---- phase 3b: the TT kernels against their plain versions -----------
@@ -3938,14 +4579,15 @@ def main() -> int:
     rows["rot_apply"] = compare_rot_apply(checks, dev)
     small = md_like(args.chase_n, device=dev)
     band = reduce_to_band(standard_form(small), w=TT_W)
-    compare_chase(f"MD band n={args.chase_n} w={TT_W}", band.Wb, TT_W,
-                  checks, dev)
+    small_chase = compare_chase(f"MD band n={args.chase_n} w={TT_W}",
+                                band.Wb, TT_W, checks, dev, workers)
     del small, band
     # the main path's band: ||W||_2 = max |lambda| of the exact spectrum
     band = reduce_to_band(C, w=TT_W)
     rows.update(compare_chase_md(
         f"MD band n={n} w={TT_W}", band.Wb, TT_W,
         float(md.exact_evals.abs().max()), checks, dev))
+    small_chase()                           # its plain chase ran beside
     # the DFT paper size: TT4's replay onto (n, s) against the sweep kernel
     compare_replay(f"DFT n={args.dft_n} w={TT_W}",
                    _executed_passes(args.dft_n, TT_W), dft_tables, args.dft_n,
@@ -3958,7 +4600,9 @@ def main() -> int:
     band_bm = to_band_mv_layout(band.Wb).contiguous()
     phase_done("3b (band_mv)")
     # ---- phase 3d: the fp32 and bf16 instances at the MD shapes ----------
-    rows.update(compare_reduced(f"MD n={n}", C, band.Wb, TT_W, checks, dev))
+    rows.update(compare_reduced(f"MD n={n}", C, band.Wb, TT_W, checks, dev,
+                                workers))
+    workers.shutdown()
     del band
     torch.cuda.empty_cache()
     phase_done("3d (kernels below fp64)")
@@ -4131,6 +4775,9 @@ def main() -> int:
     # ---- phase 4g: the LM serving path -------------------------------------
     run_lm(checks, dev)
     phase_done("4g (LM serving path)")
+    # ---- phase 4h: the LM training path ------------------------------------
+    run_lm_train(checks, dev)
+    phase_done("4h (LM training path)")
     for label, counts, names in (("TD", td, ("bisect_sturm", "invit")),
                                  ("KE", ke, ("symm_block",)),
                                  ("KI", ki, ("symm_block",)),

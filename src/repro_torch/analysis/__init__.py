@@ -1,2 +1,3 @@
 """repro_torch.analysis — the cost model of the four variants and the
-variant router (``variant_model``)."""
+variant router (``variant_model``), the LM stack's analytic cost model
+(``analytic``) and the audit (``static_audit``)."""

@@ -7,7 +7,8 @@ and for encoder-decoder models the encoder layers and their norm. Names
 below ``layers.<i>`` are the reference's parameter keys.
 
 Two paths:
-  * ``forward``      — full-sequence (prefill)
+  * ``forward``      — full-sequence (train / prefill; ``remat=`` checkpoints
+    each repeat of the layer period)
   * ``decode_step``  — one token with per-layer caches/states (ring-buffer KV
     for attention layers, O(1) states for mamba/xlstm), updated in place
 Encoder-decoder (seamless) adds ``encode`` and cross-attention in the
@@ -20,6 +21,7 @@ from typing import Any, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -174,13 +176,34 @@ def encode(params: LM, embeds: torch.Tensor, cfg: ModelConfig
 
 def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
             memory: Optional[torch.Tensor] = None,
-            embeds: Optional[torch.Tensor] = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass -> (logits (B,S,V) f32, moe aux loss scalar)."""
+            embeds: Optional[torch.Tensor] = None,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass -> (logits (B,S,V) f32, moe aux loss scalar).
+
+    ``remat=True`` is the reference's ``jax.checkpoint`` of a superblock:
+    each repeat of the period's P layers (``layer_plan``) keeps only its
+    input for the backward pass and recomputes the rest; the tail layers
+    are not checkpointed, as in the reference. The values do not change.
+    """
     x = (embeds.to(cdtype(cfg)) if embeds is not None
          else embed(params.embed, tokens, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params.layers:
+    _, P, R, _ = layer_plan(cfg)
+    layers = params.layers
+
+    def superblock(x, aux, r: int):
+        for p in layers[r * P:(r + 1) * P]:
+            x, aux = _layer_fwd(p, x, cfg, p.kind, p.fkind, aux, memory)
+        return x, aux
+
+    for r in range(R):
+        if remat:
+            # the forward draws no random numbers: no RNG state to replay
+            x, aux = checkpoint(superblock, x, aux, r, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = superblock(x, aux, r)
+    for p in layers[P * R:]:
         x, aux = _layer_fwd(p, x, cfg, p.kind, p.fkind, aux, memory)
     x = rmsnorm(params.ln_f, x, cfg)
     return unembed(params.embed, x, cfg), aux

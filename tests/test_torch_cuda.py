@@ -1584,3 +1584,88 @@ def test_lm_decode_on_the_card_matches_the_host(cuda):
         want, on_host = lm.decode_step(host, toks[:, t:t + 1], on_host, cfg)
         err = float((got.cpu() - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), (t, err)
+
+
+def test_train_step_on_the_card_matches_the_host(cuda):
+    """One gemma3-1b smoke train step (fp32, remat) on the card against the
+    same step on the host, from the same weights and batch, at the CPU
+    tests' bars (``tests/test_torch_train_arch.py``): the metrics within
+    1e-6 relative (``ppl_proxy`` within 1e-6 * nll, ``grad_norm`` within
+    1e-5), the moments within
+    2e-4 of max|moment|, the parameters within 2 lr everywhere and within
+    1e-6 max|p| + 1e-3 lr where |g| > 1e-3 max|g|."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import (TrainState, init_train_state,
+                                              load_state_tree, make_loss_fn,
+                                              make_train_step, state_tree)
+    cfg = smoke_config("gemma3-1b")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=2, decay_steps=20)
+    card = init_train_state(0, cfg, device=cuda)
+    params = LM(cfg, device="cpu")
+    host = load_state_tree(
+        TrainState(params=params, opt=init_opt_state(params),
+                   step=torch.zeros((), dtype=torch.int32)), state_tree(card))
+    b = TokenPipeline(DataConfig(cfg.vocab_size, 16, 2, seed=1)).next_batch()
+    hb = {k: torch.from_numpy(v) for k, v in b.items()}
+    names, leaves = zip(*host.params.named_parameters())
+    loss, _ = make_loss_fn(cfg, remat=False)(host.params, hb)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    card, mc = make_train_step(cfg, oc)(card, {k: v.to(cuda)
+                                                for k, v in hb.items()})
+    host, mh = make_train_step(cfg, oc)(host, hb)
+    assert (int(card.step), int(card.opt.count)) == (1, 1)
+    nll = float(mh["nll"])
+    for k, want in mh.items():
+        bar = {"ppl_proxy": 1e-6 * max(nll, 1.0), "grad_norm": 1e-5}.get(
+            k, 1e-6)
+        got, want = float(mc[k]), float(want)
+        assert abs(got - want) <= bar * abs(want) or abs(got - want) <= 1e-12, k
+    lr = float(mh["lr"])
+    for (name, p), q in zip(card.params.named_parameters(),
+                            host.params.parameters()):
+        for a, b_ in ((card.opt.mu[name], host.opt.mu[name]),
+                      (card.opt.nu[name], host.opt.nu[name])):
+            assert float((a.cpu() - b_).abs().max()) <= (
+                2e-4 * float(b_.abs().max())), name
+        dp = (p.detach().cpu() - q.detach()).abs()
+        g = grads[name].abs()
+        sure = g > 1e-3 * float(g.max())
+        assert float(dp.max()) <= 2 * lr * (1 + 1e-5), name
+        tight = float(dp[sure].max()) if bool(sure.any()) else 0.0
+        assert tight <= 1e-6 * float(q.detach().abs().max()) + 1e-3 * lr, name
+
+
+def test_hvp_graph_on_the_card_matches_the_host(cuda):
+    """The probe's Hessian-vector product on the card (the double backward
+    captured as a CUDA graph, replayed for each tangent) against the eager
+    product on the host, from the same weights, batch and tangents: within
+    1e-4 of max|Hv|, the bar of the CPU tests against the reference."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.models import model as lm
+    from repro_torch.train.loss import ce_loss
+    from repro_torch.train.spectral import make_hvp
+    cfg = smoke_config("xlstm-125m")
+    params = lm.init_params(0, cfg, device=cuda)
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(params.state_dict())
+    b = TokenPipeline(DataConfig(cfg.vocab_size, 8, 2, seed=1)).next_batch()
+    hb = {k: torch.from_numpy(v) for k, v in b.items()}
+
+    def probe_loss(p, batch):
+        logits, _ = lm.forward(p, batch["tokens"], cfg, remat=False)
+        return ce_loss(logits, batch["labels"])[0]
+
+    hvp_card, dim = make_hvp(probe_loss, params, {k: v.to(cuda)
+                                                  for k, v in hb.items()})
+    hvp_host, _ = make_hvp(probe_loss, host, hb)
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(2):
+        v = torch.randn(dim, generator=gen)
+        want = hvp_host(v)
+        got = hvp_card(v.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= (
+            1e-4 * float(want.abs().max()))
